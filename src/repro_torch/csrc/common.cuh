@@ -1,0 +1,77 @@
+// Helpers shared by the attention kernels of repro_torch. Each
+// csrc/<name>.cu includes this once and builds into a library of its own.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// The Pallas kernels' "minus infinity": finite, so that max/exp of a row
+// with nothing visible stay finite and the `alive` guard can test it.
+#define ATTN_NEG_INF (-1e30f)
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store_float(float v, float* p) { *p = v; }
+__device__ __forceinline__ void store_float(float v, __nv_bfloat16* p) {
+  *p = __float2bfloat16(v);
+}
+
+// Elements of T in one 16-byte load.
+template <typename T>
+struct Vec16 {
+  static constexpr int N = 16 / sizeof(T);
+};
+
+// Load 16 bytes of T from global memory (16-byte aligned) as floats.
+template <typename T>
+__device__ __forceinline__ void load16(const T* src, float* dst) {
+  uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < Vec16<T>::N; ++i) dst[i] = to_float(e[i]);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Dynamic shared memory above the default 48 KB must be asked for.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+// Returns launch<T, D>(...) for the wrapper's dtype code (0 = float32,
+// 1 = bfloat16: DTYPES in kernels/build.py) and head dim D of 64 or 128,
+// and cudaErrorInvalidValue for any other pair.
+#define DISPATCH_DTYPE_HEAD_DIM(dtype, D, ...)                          \
+  do {                                                                  \
+    if ((dtype) == 0 && (D) == 64) return launch<float, 64>(__VA_ARGS__); \
+    if ((dtype) == 0 && (D) == 128)                                     \
+      return launch<float, 128>(__VA_ARGS__);                           \
+    if ((dtype) == 1 && (D) == 64)                                      \
+      return launch<__nv_bfloat16, 64>(__VA_ARGS__);                    \
+    if ((dtype) == 1 && (D) == 128)                                     \
+      return launch<__nv_bfloat16, 128>(__VA_ARGS__);                   \
+    return cudaErrorInvalidValue;                                       \
+  } while (0)
+
+// CUDA's string for an error code that a launch function returned.
+extern "C" const char* kernel_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,377 @@
+"""``TorchEngine``: the fused continuous-batching engine on the paged KV
+layout, in PyTorch.
+
+The counterpart of the JAX package's ``engine/jax_backend.py::JaxEngine``
+with ``kv_layout="paged"``, carrying the slot bookkeeping of its
+``_SlotEngineBase``. It speaks the same backend protocol to ``Replica``
+(``on_admit`` / ``on_release`` / ``preflight`` / ``execute``): one
+``fused_serve_forward`` per BatchPlan, with prefill chunks and the decode
+batch as per-slot rows bucketed to the engine quantum, block tables
+rebuilt from the scheduler's ``KVPool`` grants, greedy sampling on the
+device and one device-to-host transfer per iteration.
+
+Not ported yet (ROADMAP.md queue 1): the dense layout, int8 KV pages,
+the KV hierarchy's swap and prefix tiers, SWA page reclamation, tensor
+parallelism and CUDA graphs.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Mapping, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.backpressure import EngineBackpressure
+from repro_torch.core.kvpool import KVPool, blocks_for
+from repro_torch.core.request import Request
+from repro_torch.core.scheduler import BatchPlan
+from repro_torch.device import resolve_device
+from repro_torch.kernels import build
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import (Transformer, fused_serve_forward,
+                                            init_paged_cache, init_params)
+
+
+class TorchEngine:
+    """Fused engine over a global page pool: the bound ``KVPool`` grants
+    physical block ids and the engine rebuilds per-slot block tables
+    from ``pool.block_table(rid)`` when a row's grant changed.
+
+    ``params``: a ``state_dict`` (for example the JAX engine's weights
+    through ``bridge.params_from_numpy``), loaded onto ``device`` in
+    ``dtype``; without it the weights are drawn from a generator seeded
+    with ``seed``. ``device`` defaults to the card and raises when there
+    is none."""
+
+    def __init__(self, cfg: ModelConfig, n_slots: int = 8,
+                 max_len: int = 512, quantum: int = 64, seed: int = 0,
+                 dtype=torch.float32, block_size: int = 64,
+                 pool: Optional[KVPool] = None,
+                 params: Optional[Mapping[str, torch.Tensor]] = None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.quantum = max(1, quantum)
+        self.seed = seed
+        if params is None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
+            self.params = init_params(cfg, gen, self.device, dtype)
+        else:
+            self.params = Transformer(cfg, self.device, dtype)
+            self.params.load_state_dict(params, strict=True)
+        self.slot_of: Dict[int, int] = {}
+        self.free_slots = list(range(n_slots))
+        self.tokens: Dict[int, np.ndarray] = {}   # rid -> prompt tokens
+        self.generated: Dict[int, List[int]] = {}
+
+        if pool is not None:
+            block_size = pool.block_size
+        if max_len % block_size:
+            raise ValueError(f"max_len ({max_len}) must be a multiple of "
+                             f"block_size ({block_size})")
+        self.block_size = block_size
+        self.max_blocks = max_len // block_size
+        self._pool_owned = pool is None
+        self.pool = pool if pool is not None else KVPool(
+            num_blocks=n_slots * self.max_blocks, block_size=block_size,
+            max_seqs=n_slots)
+        self.cache = init_paged_cache(cfg, self.pool.num_blocks, block_size,
+                                      dtype=dtype, device=self.device)
+        # paged page-window bucket hits: maxb -> iteration count
+        self.gather_bucket_hits: Dict[int, int] = {}
+        # device block tables reused while no live row's table changed
+        # (the pool's table_version stamp is part of the key)
+        self._pre_bt_key = self._dec_bt_key = None
+        self._pre_bt_dev = self._dec_bt_dev = None
+        self.slot_len = np.zeros((n_slots,), np.int32)
+        self.last_token = np.zeros((n_slots,), np.int32)
+
+    def _gen_tokens(self, req: Request) -> np.ndarray:
+        """Synthetic prompt tokens, seeded per rid exactly as the JAX
+        engine seeds them, so both engines serve the same prompts."""
+        vocab = self.cfg.vocab_size
+        toks = np.random.default_rng((self.seed, 1, req.rid)).integers(
+            0, vocab, size=req.prompt_len).astype(np.int32)
+        if req.prefix_id is not None and req.prefix_len > 0:
+            n = min(req.prefix_len, req.prompt_len)
+            toks[:n] = np.random.default_rng(
+                (self.seed, 2, req.prefix_id)).integers(
+                0, vocab, size=n).astype(np.int32)
+        return toks
+
+    # ------------------------------------------------ backend protocol
+    def on_admit(self, req: Request) -> None:
+        if req.rid in self.slot_of:
+            return
+        if not self.free_slots:
+            raise EngineBackpressure(
+                f"engine slots exhausted admitting rid {req.rid}: all "
+                f"{self.n_slots} slots are busy. Give the scheduler's KV "
+                f"pool max_seqs == n_slots ({self.n_slots}) so admission "
+                f"control cannot admit more concurrent requests than the "
+                f"engine has decode rows.",
+                kind="slots", n_slots=self.n_slots, rid=req.rid)
+        slot = self.free_slots.pop()
+        self.slot_of[req.rid] = slot
+        if req.rid not in self.tokens:
+            self.tokens[req.rid] = self._gen_tokens(req)
+            self.generated[req.rid] = []
+        self.slot_len[slot] = 0
+
+    def on_release(self, req: Request) -> None:
+        slot = self.slot_of.pop(req.rid, None)
+        if slot is not None:
+            self.free_slots.append(slot)
+            self.slot_len[slot] = 0
+        if self._pool_owned:
+            # standalone (replica-less) use: the engine owns the pool
+            self.pool.release(req.rid)
+
+    def _lbucket(self, lmax: int) -> int:
+        """Chunk-length bucket: the smallest quantum * 2^k >= lmax."""
+        if lmax <= 0:
+            return 1
+        n = -(-lmax // self.quantum)
+        p = 1
+        while p < n:
+            p *= 2
+        return self.quantum * p
+
+    def _block_row(self, out_row: np.ndarray, rid: int) -> None:
+        ids = self.pool.block_table(rid)
+        w = out_row.shape[0]
+        out_row[:min(len(ids), w)] = ids[:w]
+
+    def _maxb_ladder(self) -> list:
+        """Page-window rungs: every width up to 4, then powers of two,
+        then ``max_blocks``."""
+        rungs = set(range(1, min(4, self.max_blocks) + 1))
+        m = 8
+        while m < self.max_blocks:
+            rungs.add(m)
+            m *= 2
+        rungs.add(self.max_blocks)
+        return sorted(rungs)
+
+    def _maxb_bucket(self, need: int) -> int:
+        """The smallest ladder rung covering the longest live row. A
+        narrower table reads the same result: the columns dropped hold
+        only positions past every row's query."""
+        for m in self._maxb_ladder():
+            if m >= need:
+                return m
+        return self.max_blocks
+
+    def _tokens_cached(self, rid: int) -> int:
+        slot = self.slot_of.get(rid)
+        return 0 if slot is None else int(self.slot_len[slot])
+
+    def _blocks_needed(self, rid: int, target_tokens: int) -> int:
+        """Blocks ``execute`` will grant bringing ``rid`` to
+        ``target_tokens`` resident."""
+        grow = blocks_for(target_tokens, self.pool.block_size) \
+            - self.pool.covered_blocks(rid)
+        return max(0, grow)
+
+    def preflight(self, plan: BatchPlan) -> None:
+        """Dry-run the slot and block allocations ``execute`` would make,
+        in its order, and raise a deferrable ``EngineBackpressure`` before
+        any state changes when the plan overshoots capacity
+        (``n_prefill_fit`` prefill items fit; ``None``: not even the
+        decode batch does)."""
+        slots = len(self.free_slots)
+        blocks = self.pool.free
+        for req in plan.decode:
+            if req.rid not in self.slot_of:
+                slots -= 1
+            blocks -= self._blocks_needed(
+                req.rid, self._tokens_cached(req.rid) + 1)
+        if slots < 0 or blocks < 0:
+            raise EngineBackpressure(
+                f"engine cannot hold the decode batch: {len(plan.decode)} "
+                f"decodes need more than the free {len(self.free_slots)} "
+                f"slots / {self.pool.free} blocks — decode growth is never "
+                f"deferrable; size the pool for the worst-case decode "
+                f"footprint",
+                kind="slots" if slots < 0 else "kv", n_prefill_fit=None,
+                n_slots=self.n_slots, num_blocks=self.pool.num_blocks,
+                block_size=self.block_size)
+        fit = 0
+        for req, chunk in plan.prefill:
+            take = min(chunk, req.prompt_len - req.prefilled)
+            need_slot = 1 if req.rid not in self.slot_of else 0
+            need_blocks = self._blocks_needed(req.rid, req.prefilled + take)
+            if slots - need_slot < 0 or blocks - need_blocks < 0:
+                raise EngineBackpressure(
+                    f"engine backpressure: prefill item {fit} (rid "
+                    f"{req.rid}) does not fit — {slots} slots / {blocks} "
+                    f"blocks left of n_slots={self.n_slots}, num_blocks="
+                    f"{self.pool.num_blocks}; defer the prefill tail and "
+                    f"retry",
+                    kind="slots" if slots - need_slot < 0 else "kv",
+                    n_prefill_fit=fit, n_slots=self.n_slots,
+                    num_blocks=self.pool.num_blocks,
+                    block_size=self.block_size, rid=req.rid)
+            slots -= need_slot
+            blocks -= need_blocks
+            fit += 1
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def _step(self, pre_tokens, pre_start, pre_len, pre_sample, dec_tokens,
+              dec_start, dec_active, pre_bt, dec_bt) -> torch.Tensor:
+        d = self._dev
+        return fused_serve_forward(
+            self.params, self.cfg, self.cache, d(pre_tokens), d(pre_start),
+            d(pre_len), d(pre_sample), d(dec_tokens), d(dec_start),
+            d(dec_active), pre_bt, dec_bt)
+
+    def warm(self) -> None:
+        """Build and load the kernels (on the card), and launch each once
+        with a state-safe iteration: one pad prefill row and an inactive
+        decode batch, with empty block tables, so every write goes to the
+        sink page."""
+        if self.device.type == "cuda":
+            build.build()
+        n = self.n_slots
+        q = self.quantum
+        self._step(np.zeros((1, q), np.int32), np.zeros((1,), np.int32),
+                   np.zeros((1,), np.int32), np.zeros((1,), np.int32),
+                   self.last_token.copy(), self.slot_len.copy(),
+                   np.zeros((n,), bool),
+                   self._dev(np.full((1, 1), -1, np.int32)),
+                   self._dev(np.full((n, 1), -1, np.int32)))
+
+    def execute(self, plan: BatchPlan, now: float) -> float:
+        t0 = time.perf_counter()
+        self.preflight(plan)
+        n = self.n_slots
+        # ---- pack the plan (host-side numpy; no device ops)
+        pre: List[tuple] = []       # (slot, req, toks)
+        for req, chunk in plan.prefill:
+            self.on_admit(req)
+            slot = self.slot_of[req.rid]
+            toks = self.tokens[req.rid][req.prefilled:req.prefilled + chunk]
+            if req.prefilled != self.slot_len[slot]:
+                raise RuntimeError(
+                    f"rid {req.rid} resumes prefill at {req.prefilled} but "
+                    f"slot {slot} holds {self.slot_len[slot]} tokens — a "
+                    f"state-preserving resume needs the KV hierarchy, "
+                    f"which the port does not have yet")
+            if req.prefilled + len(toks) > self.max_len:
+                raise RuntimeError(
+                    f"rid {req.rid} prefill would exceed max_len "
+                    f"{self.max_len}; size prompts+decodes to the cache")
+            if not self.pool.grow(req.rid, req.prefilled + len(toks)):
+                raise EngineBackpressure(
+                    f"KV pool exhausted growing rid {req.rid} to "
+                    f"{req.prefilled + len(toks)} tokens — the scheduler "
+                    "admitted beyond pool capacity",
+                    kind="kv", num_blocks=self.pool.num_blocks,
+                    block_size=self.block_size, rid=req.rid)
+            pre.append((slot, req, toks))
+        if pre:
+            P = 1
+            while P < len(pre):
+                P *= 2
+            L = self._lbucket(max(len(t) for _, _, t in pre))
+        else:
+            P, L = 0, 1     # decode-only: the prefill branch is skipped
+        pre_tokens = np.zeros((P, L), np.int32)
+        pre_start = np.zeros((P,), np.int32)
+        pre_len = np.zeros((P,), np.int32)
+        pre_sample = np.zeros((P,), np.int32)
+        emit_pre: List[Optional[int]] = [None] * P
+        for i, (slot, req, toks) in enumerate(pre):
+            real = len(toks)
+            pre_tokens[i, :real] = toks
+            pre_start[i] = req.prefilled
+            pre_len[i] = real
+            if req.prefilled + real >= req.prompt_len:
+                # the last chunk emits the request's first output token
+                pre_sample[i] = real - 1
+                emit_pre[i] = req.rid
+        # decode sub-batch: absent (size 0) when the plan has no decodes
+        nd = n if plan.decode else 0
+        dec_active = np.zeros((nd,), bool)
+        emit_dec: List[Optional[int]] = [None] * nd
+        for req in plan.decode:
+            self.on_admit(req)
+            slot = self.slot_of[req.rid]
+            if self.slot_len[slot] + 1 > self.max_len:
+                raise RuntimeError(
+                    f"rid {req.rid} decode would exceed max_len "
+                    f"{self.max_len}; size prompts+decodes to the cache")
+            if not self.pool.grow(req.rid, int(self.slot_len[slot]) + 1):
+                raise EngineBackpressure(
+                    f"KV pool exhausted on decode growth of rid "
+                    f"{req.rid}: admission control bounds prefill, not "
+                    f"decode growth — size the pool for the worst-case "
+                    f"decode footprint (num_blocks >= max_seqs * "
+                    f"max_len/block_size)",
+                    kind="kv", num_blocks=self.pool.num_blocks,
+                    block_size=self.block_size, rid=req.rid)
+            dec_active[slot] = True
+            emit_dec[slot] = req.rid
+
+        # ---- block tables, sliced to the page-window bucket covering the
+        # longest live row; rebuilt only when a row's grant changed
+        need = 1
+        for _, req, toks in pre:
+            need = max(need, blocks_for(req.prefilled + len(toks),
+                                        self.block_size))
+        for slot, rid in enumerate(emit_dec):
+            if rid is not None:
+                need = max(need, blocks_for(int(self.slot_len[slot]) + 1,
+                                            self.block_size))
+        maxb = self._maxb_bucket(need)
+        self.gather_bucket_hits[maxb] = \
+            self.gather_bucket_hits.get(maxb, 0) + 1
+        ver = self.pool.table_version
+        pre_key = (P, maxb, tuple((req.rid, ver(req.rid))
+                                  for _, req, _ in pre))
+        if pre_key != self._pre_bt_key:
+            pre_bt = np.full((P, maxb), -1, np.int32)
+            for i, (_, req, _) in enumerate(pre):
+                self._block_row(pre_bt[i], req.rid)
+            self._pre_bt_dev = self._dev(pre_bt)
+            self._pre_bt_key = pre_key
+        dec_key = (nd, maxb, tuple((rid, ver(rid)) if rid is not None
+                                   else None for rid in emit_dec))
+        if dec_key != self._dec_bt_key:
+            dec_bt = np.full((nd, maxb), -1, np.int32)
+            for slot, rid in enumerate(emit_dec):
+                if rid is not None:
+                    self._block_row(dec_bt[slot], rid)
+            self._dec_bt_dev = self._dev(dec_bt)
+            self._dec_bt_key = dec_key
+
+        # ---- ONE forward; the cache's pages are written in place
+        sampled = self._step(pre_tokens, pre_start, pre_len, pre_sample,
+                             self.last_token[:nd].copy(),
+                             self.slot_len[:nd].copy(), dec_active,
+                             self._pre_bt_dev, self._dec_bt_dev)
+        out = sampled.cpu().numpy()   # the ONE device->host transfer
+
+        # ---- host bookkeeping
+        for slot, req, toks in pre:
+            self.slot_len[slot] = req.prefilled + len(toks)
+        for i, rid in enumerate(emit_pre):
+            if rid is None:
+                continue
+            tok = int(out[i])
+            self.generated[rid].append(tok)
+            self.last_token[pre[i][0]] = tok
+        for slot, rid in enumerate(emit_dec):
+            if rid is None:
+                continue
+            tok = int(out[P + slot])
+            self.generated[rid].append(tok)
+            self.last_token[slot] = tok
+            self.slot_len[slot] += 1
+        return time.perf_counter() - t0

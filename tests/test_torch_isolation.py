@@ -1,0 +1,107 @@
+"""The port stands alone: importing all of ``repro_torch`` (and
+``chip_smoke.py``) loads neither JAX nor any module of the JAX package
+``repro``, and no source of either names them in an import. Its entry
+points run on the card unless asked for the CPU.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+print(len(names), bad)
+"""
+
+
+def _forbidden(name: str) -> bool:
+    return name == "jax" or name.startswith("jax.") \
+        or name == "repro" or name.startswith("repro.")
+
+
+def test_importing_the_port_loads_no_jax_and_no_repro():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _PROBE, str(ROOT)],
+                         capture_output=True, text=True, env=env,
+                         timeout=120, check=True).stdout.split()
+    n_modules, bad = int(out[0]), " ".join(out[1:])
+    assert n_modules >= 20
+    assert bad == "[]"
+
+
+def test_no_source_imports_jax_or_repro():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            assert not any(_forbidden(n) for n in names), (path, names)
+
+
+def test_entry_points_default_to_the_card():
+    """Without a card and without device="cpu", the engine, the model
+    init, the paged cache (made or bridged), the replica factory and the
+    serve script raise."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    import numpy as np
+
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.engine.torch_backend import TorchEngine
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_paged_cache, init_params
+    from repro_torch.serving.schemes import make_torch_replica
+    cfg = get_config("llama3.2-3b").reduced(num_layers=2, d_model=128)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchEngine(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_paged_cache(cfg, 4, 16)
+    page = np.zeros((4, 16, cfg.num_kv_heads, cfg.head_dim), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bridge.paged_cache_from_numpy({"layers": [(page, page)]})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_torch_replica("niyama", cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--reduced"])
+
+
+def test_unported_families_raise():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.engine.torch_backend import TorchEngine
+    from repro_torch.models.config import SWA, LayerSpec
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_config("qwen3-moe-30b-a3b")
+    with pytest.raises(KeyError):
+        get_config("no-such-model")
+    swa = dataclasses.replace(
+        get_config("llama3.2-3b").reduced(num_layers=2, d_model=128),
+        layers=(LayerSpec(SWA, "dense", 64),) * 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TorchEngine(swa, device="cpu")
