@@ -5,22 +5,27 @@
 Phases, each of which fails the run if it fails:
 
 1. build: compile every CUDA kernel of ``src/repro_torch/csrc`` with
-   nvcc, all sources at once;
+   nvcc, one process per source, all started at once;
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes, in f32 (TF32 off) and bf16, with its time, the
-   plain version's, ``F.scaled_dot_product_attention``'s over the same
-   data gathered to a dense view, and the least time the card could take;
+   the main paths' shapes, in f32 (TF32 off in matmuls and cuDNN) and
+   bf16, with its time, the plain version's, one library call's where
+   one computes the same function (``F.scaled_dot_product_attention``
+   over the same data gathered to a dense view; ``F.rms_norm`` with
+   weight ``1 + w``; none for ``ssd_scan``), and the least time the card
+   could take;
 3. serve: ``repro_torch.launch.serve.main`` serves full-width
-   llama3.2-3b (random weights from a seed, bf16) through the
-   NiyamaScheduler priced on the H100 spec; every request must finish
-   with all its tokens, and both kernels must have launched while the
-   plain attention versions ran 0 times;
-4. profile: one decode and one prefill iteration of that engine, timed
-   on the host and traced with torch.profiler (device time by kernel,
-   idle share);
-5. parity: a full-width 2-layer f32 copy runs one mixed iteration through
-   the kernels and through the plain versions; the final hidden states
-   agree within 1e-4 and the sampled ids are equal.
+   llama3.2-3b and then full-width mamba2-370m (random weights from a
+   seed, bf16) through the NiyamaScheduler priced on the H100 spec; every
+   request must finish with all its tokens, every kernel of each path
+   must have launched in that path's run (counts zeroed just before it),
+   and no plain version may have run;
+4. profile: one decode and one prefill iteration of each served engine,
+   timed on the host and traced with torch.profiler (device time by
+   kernel, idle share);
+5. parity: full-width 2-layer f32 copies of both families run one mixed
+   iteration through the kernels and through the plain versions; the
+   final hidden states and the written pages or state rows agree within
+   the limits stated there and the sampled ids are equal.
 
 Prints the card's name and power limit, one JSON line of the kernels and,
 as its last line, ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -51,13 +56,34 @@ PEAK_FLOPS = {torch.float32: 67e12,  # fp32 outside the tensor cores
 # value.
 TOL = {torch.float32: dict(atol=1e-4, rtol=0.0, cap=1e-4),
        torch.bfloat16: dict(atol=1e-5, rtol=2 ** -7, cap=2e-2)}
+# rmsnorm, from the first readings on an H100 (PERF.md): f32 differs by at
+# most 2 ulps (9.5e-7 at values up to 5.5), held to 8 ulps (2^-20
+# relative) plus 1e-6; bf16 by one bf16 ulp, as above.
+RMSNORM_TOL = {torch.float32: dict(atol=1e-6, rtol=2 ** -20, cap=1e-4),
+               torch.bfloat16: TOL[torch.bfloat16]}
+# ssd_scan, y and the final state: both versions compute in fp32 in either
+# input dtype, but sum the chunk's cumulative decay in different orders;
+# at |cum| ~ 1e3 one ulp of cum_i - cum_j is ~1e-4, so an element is held
+# to SSD_REL of its output's largest magnitude (first readings: at most
+# 1.8e-4 of it, in the 2 x 700-token case below).
+SSD_REL = 5e-4
+# the final hidden states of the 2-layer mamba2-370m parity check
+MAMBA_PARITY_HIDDEN = 1e-4
 SOURCES = {
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:78"),
     "chunked_prefill_attention": (
         "src/repro_torch/csrc/chunked_prefill_attention.cu",
         "src/repro/kernels/chunked_prefill_attention.py:90"),
+    "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:23"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:70"),
 }
+# the kernels each served family's path runs
+PATHS = {"llama3.2-3b": ("paged_attention", "chunked_prefill_attention",
+                         "rmsnorm"),
+         "mamba2-370m": ("rmsnorm", "ssd_scan")}
 
 
 class PhaseError(RuntimeError):
@@ -73,23 +99,23 @@ def check(cond: bool, msg: str) -> None:
 
 _flush_buf = None
 SPIN_MS = 5.0           # device time queued ahead of each timed call
-_spin_cycles = None
+_cycles_per_ms = None
 
 
-def _spin() -> None:
-    """Keep the device busy for about SPIN_MS ms: while it spins, the host
+def _spin(ms: float) -> None:
+    """Keep the device busy for about ``ms`` ms: while it spins, the host
     queues the timed call's launches, so the events that bracket the call
     read device time only, not the host's time to issue the launches."""
-    global _spin_cycles
-    if _spin_cycles is None:
+    global _cycles_per_ms
+    if _cycles_per_ms is None:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
         torch.cuda._sleep(10 ** 6)
         e1.record()
         torch.cuda.synchronize()
-        _spin_cycles = int(10 ** 6 * SPIN_MS / e0.elapsed_time(e1))
-    torch.cuda._sleep(_spin_cycles)
+        _cycles_per_ms = 10 ** 6 / e0.elapsed_time(e1)
+    torch.cuda._sleep(int(_cycles_per_ms * ms))
 
 
 def _flush_l2() -> None:
@@ -102,28 +128,34 @@ def _flush_l2() -> None:
     _flush_buf.zero_()
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, reps: int = 20, warmup: int = 3,
+            spin_ms: float = SPIN_MS) -> float:
     """Median device time of one call of ``fn``, cold L2, CUDA events,
-    with the call queued behind a spin (``_spin``). Fails if the host
-    took longer than the spin to queue the call, as it would if ``fn``
-    waited on the device."""
+    with the call queued behind a spin (``_spin``) of ``spin_ms`` (longer
+    for a plain version of many launches). Fails if the host took longer
+    than the spin to queue the call, as it would if ``fn`` waited on the
+    device."""
     for _ in range(warmup):
         fn()
+    # the spin's calibration and the flush buffer's allocation wait on the
+    # device: do them once here, not inside a timed call's issue window
+    _spin(spin_ms)
+    _flush_l2()
     times = []
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _spin()
+        _spin(spin_ms)
         _flush_l2()
         e0.record()
         fn()
         e1.record()
         issue_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
-        check(issue_ms < SPIN_MS, f"timing: the host took {issue_ms:.2f} ms "
-              f"to queue one call, longer than the {SPIN_MS} ms spin")
+        check(issue_ms < spin_ms, f"timing: the host took {issue_ms:.2f} ms "
+              f"to queue one call, longer than the {spin_ms} ms spin")
         times.append(e0.elapsed_time(e1))
     return float(np.median(times))
 
@@ -240,11 +272,11 @@ def _prefill_work(q, k, q_offsets, kv_lens, window=None):
     return nbytes, 4.0 * pairs * H * D
 
 
-def _compare(name, label, dtype, got, want):
+def _compare(name, label, dtype, got, want, tol=None):
     """Max |kernel - plain|; fails unless every element is within the
-    dtype's limit (``TOL``)."""
+    limit ``tol`` (by default the attention kernels' ``TOL[dtype]``)."""
     diff = (got.float() - want.float()).abs()
-    t = TOL[dtype]
+    t = TOL[dtype] if tol is None else tol
     limit = (t["atol"] + t["rtol"] * want.float().abs()).clamp(max=t["cap"])
     worst = float((diff / limit).max())
     finite = bool(torch.isfinite(got.float()).all())
@@ -357,18 +389,146 @@ def phase_kernels() -> dict:
                       torch.float32, got, want)
     print(f"[kernels] chunked_prefill_attention static mode f32: max err "
           f"{err:.3g}")
+    _kernels_rmsnorm(head)
+    _kernels_ssd_scan(head)
     return head
+
+
+def _label(dtype) -> str:
+    return "f32" if dtype == torch.float32 else "bf16"
+
+
+def _kernels_rmsnorm(head: dict) -> None:
+    """The norms of both paths: the llama decode batch [8, 3072], a
+    prefill chunk of llama [1024, 3072] and of mamba2-370m [1024, 1024];
+    then rows whose width is not a multiple of 16 bytes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    cases = [(dtype, shape) for shape in ((8, 3072), (1024, 3072),
+                                          (1024, 1024))
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(torch.bfloat16, (5, 1001)), (torch.float32, (3, 77))]
+    for dtype, (N, D) in cases:
+        label = f"{_label(dtype)} [{N}, {D}]"
+        x = torch.randn((N, D), generator=gen, device="cuda").to(dtype)
+        w = (0.1 * torch.randn(D, generator=gen, device="cuda")).to(dtype)
+        got = rmsnorm_cuda(x, w, 1e-5)
+        want = ref.rmsnorm_ref(x, w, 1e-5)
+        torch.cuda.synchronize()
+        err, worst = _compare("rmsnorm", label, dtype, got, want,
+                              RMSNORM_TOL[dtype])
+        ms = time_ms(lambda: rmsnorm_cuda(x, w, 1e-5))
+        plain = time_ms(lambda: ref.rmsnorm_ref(x, w, 1e-5))
+        w1 = 1.0 + w          # the library's weight, made outside the timing
+        lib = time_ms(lambda: F.rms_norm(x, (D,), weight=w1, eps=1e-5))
+        # each element read once and written once, ~4 fp32 flops each
+        bms, by = bound_ms((2 * N * D + D) * x.element_size(), 4.0 * N * D,
+                           torch.float32)
+        print(f"[kernels] rmsnorm {label}: {ms:.4f} ms, plain {plain:.4f} "
+              f"ms, F.rms_norm {lib:.4f} ms, bound {bms:.4f} ms ({by}), max "
+              f"err {err:.3g} ({worst:.2f} of the limit)")
+        if label == "bf16 [1024, 3072]":
+            head["rmsnorm"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                   bound_ms=bms, bound_by=by,
+                                   max_abs_err=err)
+
+
+def _ssd_case(gen, dtype, Bt, S, nh=32, hd=64, ds=128, zero_tail=0):
+    """Scan inputs at mamba2-370m's widths: x, B, C ~ N(0, 1) in
+    ``dtype``; dt = softplus(N(0, 1)), the last ``zero_tail`` tokens 0
+    (masked pad tokens); A = -linspace(1, 16) (the model's init); a
+    random carried state."""
+    import torch.nn.functional as F
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    dt = F.softplus(randn(Bt, S, nh))
+    if zero_tail:
+        dt[:, S - zero_tail:] = 0.0
+    return (randn(Bt, S, nh, hd).to(dtype), dt,
+            -torch.linspace(1.0, 16.0, nh, device="cuda"),
+            randn(Bt, S, ds).to(dtype), randn(Bt, S, ds).to(dtype),
+            randn(Bt, nh, hd, ds))
+
+
+def _ssd_work(x, B, chunk):
+    """Bytes (inputs read once, y and the state written once) and fp32
+    flops of the chunked dual form: C.B^T and the weighted sum over the
+    causal pairs of each chunk, and the state's two terms."""
+    Bt, S, nh, hd = x.shape
+    ds = B.shape[-1]
+    n = -(-S // chunk)
+    nbytes = (x.numel() + 2 * B.numel()) * x.element_size() \
+        + 4 * (Bt * S * nh + nh + Bt * S * nh * hd + 2 * Bt * nh * hd * ds)
+    pairs = chunk * (chunk + 1) / 2
+    flops = Bt * n * (2 * pairs * (ds + nh * hd) + 4 * chunk * nh * hd * ds)
+    return nbytes, flops
+
+
+def _kernels_ssd_scan(head: dict) -> None:
+    """Full-width prefill rows of 1024 tokens (1 and 4 rows, the chunk of
+    256), then 2 rows of 700 tokens (padded to the chunk grid) whose
+    last 200 tokens have dt = 0."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    chunk = 256
+    cases = [(dtype, rows, 1024, 0) for rows in (1, 4)
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(torch.bfloat16, 2, 700, 200)]
+    for dtype, rows, S, tail in cases:
+        label = f"{_label(dtype)} {rows} x {S}" \
+            + (f", dt = 0 on the last {tail}" if tail else "")
+        args = _ssd_case(gen, dtype, rows, S, zero_tail=tail)
+        y, h = ssd_scan_cuda(*args, chunk)
+        y_ref, h_ref = ref.ssd_scan_ref(*args, chunk)
+        torch.cuda.synchronize()
+        errs = []
+        for what, got, want in (("y", y, y_ref), ("state", h, h_ref)):
+            scale = float(want.abs().max())
+            errs.append(_compare("ssd_scan", f"{label}, {what}", dtype, got,
+                                 want, dict(atol=SSD_REL * scale, rtol=0.0,
+                                            cap=float("inf")))[0])
+        if tail:              # a zero-dt tail leaves the state unchanged
+            _, h_cut = ref.ssd_scan_ref(*(a[:, :S - tail] if a.dim() > 1
+                                          and a.shape[1] == S else a
+                                          for a in args), chunk)
+            _compare("ssd_scan", f"{label}, state vs the cut rows", dtype, h,
+                     h_cut, dict(atol=SSD_REL * float(h_cut.abs().max()),
+                                 rtol=0.0, cap=float("inf")))
+        ms = time_ms(lambda: ssd_scan_cuda(*args, chunk))
+        plain = time_ms(lambda: ref.ssd_scan_ref(*args, chunk), reps=10,
+                        spin_ms=60.0)
+        bms, by = bound_ms(*_ssd_work(args[0], args[3], chunk),
+                           torch.float32)
+        print(f"[kernels] ssd_scan {label}: {ms:.4f} ms, plain {plain:.4f} "
+              f"ms, no library call, bound {bms:.4f} ms ({by}), max err y "
+              f"{errs[0]:.3g} (of {float(y_ref.abs().max()):.3g}), state "
+              f"{errs[1]:.3g} (of {float(h_ref.abs().max()):.3g})")
+        if label == "bf16 1 x 1024":
+            head["ssd_scan"] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                                    bound_ms=bms, bound_by=by,
+                                    max_abs_err=errs[0])
 
 
 # ---------------------------------------------------------------- phase 3
 
-def phase_serve() -> dict:
+def phase_serve(arch: str) -> tuple:
+    """Serve 12 requests of ``arch`` at full width with the counts zeroed
+    just before; returns the counts read just after, and the engine."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
     ops.reset_counts()
     t0 = time.perf_counter()
-    rep = serve.main(["--device", "cuda", "--dtype", "bf16",
+    rep = serve.main(["--arch", arch, "--device", "cuda", "--dtype", "bf16",
                       "--n-requests", "12", "--max-len", "2048",
                       "--slots", "8", "--seed", "0"])
     torch.cuda.synchronize()
@@ -384,19 +544,22 @@ def phase_serve() -> dict:
               f"serve: rid {r.rid} streamed {got} of {r.decode_len} tokens")
         check(all(0 <= t < eng.cfg.vocab_size for t in eng.generated[r.rid]),
               f"serve: rid {r.rid} sampled an id outside the vocabulary")
+    for name in PATHS[arch]:
+        check(counts[name]["launches"] > 0,
+              f"serve {arch}: {name} was never launched")
     for name, c in counts.items():
-        check(c["launches"] > 0, f"serve: {name} was never launched")
         check(c["plain"] == 0,
-              f"serve: the plain {name} ran {c['plain']} times")
+              f"serve {arch}: the plain {name} ran {c['plain']} times")
     n_tok = sum(len(g) for g in eng.generated.values())
     n_prompt = sum(r.prompt_len for r in reqs)
     busy = rep.busy_time      # wall time inside the engine's iterations
-    print(f"[serve] {len(reqs)} requests, {rep.iterations} iterations, "
+    print(f"[serve] {arch}: {len(reqs)} requests, {rep.iterations} "
+          f"iterations, "
           f"{n_prompt} prompt + {n_tok} output tokens; {wall:.2f} s wall "
           f"with the model build, {busy:.2f} s in iterations: "
           f"{n_tok / busy:.1f} output tok/s, {(n_prompt + n_tok) / busy:.1f} "
           f"tok/s; launches {counts}")
-    print(f"[serve] page-window buckets: {eng.gather_bucket_hits}")
+    print(f"[serve] {arch}: page-window buckets: {eng.gather_bucket_hits}")
     return counts, eng
 
 
@@ -410,10 +573,16 @@ def _device_us(event) -> float:
     return 0.0
 
 
+# the kernels of the port, as the profiler names them
+OWN_KERNELS = ("paged_decode_kernel", "chunked_prefill_kernel",
+               "rmsnorm_kernel", "ssd_cb_kernel", "ssd_scan_kernel")
+
+
 def phase_profile(eng) -> None:
-    """Where one decode and one prefill iteration of the serve phase's
-    engine spend their time: host wall time per iteration, device busy
-    time by kernel (torch.profiler) and the device's idle share."""
+    """Where one decode and one prefill iteration of a served engine
+    spend their time: host wall time per iteration, device busy time by
+    kernel (torch.profiler) and the device's idle share. The iterations
+    write the engine's cache in place; the engine serves nothing after."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import transformer as T
@@ -424,14 +593,17 @@ def phase_profile(eng) -> None:
     def z(*shape):
         return torch.zeros(shape, **i32)
     bt = torch.arange(n * mb, **i32).reshape(n, mb)
+    def flags(*shape, value=False):
+        return torch.full(shape, value, dtype=torch.bool, device=dev)
     plans = {
         "decode 8 rows at 1000 tokens": (
-            z(0, 1), z(0), z(0), z(0), z(n), torch.full((n,), 1000, **i32),
-            torch.ones(n, dtype=torch.bool, device=dev), z(0, mb), bt),
+            z(0, 1), z(0), z(0), z(0), flags(0), z(0), z(n),
+            torch.full((n,), 1000, **i32), flags(n, value=True), z(0, mb),
+            bt),
         "prefill 1 row of 1024 tokens": (
-            z(1, 1024), z(1), torch.full((1,), 1024, **i32),
-            torch.full((1,), 1023, **i32), z(0), z(0),
-            torch.zeros(0, dtype=torch.bool, device=dev), bt[:1], z(0, mb)),
+            z(1, 1024), z(1), z(1), torch.full((1,), 1024, **i32),
+            flags(1, value=True), torch.full((1,), 1023, **i32), z(0), z(0),
+            flags(0), bt[:1], z(0, mb)),
     }
     reps = 5
     for name, args in plans.items():
@@ -454,26 +626,33 @@ def phase_profile(eng) -> None:
         launches = sum(e.count for e in events) / reps
         busy = sum(kernels.values())
         if busy == 0:
-            print(f"[profile] {name}: {wall_ms:.2f} ms wall per iteration; "
+            print(f"[profile] {eng.cfg.name} {name}: {wall_ms:.2f} ms wall "
+                  f"per iteration; "
                   f"device time not measured (the profiler saw no kernel)")
             continue
-        attn = sum(t for k, t in kernels.items()
-                   if "paged_decode_kernel" in k
-                   or "chunked_prefill_kernel" in k)
+        own = {o: sum(t for k, t in kernels.items() if o in k)
+               for o in OWN_KERNELS}
+        own_ms = sum(own.values())
         gemm = sum(t for k, t in kernels.items()
                    if any(w in k.lower() for w in ("gemm", "cutlass",
                                                    "sm90_xmma", "nvjet")))
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
-        print(f"[profile] {name}: {wall_ms:.2f} ms wall per iteration, "
-              f"{launches:.0f} kernels, device busy {busy:.2f} ms (idle share "
-              f"{max(0.0, 1 - busy / wall_ms):.1%}): attention kernels "
-              f"{attn:.2f} ms, GEMMs {gemm:.2f} ms, other "
-              f"{busy - attn - gemm:.2f} ms")
+        own_txt = ", ".join(f"{o} {t:.2f}" for o, t in own.items() if t)
+        print(f"[profile] {eng.cfg.name} {name}: {wall_ms:.2f} ms wall per "
+              f"iteration, {launches:.0f} kernels, device busy {busy:.2f} ms "
+              f"(idle share {max(0.0, 1 - busy / wall_ms):.1%}): the port's "
+              f"kernels {own_ms:.2f} ms ({own_txt}), GEMMs {gemm:.2f} ms, "
+              f"other {busy - own_ms - gemm:.2f} ms")
         for k, t in top:
             print(f"[profile]   {t:.3f} ms  {k[:90]}")
 
 
 # ---------------------------------------------------------------- phase 5
+
+def _clone_cache(cache):
+    return {"layers": [type(c)(*(t.clone() for t in c))
+                       for c in cache["layers"]]}
+
 
 def phase_parity() -> None:
     from repro_torch.configs import get_config
@@ -488,7 +667,7 @@ def phase_parity() -> None:
     rng = np.random.default_rng(1)
     bs, n_slots, maxb = 64, 8, 16
     nb = n_slots * maxb
-    cache = T.init_paged_cache(cfg, nb, bs, torch.float32, "cuda")
+    cache = T.init_paged_cache(cfg, n_slots, nb, bs, torch.float32, "cuda")
     for c in cache["layers"]:       # stale and prefix KV in every page
         c.k.normal_(generator=gen)
         c.v.normal_(generator=gen)
@@ -497,6 +676,8 @@ def phase_parity() -> None:
     def dev(a):
         return torch.from_numpy(np.asarray(a)).cuda()
     # prefill: rows on slots 0-2 at ragged offsets, one pad row
+    pre_slots = np.array([0, 1, 2, n_slots], np.int32)
+    pre_reset = np.array([1, 0, 0, 0], bool)
     pre_start = np.array([0, 200, 513, 0], np.int32)
     pre_len = np.array([256, 256, 90, 0], np.int32)
     pre_tokens = rng.integers(0, cfg.vocab_size, (4, 256)).astype(np.int32)
@@ -509,17 +690,14 @@ def phase_parity() -> None:
     dec_bt = np.full((n_slots, maxb), -1, np.int32)
     dec_bt[dec_active] = perm[dec_active]
     dec_tokens = rng.integers(0, cfg.vocab_size, n_slots).astype(np.int32)
-    args = [dev(pre_tokens), dev(pre_start), dev(pre_len), dev(pre_sample),
-            dev(dec_tokens), dev(dec_start), dev(dec_active), dev(pre_bt),
-            dev(dec_bt)]
+    args = [dev(a) for a in (pre_tokens, pre_slots, pre_start, pre_len,
+                             pre_reset, pre_sample, dec_tokens, dec_start,
+                             dec_active, pre_bt, dec_bt)]
 
     def run():
-        c = {"layers": [T.PagedAttnCache(x.k.clone(), x.v.clone())
-                        for x in cache["layers"]]}
         with torch.inference_mode():
-            hid = T._sampled_hidden(params, cfg, c, *args)
-        c = {"layers": [T.PagedAttnCache(x.k.clone(), x.v.clone())
-                        for x in cache["layers"]]}
+            hid = T._sampled_hidden(params, cfg, _clone_cache(cache), *args)
+        c = _clone_cache(cache)
         ids = T.fused_serve_forward(params, cfg, c, *args)
         return hid, ids, c
 
@@ -540,9 +718,86 @@ def phase_parity() -> None:
                    for a, b in zip(ck["layers"], cp["layers"])
                    for x, y in ((a.k, b.k), (a.v, b.v)))
     check(page_err <= 1e-4, f"parity: written pages differ by {page_err}")
-    print(f"[parity] 2-layer full-width f32: max |hidden kernel - plain| "
-          f"{err:.3g}, pages {page_err:.3g}, sampled ids equal "
-          f"({ik[dev(live)].tolist()})")
+    print(f"[parity] llama3.2-3b, 2-layer full-width f32: max |hidden "
+          f"kernel - plain| {err:.3g}, pages {page_err:.3g}, sampled ids "
+          f"equal ({ik[dev(live)].tolist()})")
+
+
+def phase_parity_mamba() -> None:
+    """Two full-width mamba2-370m layers in f32, one mixed iteration:
+    a first chunk (state reset) of 512 tokens, a chunk resuming a slot's
+    state, a short first chunk, a pad row; 8 decode slots, 2 inactive.
+    Kernels (rmsnorm, ssd_scan) against the plain versions."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    full = get_config("mamba2-370m")
+    cfg = dataclasses.replace(full, num_layers=2, layers=full.layers[:2])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = T.init_params(cfg, gen, "cuda", torch.float32)
+    rng = np.random.default_rng(2)
+    n_slots = 8
+    cache = T.init_paged_cache(cfg, n_slots, 0, 64, torch.float32, "cuda")
+    for c in cache["layers"]:       # every slot carries a state
+        c.conv.normal_(generator=gen)
+        c.ssm.normal_(generator=gen)
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a)).cuda()
+    pre_slots = np.array([0, 1, 2, n_slots], np.int32)
+    pre_start = np.array([0, 256, 0, 0], np.int32)
+    pre_len = np.array([512, 300, 77, 0], np.int32)
+    pre_reset = np.array([1, 0, 1, 0], bool)
+    pre_tokens = rng.integers(0, cfg.vocab_size, (4, 512)).astype(np.int32)
+    pre_sample = np.maximum(pre_len - 1, 0).astype(np.int32)
+    dec_tokens = rng.integers(0, cfg.vocab_size, n_slots).astype(np.int32)
+    dec_start = np.array([0, 0, 0, 700, 31, 1000, 450, 64], np.int32)
+    dec_active = np.array([0, 0, 0, 1, 1, 1, 0, 1], bool)
+    args = [dev(a) for a in (pre_tokens, pre_slots, pre_start, pre_len,
+                             pre_reset, pre_sample, dec_tokens, dec_start,
+                             dec_active, np.full((4, 1), -1, np.int32),
+                             np.full((n_slots, 1), -1, np.int32))]
+
+    def run():
+        with torch.inference_mode():
+            hid = T._sampled_hidden(params, cfg, _clone_cache(cache), *args)
+        c = _clone_cache(cache)
+        ids = T.fused_serve_forward(params, cfg, c, *args)
+        return hid, ids, c
+
+    ops.reset_counts()
+    hk, ik, ck = run()
+    launched = ops.counts()
+    with ops.plain_versions():
+        hp, ip, cp = run()
+    torch.cuda.synchronize()
+    check(launched["ssd_scan"]["launches"] == 2 * cfg.num_layers
+          and launched["ssd_scan"]["plain"] == 0,
+          f"parity mamba2: the kernel path ran {launched}")
+    live = np.r_[pre_len > 0, dec_active]
+    err = float((hk - hp).abs().max())
+    check(bool(torch.isfinite(hk).all()),
+          "parity mamba2: non-finite hidden state")
+    check(err <= MAMBA_PARITY_HIDDEN,
+          f"parity mamba2: max |hidden kernel - plain| = {err:.3g} > "
+          f"{MAMBA_PARITY_HIDDEN}")
+    check(torch.equal(ik[dev(live)], ip[dev(live)]),
+          f"parity mamba2: sampled ids differ: {ik.tolist()} vs "
+          f"{ip.tolist()}")
+    # every slot's row (not the sink): conv windows and fp32 states
+    state_err = 0.0
+    for a, b in zip(ck["layers"], cp["layers"]):
+        for x, y in ((a.conv, b.conv), (a.ssm, b.ssm)):
+            scale = float(y[:-1].abs().max())
+            e = float((x[:-1] - y[:-1]).abs().max())
+            check(e <= SSD_REL * scale, f"parity mamba2: state rows differ "
+                  f"by {e:.3g} (of {scale:.3g})")
+            state_err = max(state_err, e / scale)
+    print(f"[parity] mamba2-370m, 2-layer full-width f32: max |hidden "
+          f"kernel - plain| {err:.3g}, state rows {state_err:.3g} of their "
+          f"scale, sampled ids equal ({ik[dev(live)].tolist()})")
 
 
 # ---------------------------------------------------------------- main
@@ -568,18 +823,24 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     head = phase_kernels()
-    counts, eng = phase_serve()
-    phase_profile(eng)
+    # each served path: counts zeroed just before it, read just after
+    launches = {name: 0 for name in SOURCES}
+    for arch in PATHS:
+        counts, eng = phase_serve(arch)
+        for name in SOURCES:
+            launches[name] += counts[name]["launches"]
+        phase_profile(eng)
+        del eng
     phase_parity()
+    phase_parity_mamba()
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         kernels.append(dict(name=name, route="cuda", source=src,
-                            replaces=replaces,
-                            launches=counts[name]["launches"],
+                            replaces=replaces, launches=launches[name],
                             **head[name]))
         print(f"[kernels] {name}: ported (cuda, {src}), agrees with its "
-              f"plain version in f32 and bf16, launched "
-              f"{counts[name]['launches']} times while serving")
+              f"plain version in f32 and bf16, launched {launches[name]} "
+              f"times while serving")
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

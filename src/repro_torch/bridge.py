@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.mamba2 import MambaState
 from repro_torch.models.transformer import PagedAttnCache
 
 
@@ -37,24 +38,26 @@ def params_from_numpy(tree) -> Dict[str, torch.Tensor]:
 
 
 def paged_cache_from_numpy(cache, device="cuda") -> Dict[str, List]:
-    """A JAX paged cache (``{"layers": [(k, v), ...]}`` with numpy pages
-    ``[num_blocks, bs, KV, hd]``) as the port's on ``device``, with the
-    sink page appended to every layer. Raises without a card unless
-    ``device="cpu"``."""
+    """A JAX paged cache (``{"layers": [...]}`` of numpy arrays: ``(k,
+    v)`` pages ``[num_blocks, bs, KV, hd]`` for attention layers,
+    ``MambaState(conv, ssm)`` rows ``[n_slots, ...]`` for Mamba layers)
+    as the port's on ``device``, with the sink page appended to every
+    attention layer and the sink row to every Mamba layer. Raises
+    without a card unless ``device="cpu"``."""
     dev = resolve_device(device)
     layers = []
-    for k, v in cache["layers"]:
-        kt, vt = (torch.from_numpy(np.array(a)).to(dev) for a in (k, v))
-        layers.append(PagedAttnCache(
-            torch.cat([kt, torch.zeros_like(kt[:1])]),
-            torch.cat([vt, torch.zeros_like(vt[:1])])))
+    for entry in cache["layers"]:
+        cls = MambaState if getattr(entry, "_fields", ()) \
+            == MambaState._fields else PagedAttnCache
+        a, b = (torch.from_numpy(np.array(t)).to(dev) for t in entry)
+        layers.append(cls(torch.cat([a, torch.zeros_like(a[:1])]),
+                          torch.cat([b, torch.zeros_like(b[:1])])))
     return {"layers": layers}
 
 
 def paged_cache_to_numpy(cache) -> Dict[str, Sequence]:
-    """The port's paged cache as numpy pages, without the sink page: the
-    layout of the JAX ``PagedAttnCache`` (``{"layers": [(k, v), ...]}``).
-    """
-    return {"layers": [(c.k[:-1].detach().cpu().float().numpy(),
-                        c.v[:-1].detach().cpu().float().numpy())
-                       for c in cache["layers"]]}
+    """The port's paged cache as numpy arrays in float32, without the
+    sink page or sink row: ``{"layers": [(k, v) or (conv, ssm), ...]}``,
+    the layout of the JAX cache."""
+    return {"layers": [tuple(t[:-1].detach().cpu().float().numpy()
+                             for t in c) for c in cache["layers"]]}

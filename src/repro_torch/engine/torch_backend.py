@@ -7,8 +7,9 @@ with ``kv_layout="paged"``, carrying the slot bookkeeping of its
 (``on_admit`` / ``on_release`` / ``preflight`` / ``execute``): one
 ``fused_serve_forward`` per BatchPlan, with prefill chunks and the decode
 batch as per-slot rows bucketed to the engine quantum, block tables
-rebuilt from the scheduler's ``KVPool`` grants, greedy sampling on the
-device and one device-to-host transfer per iteration.
+rebuilt from the scheduler's ``KVPool`` grants, Mamba layers' recurrent
+state kept per slot, greedy sampling on the device and one
+device-to-host transfer per iteration.
 
 Not ported yet (ROADMAP.md queue 1): the dense layout, int8 KV pages,
 the KV hierarchy's swap and prefix tiers, SWA page reclamation, tensor
@@ -28,7 +29,7 @@ from repro_torch.core.request import Request
 from repro_torch.core.scheduler import BatchPlan
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import MAMBA, ModelConfig
 from repro_torch.models.transformer import (Transformer, fused_serve_forward,
                                             init_paged_cache, init_params)
 
@@ -79,8 +80,9 @@ class TorchEngine:
         self.pool = pool if pool is not None else KVPool(
             num_blocks=n_slots * self.max_blocks, block_size=block_size,
             max_seqs=n_slots)
-        self.cache = init_paged_cache(cfg, self.pool.num_blocks, block_size,
-                                      dtype=dtype, device=self.device)
+        self.cache = init_paged_cache(cfg, n_slots, self.pool.num_blocks,
+                                      block_size, dtype=dtype,
+                                      device=self.device)
         # paged page-window bucket hits: maxb -> iteration count
         self.gather_bucket_hits: Dict[int, int] = {}
         # device block tables reused while no live row's table changed
@@ -89,6 +91,13 @@ class TorchEngine:
         self._pre_bt_dev = self._dec_bt_dev = None
         self.slot_len = np.zeros((n_slots,), np.int32)
         self.last_token = np.zeros((n_slots,), np.int32)
+
+    @property
+    def prefix_sharing_ok(self) -> bool:
+        """Prefix sharing is per KV block; recurrent Mamba state is not a
+        per-block quantity, so a family with Mamba layers cannot skip
+        prefill through shared pages (as in the JAX engine)."""
+        return not any(l.mixer == MAMBA for l in self.cfg.layers)
 
     def _gen_tokens(self, req: Request) -> np.ndarray:
         """Synthetic prompt tokens, seeded per rid exactly as the JAX
@@ -223,25 +232,28 @@ class TorchEngine:
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
-    def _step(self, pre_tokens, pre_start, pre_len, pre_sample, dec_tokens,
-              dec_start, dec_active, pre_bt, dec_bt) -> torch.Tensor:
+    def _step(self, pre_tokens, pre_slots, pre_start, pre_len, pre_reset,
+              pre_sample, dec_tokens, dec_start, dec_active, pre_bt,
+              dec_bt) -> torch.Tensor:
         d = self._dev
         return fused_serve_forward(
-            self.params, self.cfg, self.cache, d(pre_tokens), d(pre_start),
-            d(pre_len), d(pre_sample), d(dec_tokens), d(dec_start),
-            d(dec_active), pre_bt, dec_bt)
+            self.params, self.cfg, self.cache, d(pre_tokens), d(pre_slots),
+            d(pre_start), d(pre_len), d(pre_reset), d(pre_sample),
+            d(dec_tokens), d(dec_start), d(dec_active), pre_bt, dec_bt)
 
     def warm(self) -> None:
         """Build and load the kernels (on the card), and launch each once
-        with a state-safe iteration: one pad prefill row and an inactive
-        decode batch, with empty block tables, so every write goes to the
-        sink page."""
+        with a state-safe iteration: one pad prefill row on the sink row
+        of the Mamba state and an inactive decode batch, with empty block
+        tables, so every page write goes to the sink page and no live
+        slot's state moves."""
         if self.device.type == "cuda":
             build.build()
         n = self.n_slots
         q = self.quantum
-        self._step(np.zeros((1, q), np.int32), np.zeros((1,), np.int32),
-                   np.zeros((1,), np.int32), np.zeros((1,), np.int32),
+        z1 = np.zeros((1,), np.int32)
+        self._step(np.zeros((1, q), np.int32), np.full((1,), n, np.int32),
+                   z1, z1, np.zeros((1,), bool), z1,
                    self.last_token.copy(), self.slot_len.copy(),
                    np.zeros((n,), bool),
                    self._dev(np.full((1, 1), -1, np.int32)),
@@ -283,15 +295,19 @@ class TorchEngine:
         else:
             P, L = 0, 1     # decode-only: the prefill branch is skipped
         pre_tokens = np.zeros((P, L), np.int32)
+        pre_slots = np.full((P,), n, np.int32)      # n: the sink row
         pre_start = np.zeros((P,), np.int32)
         pre_len = np.zeros((P,), np.int32)
+        pre_reset = np.zeros((P,), bool)
         pre_sample = np.zeros((P,), np.int32)
         emit_pre: List[Optional[int]] = [None] * P
         for i, (slot, req, toks) in enumerate(pre):
             real = len(toks)
             pre_tokens[i, :real] = toks
+            pre_slots[i] = slot
             pre_start[i] = req.prefilled
             pre_len[i] = real
+            pre_reset[i] = req.prefilled == 0
             if req.prefilled + real >= req.prompt_len:
                 # the last chunk emits the request's first output token
                 pre_sample[i] = real - 1
@@ -351,8 +367,9 @@ class TorchEngine:
             self._dec_bt_dev = self._dev(dec_bt)
             self._dec_bt_key = dec_key
 
-        # ---- ONE forward; the cache's pages are written in place
-        sampled = self._step(pre_tokens, pre_start, pre_len, pre_sample,
+        # ---- ONE forward; the cache's pages and state written in place
+        sampled = self._step(pre_tokens, pre_slots, pre_start, pre_len,
+                             pre_reset, pre_sample,
                              self.last_token[:nd].copy(),
                              self.slot_len[:nd].copy(), dec_active,
                              self._pre_bt_dev, self._dec_bt_dev)

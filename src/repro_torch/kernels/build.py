@@ -21,7 +21,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("paged_attention", "chunked_prefill_attention")
+KERNELS = ("paged_attention", "chunked_prefill_attention", "rmsnorm",
+           "ssd_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -92,18 +93,18 @@ def load_library(name: str) -> ctypes.CDLL:
     return lib
 
 
-# dtype codes of the kernels' C interface (``DISPATCH_DTYPE_HEAD_DIM``)
+# dtype codes of the kernels' C interface (``DISPATCH_DTYPE_HEAD_DIM`` and
+# each kernel's own dispatch)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 
 
 def check_inputs(name: str, floats: Sequence[torch.Tensor],
-                 ints: Sequence[torch.Tensor], head_dim: int) -> None:
+                 ints: Sequence[torch.Tensor]) -> None:
     """The checks every kernel wrapper makes before its shape rules: one
     CUDA device; the float tensors share a dtype of ``DTYPES``, the
     index tensors are int32; all are contiguous; the float tensors are
-    16-byte aligned (the kernels load 16 bytes at a time); ``head_dim``
-    is one of ``HEAD_DIMS``."""
+    16-byte aligned (the kernels load 16 bytes at a time)."""
     tensors = (*floats, *ints)
     dev = floats[0].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -120,6 +121,11 @@ def check_inputs(name: str, floats: Sequence[torch.Tensor],
     if any(t.data_ptr() % 16 for t in floats):
         raise ValueError(f"{name}: the float inputs must be 16-byte aligned "
                          f"(the kernel loads 16 bytes at a time)")
+
+
+def check_head_dim(name: str, head_dim: int) -> None:
+    """The attention kernels' rule: ``head_dim`` is one of
+    ``HEAD_DIMS`` (``DISPATCH_DTYPE_HEAD_DIM``)."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {head_dim} is not one of "
                          f"{HEAD_DIMS}")

@@ -20,7 +20,8 @@ launches = 0    # kernel launches by this process
 
 
 def _check(q, k, v, q_offsets, kv_lens, window):
-    build.check_inputs(NAME, (q, k, v), (q_offsets, kv_lens), q.shape[-1])
+    build.check_inputs(NAME, (q, k, v), (q_offsets, kv_lens))
+    build.check_head_dim(NAME, q.shape[-1])
     B, C, H, D = q.shape
     if k.dim() != 4 or k.shape[0] != B or k.shape[3] != D \
             or v.shape != k.shape or H % k.shape[2] \

@@ -1,4 +1,4 @@
-"""Device dispatch of the attention kernels, and their counts.
+"""Device dispatch of the kernels, and their counts.
 
 A tensor on the CPU goes to the plain PyTorch version (``kernels/ref``),
 a CUDA tensor to the hand-written kernel; there is no fallback from one
@@ -16,10 +16,14 @@ import torch
 from . import chunked_prefill_attention as _cpa
 from . import paged_attention as _pa
 from . import ref
+from . import rmsnorm as _rms
+from . import ssd_scan as _ssd
 
+# each kernel's wrapper module, which counts its launches
+_WRAPPERS = {"paged_attention": _pa, "chunked_prefill_attention": _cpa,
+             "rmsnorm": _rms, "ssd_scan": _ssd}
 # calls of each plain version made through this module
-plain_calls: Dict[str, int] = {"paged_attention": 0,
-                               "chunked_prefill_attention": 0}
+plain_calls: Dict[str, int] = {name: 0 for name in _WRAPPERS}
 _force_plain = False
 
 
@@ -75,18 +79,34 @@ def chunked_prefill_attention(q, k, v, *, q_offset: int = 0,
                                                window=window)
 
 
+def rmsnorm(x, w, eps: float = 1e-5):
+    """x: [..., D]; w: [D]. Returns ``x``'s shape and dtype."""
+    if _plain("rmsnorm", x.device):
+        return ref.rmsnorm_ref(x, w, eps)
+    shape = x.shape
+    out = _rms.rmsnorm_cuda(x.reshape(-1, shape[-1]).contiguous(),
+                            w.contiguous(), eps)
+    return out.reshape(shape)
+
+
+def ssd_scan(x, dt, A, B_, C_, init_state, *, chunk: int):
+    """x: [Bt, S, nh, hd]; dt: [Bt, S, nh] f32; A: [nh] f32; B_, C_:
+    [Bt, S, ds]; init_state: [Bt, nh, hd, ds] f32. Any ``S``: both
+    versions zero-pad to the chunk grid. Returns (y [Bt, S, nh, hd] f32,
+    final state [Bt, nh, hd, ds] f32)."""
+    if _plain("ssd_scan", x.device):
+        return ref.ssd_scan_ref(x, dt, A, B_, C_, init_state, chunk)
+    return _ssd.ssd_scan_cuda(x, dt, A, B_, C_, init_state, chunk)
+
+
 def reset_counts() -> None:
     """Zero every kernel's launch count and every plain-call count."""
-    _pa.launches = 0
-    _cpa.launches = 0
-    for name in plain_calls:
+    for name, mod in _WRAPPERS.items():
+        mod.launches = 0
         plain_calls[name] = 0
 
 
 def counts() -> Dict[str, Dict[str, int]]:
     """``{kernel: {"launches": n, "plain": m}}`` since the last reset."""
-    return {"paged_attention": {"launches": _pa.launches,
-                                "plain": plain_calls["paged_attention"]},
-            "chunked_prefill_attention": {
-                "launches": _cpa.launches,
-                "plain": plain_calls["chunked_prefill_attention"]}}
+    return {name: {"launches": mod.launches, "plain": plain_calls[name]}
+            for name, mod in _WRAPPERS.items()}

@@ -20,8 +20,8 @@ launches = 0    # kernel launches by this process
 
 
 def _check(q, k_pages, v_pages, block_table, lens):
-    build.check_inputs(NAME, (q, k_pages, v_pages), (block_table, lens),
-                       q.shape[-1])
+    build.check_inputs(NAME, (q, k_pages, v_pages), (block_table, lens))
+    build.check_head_dim(NAME, q.shape[-1])
     B, H, D = q.shape
     P, page, KV, Dk = k_pages.shape
     if Dk != D or v_pages.shape != k_pages.shape or H % KV \

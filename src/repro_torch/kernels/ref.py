@@ -1,11 +1,13 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the kernels.
 
 The simplest correct implementation of each function (a gather and a
-naive masked softmax in fp32), written apart from the CUDA kernels so
-that agreement between the two means something. The CPU path of
-``kernels.ops`` runs them, the tests hold them against the JAX package's
-``kernels/ref.py`` and Pallas kernels, and ``chip_smoke.py`` holds the
-CUDA kernels against them on the card.
+naive masked softmax in fp32 for attention; the norm's fp32 arithmetic;
+the chunked SSD scan as ``ssd_chunked`` computes it), written apart from
+the CUDA kernels so that agreement between the two means something. The
+CPU path of ``kernels.ops`` runs them, the tests hold them against the
+JAX package's ``kernels/ref.py``, its Pallas kernels and
+``models/mamba2.py::ssd_chunked``, and ``chip_smoke.py`` holds the CUDA
+kernels against them on the card.
 
 Unlike the JAX oracles (softmax over ``-inf``), a row with nothing
 visible gives zeros here, as the Pallas kernels and the model's masked
@@ -15,8 +17,19 @@ rows, and their outputs must stay finite.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.models.layers import _softmax_masked
+NEG_INF = -1e30
+
+
+def _softmax_masked(scores: torch.Tensor, mask: torch.Tensor):
+    """Softmax over the last axis where ``mask`` holds; a row with
+    nothing visible gives zeros, not NaN."""
+    scores = torch.where(mask, scores, NEG_INF)
+    m = torch.amax(scores, dim=-1, keepdim=True).clamp_min(-1e29)
+    e = torch.where(mask, torch.exp(scores - m), 0.0)
+    s = torch.sum(e, dim=-1, keepdim=True)
+    return e / s.clamp_min(1e-30)
 
 
 def _per_row(x, batch: int, device) -> torch.Tensor:
@@ -69,3 +82,61 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, lens):
     p = _softmax_masked(s, valid[:, None, None, :])
     o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
     return o.reshape(B, H, D).to(q.dtype)
+
+
+def rmsnorm_ref(x, w, eps: float = 1e-5):
+    """``x * rsqrt(mean(x^2) + eps) * (1 + w)`` over the last axis, in
+    fp32, cast back to ``x.dtype``: the arithmetic of the JAX package's
+    ``models/layers.py::rmsnorm``."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + w.float())).to(dt)
+
+
+def ssd_scan_ref(x, dt, A, B_, C_, init_state, chunk: int):
+    """The Mamba2 chunked SSD scan, as the JAX package's
+    ``models/mamba2.py::ssd_chunked`` computes it: zero-pad ``S`` to the
+    chunk grid, cumulative decay within each chunk, the intra-chunk dual
+    form ``(C B^T) * L * dt`` with ``L = exp(cum_i - cum_j)`` masked to
+    ``j <= i`` before the exp, plus the carried state's term, then the
+    state update; chunks run in order.
+
+    x: [Bt, S, nh, hd]; dt: [Bt, S, nh] (post-softplus); A: [nh]
+    (negative); B_, C_: [Bt, S, ds] (one group); init_state:
+    [Bt, nh, hd, ds]. Returns (y [Bt, S, nh, hd] fp32, final state
+    [Bt, nh, hd, ds] fp32)."""
+    Bt, S, nh, hd = x.shape
+    ds = B_.shape[-1]
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B_ = F.pad(B_, (0, 0, 0, pad))
+        C_ = F.pad(C_, (0, 0, 0, pad))
+    n = x.shape[1] // chunk
+    xc = x.reshape(Bt, n, chunk, nh, hd).float()
+    dtc = dt.reshape(Bt, n, chunk, nh).float()
+    Bc = B_.reshape(Bt, n, chunk, ds).float()
+    Cc = C_.reshape(Bt, n, chunk, ds).float()
+    cum = torch.cumsum(dtc * A.float()[None, None, None, :], dim=2)
+    causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                   device=x.device))[None, :, :, None]
+    h = init_state.float()
+    ys = []
+    for k in range(n):
+        xk, dtk, Bk, Ck, cumk = (xc[:, k], dtc[:, k], Bc[:, k], Cc[:, k],
+                                 cum[:, k])
+        li = cumk[:, :, None, :] - cumk[:, None, :, :]      # [Bt,c,c,nh]
+        Lmat = torch.where(causal, torch.exp(torch.where(causal, li, 0.0)),
+                           0.0)
+        cb = torch.einsum("bis,bjs->bij", Ck, Bk)
+        w = cb[..., None] * Lmat * dtk[:, None, :, :]
+        y_intra = torch.einsum("bijh,bjhd->bihd", w, xk)
+        y_inter = torch.einsum("bis,bhds,bih->bihd", Ck, h, torch.exp(cumk))
+        tail = torch.exp(cumk[:, -1:, :] - cumk)              # [Bt,c,nh]
+        upd = torch.einsum("bjs,bjhd,bjh,bjh->bhds", Bk, xk, dtk, tail)
+        h = torch.exp(cumk[:, -1, :])[:, :, None, None] * h + upd
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(Bt, n * chunk, nh, hd)
+    return y[:, :S], h

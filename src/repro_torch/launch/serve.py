@@ -6,9 +6,13 @@ replica, served by ``TorchEngine`` through ``make_torch_replica``. On
 the card (the default) it serves the full configuration with the
 NiyamaScheduler priced on the ``H100`` spec; ``--reduced`` gives the JAX
 serve script's ``.reduced(num_layers=2, d_model=256)`` model, for CPU runs.
+``--arch`` picks the family: ``llama3.2-3b`` (the default) or
+``mamba2-370m``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --dtype bf16 \
       --n-requests 12 --max-len 2048
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+      --dtype bf16 --n-requests 12 --max-len 2048
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
 """
 from __future__ import annotations
@@ -46,7 +50,8 @@ def make_requests(rng: np.random.Generator, n: int, max_len: int):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.2-3b")
+    ap.add_argument("--arch", default="llama3.2-3b",
+                    help="llama3.2-3b or mamba2-370m")
     ap.add_argument("--scheme", default="niyama")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32",

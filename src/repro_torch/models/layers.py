@@ -3,20 +3,19 @@
 Each is the PyTorch counterpart of the function of the same name in the
 JAX package's ``models/layers.py``, with the same arithmetic: fp32 math
 inside ``rmsnorm`` and ``apply_rope``, and the ``(1 + w)`` norm scale.
+``rmsnorm`` goes through ``kernels.ops``: the CUDA kernel on the card,
+the plain version (``kernels/ref.py::rmsnorm_ref``) on the CPU.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-NEG_INF = -1e30
+from repro_torch.kernels import ops
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
-    dt = x.dtype
-    x = x.float()
-    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-    return (x * (1.0 + w.float())).to(dt)
+    return ops.rmsnorm(x, w, eps)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -37,16 +36,6 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
-
-
-def _softmax_masked(scores: torch.Tensor, mask: torch.Tensor):
-    """Softmax over the last axis where ``mask`` holds; a row with
-    nothing visible gives zeros, not NaN."""
-    scores = torch.where(mask, scores, NEG_INF)
-    m = torch.amax(scores, dim=-1, keepdim=True).clamp_min(-1e29)
-    e = torch.where(mask, torch.exp(scores - m), 0.0)
-    s = torch.sum(e, dim=-1, keepdim=True)
-    return e / s.clamp_min(1e-30)
 
 
 def swiglu(x, w_gate, w_up, w_down):

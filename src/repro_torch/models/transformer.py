@@ -1,22 +1,29 @@
-"""The fused serve forward of the dense decoder family, in PyTorch.
+"""The fused serve forward of the dense decoder and Mamba2 families, in
+PyTorch.
 
 Counterpart of the serve path of the JAX package's
 ``models/transformer.py``: ``init_params``, ``init_paged_cache``,
-``_paged_write``, ``_paged_view``, ``_attn_paged``, ``_apply_ffn``,
-``_embed``, ``_fused_block`` and ``fused_serve_forward`` keep their
-names, their parameter layouts (``wq [d, H, hd]``, ``wo [H, hd, d]``,
-``embed [V_pad, d]``, ``lm_head [d, V_pad]``) and their einsums.
+``_paged_write``, ``_paged_view``, ``_attn_paged``, ``_gather_cache_rows``,
+``_scatter_cache_rows``, ``_apply_ffn``, ``_embed``, ``_fused_block`` and
+``fused_serve_forward`` keep their names, their parameter layouts
+(``wq [d, H, hd]``, ``wo [H, hd, d]``, ``embed [V_pad, d]``,
+``lm_head [d, V_pad]``, the Mamba leaves of ``models/mamba2.py``) and
+their einsums.
 
-Two departures, both for memory: the page writes update the cache in
-place (JAX returns a new cache), and the paged cache carries one more
-page than the pool grants, the sink page ``num_blocks``, which takes the
-writes JAX drops as out of bounds. Nothing reads the sink: block tables
-only hold granted pages.
+Departures, all for memory: the page writes and the Mamba state updates
+happen in place (JAX returns a new cache); the paged cache carries one
+more page than the pool grants, the sink page ``num_blocks``, which takes
+the writes JAX drops as out of bounds; and each Mamba layer's state
+carries one more row than there are slots, the sink row ``n_slots``,
+which takes the scatter of pad prefill rows that JAX drops. Nothing
+reads either sink for a live request: block tables only hold granted
+pages, and pad rows' outputs are discarded.
 
-Attention reads go through ``kernels.ops``: the hand-written CUDA kernels
-for tensors on the card, the plain PyTorch versions on the CPU.
-Mixture-of-experts, Mamba, sliding-window and encoder-decoder families
-are not ported yet and raise ``NotImplementedError``.
+Attention reads, the norms and the SSD scan go through ``kernels.ops``:
+the hand-written CUDA kernels for tensors on the card, the plain PyTorch
+versions on the CPU. Mixture-of-experts, sliding-window and
+encoder-decoder families are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,18 +35,23 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
-from .config import ATTN, DENSE, ModelConfig
+from .config import ATTN, DENSE, MAMBA, NONE, ModelConfig
 from .layers import apply_rope, rmsnorm, swiglu
+from .mamba2 import (Mamba, MambaState, init_mamba_params, init_mamba_state,
+                     mamba_forward, mamba_step)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense decoder the port can serve."""
+    """Raise unless ``cfg`` is a decoder the port can serve: every layer
+    mixes with full attention or Mamba2, and its FFN is dense or absent."""
     if cfg.is_encdec or cfg.frontend is not None or any(
-            l.mixer != ATTN or l.ffn != DENSE for l in cfg.layers):
+            l.mixer not in (ATTN, MAMBA) or l.ffn not in (DENSE, NONE)
+            for l in cfg.layers):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense decoder-only families "
-            f"(full attention + dense FFN) so far; MoE, Mamba2, sliding "
-            f"window and encoder-decoder wait in ROADMAP.md queue 1")
+            f"{cfg.name}: the port serves decoder-only families of full "
+            f"attention or Mamba2 layers with a dense FFN or none so far; "
+            f"MoE, sliding window and encoder-decoder wait in ROADMAP.md "
+            f"queue 1")
 
 
 # ================================================================ params
@@ -72,20 +84,29 @@ class DenseFFN(nn.Module):
 
 
 class Layer(nn.Module):
-    def __init__(self, cfg: ModelConfig, device, dtype):
+    """One block, holding what the JAX ``_init_layer`` holds: ``norm1``
+    and ``mamba`` or ``attn``; ``norm2`` and ``ffn`` only where the
+    layer has an FFN."""
+
+    def __init__(self, cfg: ModelConfig, spec, device, dtype):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.norm1 = _param(cfg.d_model, **kw)
-        self.attn = Attention(cfg, **kw)
-        self.norm2 = _param(cfg.d_model, **kw)
-        self.ffn = DenseFFN(cfg, **kw)
+        if spec.mixer == MAMBA:
+            self.mamba = Mamba(cfg, **kw)
+        else:
+            self.attn = Attention(cfg, **kw)
+        if spec.ffn != NONE:
+            self.norm2 = _param(cfg.d_model, **kw)
+            self.ffn = DenseFFN(cfg, **kw)
 
 
 class Transformer(nn.Module):
     """The parameters, named as the JAX parameter tree is nested:
     ``embed``, ``final_norm``, ``lm_head``, ``layers.3.attn.wq``,
-    ``layers.3.ffn.w_gate``, ``layers.3.norm1`` ... The forward pass is
-    ``fused_serve_forward``, a plain function over this container."""
+    ``layers.3.ffn.w_gate``, ``layers.3.mamba.A_log``, ``layers.3.norm1``
+    ... The forward pass is ``fused_serve_forward``, a plain function over
+    this container."""
 
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
@@ -93,36 +114,44 @@ class Transformer(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.embed = _param(cfg.vocab_padded, cfg.d_model, **kw)
         self.final_norm = _param(cfg.d_model, **kw)
-        self.layers = nn.ModuleList(Layer(cfg, **kw)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(Layer(cfg, spec, **kw)
+                                    for spec in cfg.layers)
         self.lm_head = None if cfg.tie_embeddings else \
             _param(cfg.d_model, cfg.vocab_padded, **kw)
 
 
-# std of each weight's normal draw, as the JAX init_params scales it
+# std of each attention and FFN weight's normal draw, as the JAX
+# init_params scales it (the Mamba leaves: ``init_mamba_params``)
 def _init_std(name: str, cfg: ModelConfig) -> float:
-    d, f, h, hd = cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.head_dim
     leaf = name.rsplit(".", 1)[-1]
-    return {"embed": 0.02, "lm_head": 0.02, "wq": d ** -0.5,
-            "wk": d ** -0.5, "wv": d ** -0.5, "wo": (h * hd) ** -0.5,
-            "w_gate": d ** -0.5, "w_up": d ** -0.5,
-            "w_down": f ** -0.5}[leaf]
+    if leaf in ("embed", "lm_head"):
+        return 0.02
+    d, f, h, hd = cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.head_dim
+    fan_in = {"wq": d, "wk": d, "wv": d, "wo": h * hd, "w_gate": d,
+              "w_up": d, "w_down": f}[leaf]
+    return fan_in ** -0.5
 
 
 @torch.no_grad()
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda", dtype=torch.float32) -> Transformer:
     """Random weights with the JAX ``init_params`` shapes and scales
-    (norm weights zero, i.e. unit scale). The numbers come from
+    (norm weights zero, i.e. unit scale; the Mamba leaves as
+    ``init_mamba_params`` sets them). The numbers come from
     ``generator``, which lives on ``device``; they are not JAX's."""
     dev = resolve_device(device)
     model = Transformer(cfg, dev, dtype)
     for name, p in model.named_parameters():
+        if ".mamba." in name:
+            continue
         if "norm" in name.rsplit(".", 1)[-1]:
             p.zero_()
         else:
             p.copy_(torch.randn(p.shape, generator=generator, device=dev)
                     * _init_std(name, cfg))
+    for layer in model.layers:
+        if hasattr(layer, "mamba"):
+            init_mamba_params(layer.mamba, cfg, generator)
     return model
 
 
@@ -138,17 +167,23 @@ class PagedAttnCache(NamedTuple):
     v: torch.Tensor
 
 
-def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
-                     dtype=torch.float32, device="cuda") -> Dict:
-    """Zeroed pages for every layer on ``device``, the sink page
-    included. Raises without a card unless ``device="cpu"``."""
+def init_paged_cache(cfg: ModelConfig, n_slots: int, num_blocks: int,
+                     block_size: int, dtype=torch.float32,
+                     device="cuda") -> Dict:
+    """The zeroed serving cache on ``device``, with the arguments of the
+    JAX ``init_paged_cache``: attention layers share the page pool
+    (``num_blocks`` pages and the sink page), Mamba layers keep their
+    O(1) recurrent state per slot (``n_slots`` rows and the sink row).
+    Raises without a card unless ``device="cpu"``."""
     check_supported(cfg)
     dev = resolve_device(device)
     shape = (num_blocks + 1, block_size, cfg.num_kv_heads, cfg.head_dim)
     return {"layers": [
+        init_mamba_state(n_slots + 1, cfg, dtype, dev)
+        if spec.mixer == MAMBA else
         PagedAttnCache(torch.zeros(shape, dtype=dtype, device=dev),
                        torch.zeros(shape, dtype=dtype, device=dev))
-        for _ in cfg.layers]}
+        for spec in cfg.layers]}
 
 
 def _paged_write(c: PagedAttnCache, k_new, v_new, start_pos, bt,
@@ -172,6 +207,19 @@ def _paged_write(c: PagedAttnCache, k_new, v_new, start_pos, bt,
     idx = (torch.where(ok, blk, nb).long(), off.long())
     c.k.index_put_(idx, k_new.to(c.k.dtype))
     c.v.index_put_(idx, v_new.to(c.v.dtype))
+
+
+def _gather_cache_rows(c: MambaState, idx) -> MambaState:
+    """The state rows of the prefill sub-batch (a copy). Pad rows carry
+    the sink row's index ``n_slots``."""
+    return MambaState(conv=c.conv[idx.long()], ssm=c.ssm[idx.long()])
+
+
+def _scatter_cache_rows(c: MambaState, sub: MambaState, idx) -> None:
+    """Write the prefill sub-batch's rows back, in place. Pad rows land
+    on the sink row, which JAX's scatter drops as out of bounds."""
+    c.conv[idx.long()] = sub.conv.to(c.conv.dtype)
+    c.ssm[idx.long()] = sub.ssm
 
 
 def _paged_view(c: PagedAttnCache, bt):
@@ -214,7 +262,9 @@ def _attn_paged(p: Attention, cfg: ModelConfig, x, cache: PagedAttnCache,
     return torch.einsum("bshk,hkd->bsd", o, p.wo)
 
 
-def _apply_ffn(p: Layer, cfg: ModelConfig, x):
+def _apply_ffn(p: Layer, cfg: ModelConfig, spec, x):
+    if spec.ffn == NONE:
+        return x
     h = rmsnorm(x, p.norm2, cfg.norm_eps)
     f = p.ffn
     return x + swiglu(h, f.w_gate, f.w_up, f.w_down)
@@ -224,31 +274,73 @@ def _embed(params: Transformer, tokens):
     return params.embed[tokens.long()]
 
 
-def _fused_block(p: Layer, cfg: ModelConfig, x_pre, x_dec,
-                 cache: PagedAttnCache, pre_start, pre_len, pre_valid,
-                 dec_start, dec_active, pre_bt, dec_bt):
+def _mamba_block(p: Layer, cfg: ModelConfig, x_pre, x_dec,
+                 state: MambaState, pre_slots, pre_len, pre_reset,
+                 dec_active):
+    """The Mamba mixer of one fused iteration, updating ``state`` in
+    place. Prefill rows gather their slots' state (zeroed where
+    ``pre_reset`` marks a request's first chunk: slot reuse must not leak
+    the previous recurrence), run ``mamba_forward`` with ``seq_lens =
+    pre_len`` and scatter the result back; the decode batch runs
+    ``mamba_step`` over every slot and keeps the new state only where
+    ``dec_active`` holds, so inactive slots compute but do not move."""
+    if x_pre.shape[0]:
+        h = rmsnorm(x_pre, p.norm1, cfg.norm_eps)
+        sub = _gather_cache_rows(state, pre_slots)
+        sub = MambaState(
+            conv=torch.where(pre_reset[:, None, None], 0.0, sub.conv),
+            ssm=torch.where(pre_reset[:, None, None, None], 0.0, sub.ssm))
+        y, sub = mamba_forward(p.mamba, h, cfg, sub, seq_lens=pre_len)
+        _scatter_cache_rows(state, sub, pre_slots)
+        x_pre = x_pre + y
+    if x_dec.shape[0]:
+        n = x_dec.shape[0]
+        h = rmsnorm(x_dec, p.norm1, cfg.norm_eps)
+        cur = MambaState(state.conv[:n], state.ssm[:n])
+        y, new = mamba_step(p.mamba, h, cfg, cur)
+        cur.conv.copy_(torch.where(dec_active[:, None, None],
+                                   new.conv.to(cur.conv.dtype), cur.conv))
+        cur.ssm.copy_(torch.where(dec_active[:, None, None, None], new.ssm,
+                                  cur.ssm))
+        x_dec = x_dec + y
+    return x_pre, x_dec
+
+
+def _fused_block(p: Layer, cfg: ModelConfig, spec, x_pre, x_dec,
+                 layer_cache, pre_slots, pre_start, pre_len, pre_reset,
+                 pre_valid, dec_start, dec_active, pre_bt, dec_bt):
     """One layer of the fused serve iteration: the prefill sub-batch
     ([P, L] chunk rows) and the decode sub-batch ([N, 1]) advance
     together; a request is in one of them only, so their page writes
-    touch disjoint pages. An absent sub-batch (size 0) is skipped, as
-    JAX traces no machinery for it."""
+    and state updates touch disjoint pages and slots. An absent
+    sub-batch (size 0) is skipped, as JAX traces no machinery for it.
+    The layer's cache (pages or Mamba state) is updated in place."""
+    if spec.mixer == MAMBA:
+        x_pre, x_dec = _mamba_block(p, cfg, x_pre, x_dec, layer_cache,
+                                    pre_slots, pre_len, pre_reset,
+                                    dec_active)
+    else:
+        if x_pre.shape[0]:
+            h = rmsnorm(x_pre, p.norm1, cfg.norm_eps)
+            x_pre = x_pre + _attn_paged(p.attn, cfg, h, layer_cache,
+                                        pre_bt, pre_start, pre_len,
+                                        pre_valid, False)
+        if x_dec.shape[0]:
+            h = rmsnorm(x_dec, p.norm1, cfg.norm_eps)
+            x_dec = x_dec + _attn_paged(
+                p.attn, cfg, h, layer_cache, dec_bt, dec_start,
+                dec_active.to(dec_start.dtype), dec_active[:, None], True)
     if x_pre.shape[0]:
-        h = rmsnorm(x_pre, p.norm1, cfg.norm_eps)
-        x_pre = x_pre + _attn_paged(p.attn, cfg, h, cache, pre_bt,
-                                    pre_start, pre_len, pre_valid, False)
-        x_pre = _apply_ffn(p, cfg, x_pre)
+        x_pre = _apply_ffn(p, cfg, spec, x_pre)
     if x_dec.shape[0]:
-        h = rmsnorm(x_dec, p.norm1, cfg.norm_eps)
-        x_dec = x_dec + _attn_paged(
-            p.attn, cfg, h, cache, dec_bt, dec_start,
-            dec_active.to(dec_start.dtype), dec_active[:, None], True)
-        x_dec = _apply_ffn(p, cfg, x_dec)
+        x_dec = _apply_ffn(p, cfg, spec, x_dec)
     return x_pre, x_dec
 
 
 def _sampled_hidden(params: Transformer, cfg: ModelConfig, cache: Dict,
-                    pre_tokens, pre_start, pre_len, pre_sample_col,
-                    dec_tokens, dec_start, dec_active, pre_bt, dec_bt):
+                    pre_tokens, pre_slots, pre_start, pre_len, pre_reset,
+                    pre_sample_col, dec_tokens, dec_start, dec_active,
+                    pre_bt, dec_bt):
     """Every layer of one fused iteration, then the final norm of the
     rows that are sampled: ``[P + N, d]``, prefill rows (their
     ``pre_sample_col`` column) then decode slots. This is what the LM
@@ -258,10 +350,11 @@ def _sampled_hidden(params: Transformer, cfg: ModelConfig, cache: Dict,
     x_dec = _embed(params, dec_tokens[:, None])
     pre_valid = torch.arange(L, device=pre_len.device)[None] \
         < pre_len[:, None]
-    for li, layer in enumerate(params.layers):
+    for li, spec in enumerate(cfg.layers):
         x_pre, x_dec = _fused_block(
-            layer, cfg, x_pre, x_dec, cache["layers"][li], pre_start,
-            pre_len, pre_valid, dec_start, dec_active, pre_bt, dec_bt)
+            params.layers[li], cfg, spec, x_pre, x_dec, cache["layers"][li],
+            pre_slots, pre_start, pre_len, pre_reset, pre_valid, dec_start,
+            dec_active, pre_bt, dec_bt)
     parts: List[torch.Tensor] = []
     if P:
         # the norm is per row: gathering the sampled column first gives
@@ -276,24 +369,27 @@ def _sampled_hidden(params: Transformer, cfg: ModelConfig, cache: Dict,
 
 @torch.inference_mode()
 def fused_serve_forward(params: Transformer, cfg: ModelConfig, cache: Dict,
-                        pre_tokens, pre_start, pre_len, pre_sample_col,
-                        dec_tokens, dec_start, dec_active,
-                        pre_bt=None, dec_bt=None) -> torch.Tensor:
+                        pre_tokens, pre_slots, pre_start, pre_len,
+                        pre_reset, pre_sample_col, dec_tokens, dec_start,
+                        dec_active, pre_bt=None,
+                        dec_bt=None) -> torch.Tensor:
     """ONE fused serve iteration executing a whole BatchPlan, with greedy
     sampling on the device. The arguments are those of the JAX
-    ``fused_serve_forward`` (paged layout) without the two that only the
-    Mamba and dense-layout paths read (``pre_slots``, ``pre_reset``):
+    ``fused_serve_forward`` (paged layout):
 
-      pre_tokens [P, L] int32, pre_start / pre_len / pre_sample_col [P]
-      int32 (pre_len 0 = pad row); dec_tokens / dec_start [N] int32,
-      dec_active [N] bool; pre_bt [P, maxb] / dec_bt [N, maxb] int32
-      block tables (-1 = unallocated).
+      pre_tokens [P, L] int32; pre_slots [P] int32 (each row's slot,
+      ``n_slots`` for pad rows); pre_start / pre_len [P] int32 (pre_len 0
+      = pad row); pre_reset [P] bool (a request's first chunk: zero its
+      Mamba state); pre_sample_col [P] int32; dec_tokens / dec_start [N]
+      int32, dec_active [N] bool; pre_bt [P, maxb] / dec_bt [N, maxb]
+      int32 block tables (-1 = unallocated).
 
-    The cache's pages are updated in place. Returns the sampled ids, ``[P + N]`` int32 (prefill rows, then
-    decode slots)."""
-    xs = _sampled_hidden(params, cfg, cache, pre_tokens, pre_start,
-                         pre_len, pre_sample_col, dec_tokens, dec_start,
-                         dec_active, pre_bt, dec_bt)
+    The cache's pages and Mamba state rows are updated in place. Returns
+    the sampled ids, ``[P + N]`` int32 (prefill rows, then decode
+    slots)."""
+    xs = _sampled_hidden(params, cfg, cache, pre_tokens, pre_slots,
+                         pre_start, pre_len, pre_reset, pre_sample_col,
+                         dec_tokens, dec_start, dec_active, pre_bt, dec_bt)
     w = params.lm_head if params.lm_head is not None else params.embed.T
     logits = xs @ w
     # torch.argmax, like jnp.argmax, returns the first maximum

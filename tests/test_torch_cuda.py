@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the engine's edge cases at small shapes (G = 3, -1 holes mid-table,
 lens not a multiple of the page, fully masked rows, ragged chunks, pad
-rows, windows) and the wrappers' refusals. ``chip_smoke.py`` checks the
-same kernels at the main path's shapes.
+rows, windows; norm rows that are not a multiple of 16 bytes wide; scan
+lengths padded to the chunk grid and zero-dt tails) and the wrappers'
+refusals. ``chip_smoke.py`` checks the same kernels at the main paths'
+shapes.
 
 On a machine with an NVIDIA GPU and nvcc:
 
@@ -12,6 +14,10 @@ Elsewhere every test here skips. Tolerances, element by element as
 ``atol + rtol * |plain|``: 1e-4 in f32 (summation order; TF32 is off);
 in bf16 one bf16 ulp of the output (rtol 2^-7, atol 1e-5), since kernel
 and plain version both accumulate in fp32 and round the output once.
+The norm in f32 is held to 8 ulps (rtol 2^-20, atol 1e-6), and the scan,
+whose output is fp32 in either input dtype, to 5e-4 of its output's
+largest magnitude (the versions sum the chunk's cumulative decay in
+different orders; ``chip_smoke.py``'s ``SSD_REL``).
 """
 import numpy as np
 import pytest
@@ -141,3 +147,103 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     kc = _t(rng.standard_normal((1, 16, 2, 64), np.float32), cuda)
     with pytest.raises(ValueError, match="window"):
         ops.chunked_prefill_attention(qc, kc, kc, window=0)
+
+
+NORM_TOL = {"f32": dict(atol=1e-6, rtol=2 ** -20),
+            "bf16": TOL["bf16"]}
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("N,D", [(1, 3072), (7, 1024), (300, 128),
+                                 (5, 1001), (3, 77), (2, 1)])
+def test_rmsnorm_kernel_vs_plain(cuda, dt, N, D):
+    """Widths that are and are not a multiple of 16 bytes (the kernel
+    reads those element by element), one row and many."""
+    from repro_torch.kernels import rmsnorm as rms
+    rng = np.random.default_rng(4)
+    x = _t(rng.standard_normal((N, D), np.float32) * 3, cuda, DTYPES[dt])
+    w = _t(rng.standard_normal((D,), np.float32) * 0.1, cuda, DTYPES[dt])
+    ops.reset_counts()
+    got = ops.rmsnorm(x, w, 1e-5)
+    torch.cuda.synchronize()
+    assert ops.counts()["rmsnorm"] == {"launches": 1, "plain": 0}
+    assert rms.launches == 1
+    torch.testing.assert_close(got.float(), ref.rmsnorm_ref(x, w).float(),
+                               **NORM_TOL[dt])
+
+
+def test_rmsnorm_kernel_takes_the_model_layouts(cuda):
+    """[B, S, D] activations and the decode batch's [N, 1, D] view go
+    through the wrapper's reshape; a dtype mismatch is refused."""
+    rng = np.random.default_rng(5)
+    x = _t(rng.standard_normal((2, 9, 1024), np.float32), cuda)
+    w = _t(rng.standard_normal((1024,), np.float32) * 0.1, cuda)
+    got = ops.rmsnorm(x, w)
+    assert got.shape == x.shape
+    torch.testing.assert_close(got, ref.rmsnorm_ref(x, w), **NORM_TOL["f32"])
+    got = ops.rmsnorm(x[:, :1], w)
+    torch.testing.assert_close(got, ref.rmsnorm_ref(x[:, :1], w),
+                               **NORM_TOL["f32"])
+    with pytest.raises(TypeError, match="dtype"):
+        ops.rmsnorm(x, w.to(torch.bfloat16))
+
+
+def _scan_inputs(rng, dev, dtype, B, S, nh, hd, ds, zero_tail=0):
+    x = rng.standard_normal((B, S, nh, hd), np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, nh)))).astype(
+        np.float32)
+    if zero_tail:
+        dt[:, S - zero_tail:] = 0.0
+    return (_t(x, dev, dtype), _t(dt, dev),
+            _t(-np.linspace(1.0, 16.0, nh).astype(np.float32), dev),
+            _t(rng.standard_normal((B, S, ds), np.float32), dev, dtype),
+            _t(rng.standard_normal((B, S, ds), np.float32), dev, dtype),
+            _t(rng.standard_normal((B, nh, hd, ds), np.float32), dev))
+
+
+def _close_scaled(got, want, rel=5e-4):
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=rel * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,nh,hd,ds,chunk,zero_tail", [
+    (1, 512, 32, 64, 128, 256, 0),    # full width, two chunks
+    (2, 700, 4, 64, 128, 256, 0),     # ragged: padded to the chunk grid
+    (3, 130, 2, 32, 64, 64, 40),      # ds 64, hd 32, a zero-dt tail
+    (1, 64, 8, 16, 128, 64, 0),       # a single chunk, hd = one slice
+])
+def test_ssd_scan_kernel_vs_plain(cuda, dt, B, S, nh, hd, ds, chunk,
+                                  zero_tail):
+    from repro_torch.kernels import ssd_scan as ssd
+    rng = np.random.default_rng(6)
+    args = _scan_inputs(rng, cuda, DTYPES[dt], B, S, nh, hd, ds, zero_tail)
+    ops.reset_counts()
+    y, h = ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.counts()["ssd_scan"] == {"launches": 1, "plain": 0}
+    assert ssd.launches == 1
+    assert y.shape == (B, S, nh, hd) and y.dtype == torch.float32
+    y_ref, h_ref = ref.ssd_scan_ref(*args, chunk)
+    _close_scaled(y, y_ref)
+    _close_scaled(h, h_ref)
+    if zero_tail:           # the tail leaves the state where the cut does
+        cut = [a[:, :S - zero_tail].contiguous() if a.dim() > 1
+               and a.shape[1] == S else a for a in args]
+        _, h_cut = ops.ssd_scan(*cut, chunk=chunk)
+        _close_scaled(h, h_cut)
+
+
+def test_ssd_scan_kernel_refuses_what_it_does_not_take(cuda):
+    rng = np.random.default_rng(7)
+    args = _scan_inputs(rng, cuda, torch.float32, 1, 64, 2, 32, 32)
+    with pytest.raises(ValueError, match="d_state"):
+        ops.ssd_scan(*args, chunk=64)            # d_state 32
+    args = _scan_inputs(rng, cuda, torch.float32, 1, 64, 2, 32, 64)
+    with pytest.raises(ValueError, match="chunk"):
+        ops.ssd_scan(*args, chunk=32)            # not a multiple of 64
+    x, dt, A, B, C, h0 = args
+    with pytest.raises(TypeError, match="float32"):
+        ops.ssd_scan(x, dt.to(torch.bfloat16), A, B, C, h0, chunk=64)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.ssd_scan(x.to(torch.bfloat16), dt, A, B, C, h0, chunk=64)

@@ -6,7 +6,8 @@ Both replicas run under a fixed clock (the shim of
 tests/test_fused_engine.py), so their schedulers make the same decisions
 and any difference in the streams is the engines' own. The request sets
 cover slot reuse (4 requests through 2 slots), a prompt-completing chunk
-beside a live decode batch, and page-window bucket transitions.
+beside a live decode batch, and page-window bucket transitions, for the
+dense family (two head layouts) and the Mamba2 family.
 """
 import numpy as np
 import pytest
@@ -55,8 +56,9 @@ class _FixedClock:
 
 
 def _configs(name):
-    jc = jax_get_config("llama3.2-3b").reduced(num_layers=2, d_model=128)
-    tc = get_config("llama3.2-3b").reduced(num_layers=2, d_model=128)
+    arch = "mamba2-370m" if name == "mamba" else "llama3.2-3b"
+    jc = jax_get_config(arch).reduced(num_layers=2, d_model=128)
+    tc = get_config(arch).reduced(num_layers=2, d_model=128)
     if name == "narrow":
         jc = dataclasses.replace(jc, **NARROW)
         tc = dataclasses.replace(tc, **NARROW)
@@ -70,7 +72,7 @@ def _requests(req_cls, qos_cls, n):
             for i in range(n)]
 
 
-@pytest.mark.parametrize("cfg_name", ["reduced", "narrow"])
+@pytest.mark.parametrize("cfg_name", ["reduced", "narrow", "mamba"])
 def test_torch_replica_streams_equal_jax_replica(cfg_name):
     jc, tc = _configs(cfg_name)
     kw = dict(n_slots=2, max_len=128, block_size=16, quantum=16, seed=5)
@@ -109,10 +111,14 @@ def test_warm_runs_both_attention_paths_without_writing_live_pages():
     before = [c.k[:-1].clone() for c in eng.cache["layers"]]
     ops.reset_counts()
     eng.warm()
+    # norm1 and norm2 of both sub-batches in every layer, and the final
+    # norm once over the sampled rows
     assert ops.counts() == {
         "paged_attention": {"launches": 0, "plain": tc.num_layers},
         "chunked_prefill_attention": {"launches": 0,
-                                      "plain": tc.num_layers}}
+                                      "plain": tc.num_layers},
+        "rmsnorm": {"launches": 0, "plain": 4 * tc.num_layers + 1},
+        "ssd_scan": {"launches": 0, "plain": 0}}
     for b, c in zip(before, eng.cache["layers"]):
         assert torch.equal(b, c.k[:-1])
     ops.reset_counts()

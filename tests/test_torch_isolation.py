@@ -60,10 +60,23 @@ def test_no_source_imports_jax_or_repro():
             assert not any(_forbidden(n) for n in names), (path, names)
 
 
+def test_the_probe_walks_the_new_modules():
+    """The import probe above walks every module of the package, the
+    Mamba2 slice's among them."""
+    import pkgutil
+
+    import repro_torch
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.models.mamba2", "repro_torch.kernels.ssd_scan",
+            "repro_torch.kernels.rmsnorm",
+            "repro_torch.configs.mamba2_370m"} <= names
+
+
 def test_entry_points_default_to_the_card():
     """Without a card and without device="cpu", the engine, the model
     init, the paged cache (made or bridged), the replica factory and the
-    serve script raise."""
+    serve script raise, for both served families."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
     import numpy as np
@@ -72,6 +85,7 @@ def test_entry_points_default_to_the_card():
     from repro_torch.configs import get_config
     from repro_torch.engine.torch_backend import TorchEngine
     from repro_torch.launch import serve
+    from repro_torch.models.mamba2 import init_mamba_state
     from repro_torch.models.transformer import init_paged_cache, init_params
     from repro_torch.serving.schemes import make_torch_replica
     cfg = get_config("llama3.2-3b").reduced(num_layers=2, d_model=128)
@@ -80,7 +94,7 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(cfg, torch.Generator())
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        init_paged_cache(cfg, 4, 16)
+        init_paged_cache(cfg, 2, 4, 16)
     page = np.zeros((4, 16, cfg.num_kv_heads, cfg.head_dim), np.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bridge.paged_cache_from_numpy({"layers": [(page, page)]})
@@ -88,6 +102,17 @@ def test_entry_points_default_to_the_card():
         make_torch_replica("niyama", cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--reduced"])
+    mamba = get_config("mamba2-370m").reduced(num_layers=2, d_model=128)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchEngine(mamba)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_paged_cache(mamba, 2, 4, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_mamba_state(2, mamba)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_torch_replica("niyama", mamba)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--reduced", "--arch", "mamba2-370m"])
 
 
 def test_unported_families_raise():
@@ -98,6 +123,8 @@ def test_unported_families_raise():
     from repro_torch.models.config import SWA, LayerSpec
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config("qwen3-moe-30b-a3b")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_config("jamba-v0.1-52b")
     with pytest.raises(KeyError):
         get_config("no-such-model")
     swa = dataclasses.replace(

@@ -1,10 +1,12 @@
-"""The port's plain attention versions against the JAX package: the
-oracles of ``repro/kernels/ref.py`` and the Pallas kernels in interpret
-mode, on the sweeps of tests/test_kernels.py plus the engine's edge
-cases. Inputs are drawn with numpy and handed to both frameworks.
+"""The port's plain kernel versions against the JAX package: the
+oracles of ``repro/kernels/ref.py``, the Pallas kernels in interpret
+mode and, for the SSD scan, ``models/mamba2.py::ssd_chunked`` (what JAX
+serving runs), on the sweeps of tests/test_kernels.py plus the engine's
+edge cases. Inputs are drawn with numpy and handed to both frameworks.
 
 Tolerances: 2e-5 in f32 (summation order only), 2e-2 in bf16 (one bf16
-rounding of the output), as tests/test_kernels.py states them.
+rounding of the output), as tests/test_kernels.py states them; the SSD
+scan's are stated at its tests.
 
 The CUDA kernels themselves run only on the card; ``chip_smoke.py``
 holds them against these plain versions there. Here the dispatch is
@@ -19,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.models import mamba2 as jmamba  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.chunked_prefill_attention import \
@@ -163,10 +166,128 @@ def test_cpu_tensors_take_the_plain_path():
         tops.chunked_prefill_attention(qc, kc, kc, q_offset=3, kv_len=40)
     assert tops.counts() == {
         "paged_attention": {"launches": 0, "plain": 1},
-        "chunked_prefill_attention": {"launches": 0, "plain": 2}}
+        "chunked_prefill_attention": {"launches": 0, "plain": 2},
+        "rmsnorm": {"launches": 0, "plain": 0},
+        "ssd_scan": {"launches": 0, "plain": 0}}
     assert pa.launches == 0 and cpa.launches == 0
     with pytest.raises(ValueError, match="CUDA"):
         paged_attention_cuda(q, kp, vp, bt, ln)
     with pytest.raises(ValueError, match="CUDA"):
         chunked_prefill_attention_cuda(qc, kc, kc, offs, lens)
+    tops.reset_counts()
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("N,D,block", [(256, 128, 64), (512, 1024, 256),
+                                       (8, 3072, 8), (6, 77, 3)])
+def test_rmsnorm_plain_vs_jax(dt, N, D, block):
+    """The plain norm against the JAX oracle and, in f32, the Pallas
+    kernel in interpret mode (``block`` rows a grid step, dividing N);
+    D = 77 is a width the CUDA kernel reads element by element."""
+    rng = np.random.default_rng(4)
+    xj, xt = _both(rng.standard_normal((N, D), np.float32), dt)
+    wj, wt = _both(rng.standard_normal((D,), np.float32) * 0.1, dt)
+    got = tops.rmsnorm(xt, wt)
+    assert got.dtype == xt.dtype and got.shape == (N, D)
+    _close(got, jref.rmsnorm_ref(xj, wj), dt)
+    if dt == "f32":
+        _close(got, jops.rmsnorm(xj, wj, block_rows=block, interpret=True),
+               dt)
+
+
+def _ssd_inputs(rng, B, S, nh, hd, ds, zero_tail=0):
+    """As tests/test_kernels.py draws them: x * 0.5, B, C * 0.3, softplus
+    dt, A = -exp(0.3 z), a small carried state."""
+    x = rng.standard_normal((B, S, nh, hd), np.float32) * 0.5
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, nh)))).astype(
+        np.float32)
+    if zero_tail:
+        dt[:, S - zero_tail:] = 0.0
+    A = -np.exp(rng.standard_normal((nh,)) * 0.3).astype(np.float32)
+    Bm = rng.standard_normal((B, S, ds), np.float32) * 0.3
+    Cm = rng.standard_normal((B, S, ds), np.float32) * 0.3
+    h0 = rng.standard_normal((B, nh, hd, ds), np.float32) * 0.1
+    return x, dt, A, Bm, Cm, h0
+
+
+def _close_scaled(got, want, rel):
+    """Every element within ``rel`` of ``want``'s largest magnitude."""
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=rel * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("B,S,nh,hd,ds,chunk,zero_tail", [
+    (2, 128, 4, 32, 16, 32, 0),
+    (1, 256, 2, 64, 128, 64, 0),
+    (2, 64, 8, 16, 32, 64, 0),      # a single chunk
+    (2, 75, 8, 32, 32, 32, 0),      # ragged: padded to the chunk grid
+    (1, 100, 4, 32, 32, 32, 30),    # a zero-dt tail, as masked pad tokens
+])
+def test_ssd_scan_plain_vs_jax(B, S, nh, hd, ds, chunk, zero_tail):
+    """The plain scan against ``ssd_chunked`` (any S: both pad to the
+    chunk grid) and, where S is a multiple of the chunk, against the
+    Pallas kernel in interpret mode, within 1e-5 of the output's largest
+    magnitude in f32 (summation order); against the token-at-a-time
+    oracle within 1e-4 of it (another order of the same sums). A zero-dt
+    tail leaves the state where the cut rows leave it."""
+    rng = np.random.default_rng(5)
+    arrs = _ssd_inputs(rng, B, S, nh, hd, ds, zero_tail)
+    j = [jnp.asarray(a) for a in arrs]
+    y, h = tops.ssd_scan(*(torch.from_numpy(a) for a in arrs), chunk=chunk)
+    assert y.shape == (B, S, nh, hd) and y.dtype == torch.float32
+    assert h.shape == (B, nh, hd, ds) and h.dtype == torch.float32
+    yj, hj = jmamba.ssd_chunked(*j, chunk)
+    _close_scaled(y, yj, 1e-5)
+    _close_scaled(h, hj, 1e-5)
+    if S % chunk == 0:
+        yp, hp = jops.ssd_scan(*j, chunk=chunk, interpret=True)
+        _close_scaled(y, yp, 1e-5)
+        _close_scaled(h, hp, 1e-5)
+    yo, ho = jref.ssd_scan_ref(*j)
+    _close_scaled(y, yo, 1e-4)
+    _close_scaled(h, ho, 1e-4)
+    if zero_tail:
+        cut = [torch.from_numpy(a[:, :S - zero_tail].copy()) if a.ndim > 1
+               and a.shape[1] == S else torch.from_numpy(a) for a in arrs]
+        _, h_cut = tops.ssd_scan(*cut, chunk=chunk)
+        _close_scaled(h, h_cut.numpy(), 1e-6)
+
+
+def test_ssd_scan_bf16_inputs_compute_in_f32():
+    """x, B and C in bf16 give the f32 result of their bf16 values, as
+    ``ssd_chunked`` casts them: the same scan on the upcast inputs."""
+    rng = np.random.default_rng(6)
+    x, dt, A, Bm, Cm, h0 = (torch.from_numpy(a) for a in _ssd_inputs(
+        rng, 2, 96, 4, 32, 32))
+    xb, Bb, Cb = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+    y, h = tops.ssd_scan(xb, dt, A, Bb, Cb, h0, chunk=32)
+    y32, h32 = tops.ssd_scan(xb.float(), dt, A, Bb.float(), Cb.float(), h0,
+                             chunk=32)
+    assert y.dtype == torch.float32
+    assert torch.equal(y, y32) and torch.equal(h, h32)
+
+
+def test_cpu_tensors_take_the_plain_norm_and_scan():
+    """The norm and the scan dispatch by device as attention does: CPU
+    tensors reach the plain versions and launch nothing; the CUDA
+    wrappers refuse CPU tensors outright."""
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.kernels import ssd_scan as ssd
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((2, 5, 64), np.float32))
+    w = torch.zeros(64)
+    args = [torch.from_numpy(a) for a in _ssd_inputs(rng, 1, 64, 2, 16, 64)]
+    tops.reset_counts()
+    out = tops.rmsnorm(x, w, 1e-5)
+    assert out.shape == x.shape
+    assert torch.equal(out, tref.rmsnorm_ref(x, w, 1e-5))
+    tops.ssd_scan(*args, chunk=64)
+    assert tops.counts()["rmsnorm"] == {"launches": 0, "plain": 1}
+    assert tops.counts()["ssd_scan"] == {"launches": 0, "plain": 1}
+    assert rms.launches == 0 and ssd.launches == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        rms.rmsnorm_cuda(x[0], w)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd.ssd_scan_cuda(*args, 64)
     tops.reset_counts()

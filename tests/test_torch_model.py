@@ -125,9 +125,13 @@ def test_init_params_shapes_match_bridged_jax_tree():
 def _mixed_plan(cfg, rng):
     """Two prefill rows (one at a 16-token prefix) and two pad rows; a
     decode batch of 4 slots, two active and two inactive, one of which
-    (slot 1) holds a positive length mid-prefill."""
+    (slot 1) holds a positive length mid-prefill. The arrays in the order
+    of ``fused_serve_forward``'s arguments; pad rows carry slot
+    ``n_slots``."""
     n_slots, maxb = 4, 4
     pre_tokens = rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+    pre_slots = np.array([0, 1, n_slots, n_slots], np.int32)
+    pre_reset = np.array([True, False, False, False])
     pre_start = np.array([0, 16, 0, 0], np.int32)
     pre_len = np.array([20, 25, 0, 0], np.int32)
     pre_sample = np.array([19, 24, 0, 0], np.int32)
@@ -141,17 +145,17 @@ def _mixed_plan(cfg, rng):
     dec_bt[2, :3] = [10, 11, 14]
     dec_bt[3, :1] = [2]
     live = np.r_[pre_len > 0, dec_active]
-    return (pre_tokens, pre_start, pre_len, pre_sample, dec_tokens,
-            dec_start, dec_active, pre_bt, dec_bt), live
+    return (pre_tokens, pre_slots, pre_start, pre_len, pre_reset,
+            pre_sample, dec_tokens, dec_start, dec_active, pre_bt,
+            dec_bt), live
 
 
-def _jax_hidden(params, cfg, cache, pre_tokens, pre_start, pre_len,
-                pre_sample, dec_tokens, dec_start, dec_active, pre_bt,
-                dec_bt, attn_impl):
+def _jax_hidden(params, cfg, cache, pre_tokens, pre_slots, pre_start,
+                pre_len, pre_reset, pre_sample, dec_tokens, dec_start,
+                dec_active, pre_bt, dec_bt, attn_impl):
     """The layers and final norm of JAX's fused_serve_forward, stopped
     before its LM head (the rows the head reads)."""
     P, L = pre_tokens.shape
-    n = dec_tokens.shape[0]
     x_pre = JT._embed(params, cfg, pre_tokens, None)
     x_dec = JT._embed(params, cfg, dec_tokens[:, None], None)
     pre_valid = jnp.arange(L)[None, :] < pre_len[:, None]
@@ -159,10 +163,9 @@ def _jax_hidden(params, cfg, cache, pre_tokens, pre_start, pre_len,
     for li, spec in enumerate(cfg.layers):
         x_pre, x_dec, nc = JT._fused_block(
             params["layers"][li], cfg, spec, x_pre, x_dec,
-            cache["layers"][li], jnp.full((P,), n, jnp.int32), pre_start,
-            pre_len, jnp.zeros((P,), bool), pre_valid, dec_start,
-            dec_active, JT._identity_shard, attn_impl, pre_bt=pre_bt,
-            dec_bt=dec_bt)
+            cache["layers"][li], pre_slots, pre_start, pre_len, pre_reset,
+            pre_valid, dec_start, dec_active, JT._identity_shard, attn_impl,
+            pre_bt=pre_bt, dec_bt=dec_bt)
         layers.append(nc)
     x_pre = JL.rmsnorm(x_pre, params["final_norm"], cfg.norm_eps)
     x_dec = JL.rmsnorm(x_dec, params["final_norm"], cfg.norm_eps)
@@ -184,15 +187,12 @@ def test_fused_serve_forward_matches_jax(cfg_name, attn_impl):
                                         tc.head_dim), np.float32)
                    for _ in range(2)) for _ in tc.layers]
     arrs, live = _mixed_plan(tc, rng)
-    (pre_tokens, pre_start, pre_len, pre_sample, dec_tokens, dec_start,
-     dec_active, pre_bt, dec_bt) = arrs
     jarrs = [jnp.asarray(a) for a in arrs]
     jcache = {"layers": [JT.PagedAttnCache(jnp.asarray(k), jnp.asarray(v))
                          for k, v in pages]}
     want_ids, _ = JT.fused_serve_forward(
-        jp, jc, jcache, jarrs[0], jnp.full((4,), 4, jnp.int32), *jarrs[1:3],
-        jnp.zeros((4,), bool), *jarrs[3:7], pre_bt=jarrs[7],
-        dec_bt=jarrs[8], attn_impl=attn_impl)
+        jp, jc, jcache, *jarrs[:9], pre_bt=jarrs[9], dec_bt=jarrs[10],
+        attn_impl=attn_impl)
     want_hid, want_cache = _jax_hidden(jp, jc, jcache, *jarrs,
                                        attn_impl=attn_impl)
 
@@ -226,11 +226,10 @@ def test_decode_only_and_prefill_only_plans():
     t = [torch.from_numpy(a) for a in arrs]
 
     def run(pre_rows, dec_rows):
-        cache = TT.init_paged_cache(tc, 16, 16, device="cpu")
+        cache = TT.init_paged_cache(tc, 4, 16, 16, device="cpu")
+        rows = [pre_rows] * 6 + [dec_rows] * 3 + [pre_rows, dec_rows]
         return TT.fused_serve_forward(
-            model, tc, cache, t[0][pre_rows], t[1][pre_rows],
-            t[2][pre_rows], t[3][pre_rows], t[4][dec_rows], t[5][dec_rows],
-            t[6][dec_rows], t[7][pre_rows], t[8][dec_rows])
+            model, tc, cache, *(a[r] for a, r in zip(t, rows)))
     both = run(slice(None), slice(None))
     pre_only = run(slice(None), slice(0, 0))
     # decode reads pages the prefill rows do not write, so a fresh cache
@@ -272,8 +271,7 @@ def test_greedy_sampling_takes_the_first_max_inside_the_vocab(head):
     want, _ = JT.fused_serve_forward(
         jp, jc, {"layers": [JT.PagedAttnCache(jnp.asarray(k), jnp.asarray(v))
                             for k, v in pages]},
-        j[0], jnp.full((4,), 4, jnp.int32), *j[1:3], jnp.zeros((4,), bool),
-        *j[3:7], pre_bt=j[7], dec_bt=j[8], attn_impl="jnp")
+        *j[:9], pre_bt=j[9], dec_bt=j[10], attn_impl="jnp")
     t = [torch.from_numpy(a) for a in arrs]
     with torch.inference_mode():
         hid = TT._sampled_hidden(
