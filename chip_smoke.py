@@ -8,24 +8,33 @@ Phases, each of which fails the run if it fails:
    nvcc, one process per source, all started at once;
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes, in f32 (TF32 off in matmuls and cuDNN) and
-   bf16, with its time, the plain version's, one library call's where
-   one computes the same function (``F.scaled_dot_product_attention``
-   over the same data gathered to a dense view; ``F.rms_norm`` with
-   weight ``1 + w``; none for ``ssd_scan``), and the least time the card
-   could take;
-3. serve: ``repro_torch.launch.serve.main`` serves full-width
-   llama3.2-3b and then full-width mamba2-370m (random weights from a
-   seed, bf16) through the NiyamaScheduler priced on the H100 spec; every
+   bf16 (the int8 decode kernel: int8 pages made by the port's
+   ``_quantize``, with an f32 and a bf16 query), with its time, the plain
+   version's, one library call's where one computes the same function
+   (``F.scaled_dot_product_attention`` over the same data gathered to a
+   dense view, for int8 pages a view dequantized beforehand;
+   ``F.rms_norm`` with weight ``1 + w``; none for ``ssd_scan``), and the
+   least time the card could take;
+3. serve: full-width llama3.2-3b and full-width mamba2-370m through
+   ``repro_torch.launch.serve.main``, then llama3.2-3b with int8 KV pages
+   (``TorchEngine(kv_quant=True)`` in the same replica), random weights
+   from a seed, bf16, the NiyamaScheduler priced on the H100 spec; every
    request must finish with all its tokens, every kernel of each path
    must have launched in that path's run (counts zeroed just before it),
-   and no plain version may have run;
-4. profile: one decode and one prefill iteration of each served engine,
-   timed on the host and traced with torch.profiler (device time by
-   kernel, idle share);
-5. parity: full-width 2-layer f32 copies of both families run one mixed
-   iteration through the kernels and through the plain versions; the
-   final hidden states and the written pages or state rows agree within
-   the limits stated there and the sampled ids are equal.
+   no kernel of another path may have, and no plain version may have run;
+4. profile: one decode and one prefill iteration of each served engine
+   (the int8 one: decode), timed on the host and traced with
+   torch.profiler (device time by kernel, idle share);
+5. parity: full-width 2-layer f32 copies of both families, and of llama
+   with int8 pages, run one mixed iteration through the kernels and
+   through the plain versions; the final hidden states and the written
+   pages or state rows agree within the limits stated there and the
+   sampled ids are equal;
+6. hierarchy: full-width llama3.2-3b with bf16 and with int8 pages: four
+   requests sharing a 1024-token prefix stream the same tokens with the
+   KV hierarchy's prefix tier as without it and dispatch fewer prefill
+   tokens; a mid-decode swap-out and swap-in round trip streams what an
+   uninterrupted run streams.
 
 Prints the card's name and power limit, one JSON line of the kernels and,
 as its last line, ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -72,6 +81,8 @@ MAMBA_PARITY_HIDDEN = 1e-4
 SOURCES = {
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:78"),
+    "paged_attention_int8": ("src/repro_torch/csrc/paged_attention_int8.cu",
+                             "src/repro/kernels/paged_attention.py:70"),
     "chunked_prefill_attention": (
         "src/repro_torch/csrc/chunked_prefill_attention.cu",
         "src/repro/kernels/chunked_prefill_attention.py:90"),
@@ -80,10 +91,15 @@ SOURCES = {
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:70"),
 }
-# the kernels each served family's path runs
-PATHS = {"llama3.2-3b": ("paged_attention", "chunked_prefill_attention",
-                         "rmsnorm"),
-         "mamba2-370m": ("rmsnorm", "ssd_scan")}
+# each served path: its family, whether its KV pages are int8, and the
+# kernels it runs (and no other)
+PATHS = {"llama3.2-3b": ("llama3.2-3b", False,
+                         ("paged_attention", "chunked_prefill_attention",
+                          "rmsnorm")),
+         "mamba2-370m": ("mamba2-370m", False, ("rmsnorm", "ssd_scan")),
+         "llama3.2-3b int8": ("llama3.2-3b", True,
+                              ("paged_attention_int8",
+                               "chunked_prefill_attention", "rmsnorm"))}
 
 
 class PhaseError(RuntimeError):
@@ -204,21 +220,31 @@ def _paged_case(rng, dtype, B, H, KV, D, page, n_pages, lens, holes):
             torch.tensor(lens, dtype=torch.int32, device=dev))
 
 
-def _paged_work(q, kp, bt, lens):
-    """Bytes and flops of the live work: the K/V rows of pages in the
-    table below each row's length, q, the output, the table and lens."""
-    B, H, D = q.shape
-    page, KV = kp.shape[1], kp.shape[2]
-    es = q.element_size()
+def _live_tokens(bt, lens, page: int) -> int:
+    """Tokens of pages in the table below each row's length."""
     bt_h, lens_h = bt.cpu().numpy(), lens.cpu().numpy()
     live = 0
-    for b in range(B):
+    for b in range(bt_h.shape[0]):
         for pi in range(bt_h.shape[1]):
             if bt_h[b, pi] >= 0:
                 live += max(0, min(page, lens_h[b] - pi * page))
-    nbytes = 2 * live * KV * D * es + 2 * B * H * D * es \
+    return live
+
+
+def _paged_work(q, kp, bt, lens, quant: bool = False):
+    """Bytes and flops of the live work: the K/V rows of the live tokens
+    (with int8 pages, ``quant``, their bf16 scales too: one each per token
+    and kv-head), q, the output, the table and lens; 4 flops per (head,
+    element), and with int8 pages the dequantization's product per page
+    element."""
+    B, H, D = q.shape
+    page, KV = kp.shape[1], kp.shape[2]
+    live = _live_tokens(bt, lens, page)
+    row_bytes = D * kp.element_size() + (2 if quant else 0)
+    nbytes = 2 * live * KV * row_bytes + 2 * B * H * D * q.element_size() \
         + bt.numel() * 4 + B * 4
-    return nbytes, 4.0 * live * H * D
+    flops = 4.0 * live * H * D + (2.0 * live * KV * D if quant else 0.0)
+    return nbytes, flops
 
 
 def _gathered(k_pages, v_pages, bt, lens, H):
@@ -291,7 +317,6 @@ def phase_kernels() -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.chunked_prefill_attention import \
         chunked_prefill_attention_cuda
-    from repro_torch.kernels.paged_attention import paged_attention_cuda
 
     import torch.nn.functional as F
 
@@ -299,36 +324,7 @@ def phase_kernels() -> dict:
     head = {}
 
     # ---- paged decode: the engine's decode batch at full width
-    lens = [2048, 1500, 1, 700, 64, 1023, 333, 900]
-    for dtype, label, shape in [
-            (torch.float32, "f32 B8 H24 KV8 D128", (8, 24, 8, 128)),
-            (torch.bfloat16, "bf16 B8 H24 KV8 D128", (8, 24, 8, 128)),
-            (torch.float32, "f32 B8 H8 KV8 D64 (G=1)", (8, 8, 8, 64)),
-            (torch.float32, "f32 B8 H32 KV4 D128 (G=8)", (8, 32, 4, 128))]:
-        B, H, KV, D = shape
-        holes = [(2, 0)] + [(5, pi) for pi in range(32)] + [(1, 7)]
-        args = _paged_case(rng, dtype, B, H, KV, D, 64, 32, lens, holes)
-        got = paged_attention_cuda(*args)
-        want = ref.paged_attention_ref(*args)
-        torch.cuda.synchronize()
-        err, worst = _compare("paged_attention", label, dtype, got, want)
-        check(bool((got[5] == 0).all()),
-              "paged_attention: a row whose table is all -1 must give 0")
-        ms = time_ms(lambda: paged_attention_cuda(*args))
-        plain = time_ms(lambda: ref.paged_attention_ref(*args))
-        kd, vd, mask = _gathered(args[1], args[2], args[3], args[4], H)
-        qd = args[0][:, :, None, :]
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qd, kd, vd, attn_mask=mask))
-        nbytes, flops = _paged_work(args[0], args[1], args[3], args[4])
-        bms, by = bound_ms(nbytes, flops, dtype)
-        print(f"[kernels] paged_attention {label}: {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.4f} ms "
-              f"({by}), max err {err:.3g} ({worst:.2f} of the limit)")
-        if label.startswith("bf16"):
-            head["paged_attention"] = dict(
-                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                bound_by=by, max_abs_err=err)
+    _kernels_paged(head, rng, quant=False)
 
     # ---- chunked prefill: a 4-row bucket of 512-token chunks over a
     # 16-page view, ragged offsets and one pad row
@@ -389,9 +385,85 @@ def phase_kernels() -> dict:
                       torch.float32, got, want)
     print(f"[kernels] chunked_prefill_attention static mode f32: max err "
           f"{err:.3g}")
+    _kernels_paged(head, np.random.default_rng(4), quant=True)
     _kernels_rmsnorm(head)
     _kernels_ssd_scan(head)
     return head
+
+
+def _quantized_pages(k_pages, v_pages):
+    """int8 pages and bf16 scales made by the port's write path
+    (``_quantize``) from float pages."""
+    from repro_torch.models.transformer import _quantize
+    k8, ks = _quantize(k_pages)
+    v8, vs = _quantize(v_pages)
+    return k8, v8, ks, vs
+
+
+def _kernels_paged(head: dict, rng, quant: bool) -> None:
+    """A decode batch at full width (ragged lens, -1 holes, a row whose
+    table is all -1) through ``paged_attention`` in f32 and bf16 and at
+    G = 1 and G = 8, or with ``quant`` through ``paged_attention_int8``
+    on the same kind of inputs, the pages quantized by ``_quantize``, with
+    an f32 and a bf16 query and at G = 1. Both int8 versions dequantize
+    exactly in fp32, so the limits are ``TOL``'s either way."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.kernels.paged_attention_int8 import \
+        paged_attention_int8_cuda
+
+    name = "paged_attention_int8" if quant else "paged_attention"
+    lens = [2048, 1500, 1, 700, 64, 1023, 333, 900]
+    cases = [(torch.float32, "f32 B8 H24 KV8 D128", (8, 24, 8, 128)),
+             (torch.bfloat16, "bf16 B8 H24 KV8 D128", (8, 24, 8, 128)),
+             (torch.float32, "f32 B8 H8 KV8 D64 (G=1)", (8, 8, 8, 64))]
+    if not quant:
+        cases.append((torch.float32, "f32 B8 H32 KV4 D128 (G=8)",
+                      (8, 32, 4, 128)))
+    for dtype, label, shape in cases:
+        B, H, KV, D = shape
+        holes = [(2, 0)] + [(5, pi) for pi in range(32)] + [(1, 7)]
+        q, kp, vp, bt, ln = _paged_case(rng, torch.float32 if quant
+                                        else dtype, B, H, KV, D, 64, 32,
+                                        lens, holes)
+        if quant:
+            q = q.to(dtype)
+            k8, v8, ks, vs = _quantized_pages(kp, vp)
+            args = (q, k8, v8, ks, vs, bt, ln)
+            kernel = paged_attention_int8_cuda
+            plain_args = (q, k8, v8, bt, ln, ks, vs)
+            # the yardstick: SDPA over the view dequantized beforehand (no
+            # single PyTorch call takes int8 pages), the dequant untimed
+            kp, vp = ((p.float() * s.float()[..., None]).to(dtype)
+                      for p, s in ((k8, ks), (v8, vs)))
+            work = _paged_work(q, k8, bt, ln, quant=True)
+            lib_label = "sdpa over the dequantized view"
+        else:
+            args = plain_args = (q, kp, vp, bt, ln)
+            kernel = paged_attention_cuda
+            work = _paged_work(q, kp, bt, ln)
+            lib_label = "sdpa"
+        got = kernel(*args)
+        want = ref.paged_attention_ref(*plain_args)
+        torch.cuda.synchronize()
+        err, worst = _compare(name, label, dtype, got, want)
+        check(bool((got[5] == 0).all()),
+              f"{name}: a row whose table is all -1 must give 0")
+        ms = time_ms(lambda: kernel(*args))
+        plain = time_ms(lambda: ref.paged_attention_ref(*plain_args))
+        kd, vd, mask = _gathered(kp, vp, bt, ln, H)
+        qd = q[:, :, None, :]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask))
+        bms, by = bound_ms(*work, dtype)
+        print(f"[kernels] {name} {label}: {ms:.4f} ms, plain {plain:.4f} "
+              f"ms, {lib_label} {lib:.4f} ms, bound {bms:.4f} ms ({by}), "
+              f"max err {err:.3g} ({worst:.2f} of the limit)")
+        if label.startswith("bf16"):
+            head[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                              bound_ms=bms, bound_by=by, max_abs_err=err)
 
 
 def _label(dtype) -> str:
@@ -520,46 +592,110 @@ def _kernels_ssd_scan(head: dict) -> None:
 
 # ---------------------------------------------------------------- phase 3
 
-def phase_serve(arch: str) -> tuple:
-    """Serve 12 requests of ``arch`` at full width with the counts zeroed
-    just before; returns the counts read just after, and the engine."""
+def _replica(arch: str, scheme: str, kv_quant: bool, kv_cfg=None):
+    """A full-width replica on the card (bf16 weights, 8 slots,
+    ``--max-len 2048``, 64-token blocks, seed 0, priced on the H100 spec)
+    as ``make_torch_replica`` builds it, or, for int8 KV pages, from the
+    factory's own pieces with ``TorchEngine(kv_quant=True)``: the
+    factory, like the JAX one, has no int8 switch."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.kvpool import KVPool, kv_bytes_per_block
+    from repro_torch.core.predictor import H100, ModelCostModel
+    from repro_torch.core.scheduler import (NiyamaConfig, NiyamaScheduler,
+                                            SarathiScheduler)
+    from repro_torch.engine.torch_backend import TorchEngine
+    from repro_torch.serving.kvcache import KVHierarchy
+    from repro_torch.serving.replica import Replica
+    from repro_torch.serving.schemes import make_torch_replica
+
+    cfg = get_config(arch)
+    kw = dict(n_slots=8, max_len=2048, block_size=64, quantum=32, seed=0)
+    if not kv_quant:
+        return make_torch_replica(scheme, cfg, hw=H100, device="cuda",
+                                  dtype=torch.bfloat16, kv_cfg=kv_cfg, **kw)
+    n, L, bs = kw["n_slots"], kw["max_len"], kw["block_size"]
+    nb = n * L // bs
+    kv = KVHierarchy(nb, bs, cfg=kv_cfg, bytes_per_block=kv_bytes_per_block(
+        cfg, bs, bytes_per=4), max_seqs=n) if kv_cfg is not None \
+        else KVPool(nb, bs, max_seqs=n)
+    eng = TorchEngine(cfg, n_slots=n, max_len=L, quantum=kw["quantum"],
+                      seed=kw["seed"], dtype=torch.bfloat16, pool=kv,
+                      device="cuda", kv_quant=True)
+    cost = ModelCostModel(cfg, H100)
+    if scheme == "niyama":
+        sched = NiyamaScheduler(cost, cfg=NiyamaConfig(
+            max_chunk=L, quantum=kw["quantum"], fixed_chunk=64,
+            max_decode_batch=n))
+    else:
+        sched = SarathiScheduler(cost, policy=scheme.split("-", 1)[1],
+                                 chunk_size=64, max_decode_batch=n)
+    return Replica(scheduler=sched, backend=eng, kv=kv)
+
+
+def phase_serve(path: str) -> tuple:
+    """Serve 12 requests on ``path`` at full width with the counts zeroed
+    just before; returns the counts read just after, and the engine. The
+    model-dtype paths run the serve script (``repro_torch.launch.serve``)
+    as a user does; the int8 path serves the script's request mix through
+    the same scheduler, replica and engine with int8 pages."""
+    from repro_torch.core.kvpool import kv_bytes_per_block
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
+    from repro_torch.serving.metrics import compute_metrics
 
+    arch, kv_quant, kernels = PATHS[path]
     ops.reset_counts()
     t0 = time.perf_counter()
-    rep = serve.main(["--arch", arch, "--device", "cuda", "--dtype", "bf16",
-                      "--n-requests", "12", "--max-len", "2048",
-                      "--slots", "8", "--seed", "0"])
+    if kv_quant:
+        rep = _replica(arch, "niyama", kv_quant=True)
+        rep.backend.warm()
+        rep.submit_all(serve.make_requests(np.random.default_rng(0), 12,
+                                           2048))
+        rep.run()
+    else:
+        rep = serve.main(["--arch", arch, "--device", "cuda", "--dtype",
+                          "bf16", "--n-requests", "12", "--max-len", "2048",
+                          "--slots", "8", "--seed", "0"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.counts()
     eng = rep.backend
     reqs = rep.all_requests()
     check(len(rep.finished) == len(reqs) == 12,
-          f"serve: {len(rep.finished)}/{len(reqs)} requests finished")
+          f"serve {path}: {len(rep.finished)}/{len(reqs)} requests finished")
     for r in reqs:
         got = len(eng.generated[r.rid])
-        check(got == r.decode_len,
-              f"serve: rid {r.rid} streamed {got} of {r.decode_len} tokens")
+        check(got == r.decode_len, f"serve {path}: rid {r.rid} streamed "
+              f"{got} of {r.decode_len} tokens")
         check(all(0 <= t < eng.cfg.vocab_size for t in eng.generated[r.rid]),
-              f"serve: rid {r.rid} sampled an id outside the vocabulary")
-    for name in PATHS[arch]:
+              f"serve {path}: rid {r.rid} sampled an id outside the "
+              f"vocabulary")
+    for name in kernels:
         check(counts[name]["launches"] > 0,
-              f"serve {arch}: {name} was never launched")
+              f"serve {path}: {name} was never launched")
     for name, c in counts.items():
         check(c["plain"] == 0,
-              f"serve {arch}: the plain {name} ran {c['plain']} times")
+              f"serve {path}: the plain {name} ran {c['plain']} times")
+        check(name in kernels or c["launches"] == 0,
+              f"serve {path}: {name}, not on this path, launched "
+              f"{c['launches']} times")
     n_tok = sum(len(g) for g in eng.generated.values())
     n_prompt = sum(r.prompt_len for r in reqs)
     busy = rep.busy_time      # wall time inside the engine's iterations
-    print(f"[serve] {arch}: {len(reqs)} requests, {rep.iterations} "
+    m = compute_metrics(reqs, rep.now)
+    print(f"[serve] {path}: {len(reqs)} requests, {rep.iterations} "
           f"iterations, "
           f"{n_prompt} prompt + {n_tok} output tokens; {wall:.2f} s wall "
           f"with the model build, {busy:.2f} s in iterations: "
           f"{n_tok / busy:.1f} output tok/s, {(n_prompt + n_tok) / busy:.1f} "
-          f"tok/s; launches {counts}")
-    print(f"[serve] {arch}: page-window buckets: {eng.gather_bucket_hits}")
+          f"tok/s; TTFT p99 {m.ttft_p99:.3f} s, TBT p99 "
+          f"{m.tbt_p99 * 1e3:.1f} ms; launches {counts}")
+    print(f"[serve] {path}: page-window buckets: {eng.gather_bucket_hits}")
+    if kv_quant:
+        q8 = kv_bytes_per_block(eng.cfg, eng.block_size, kv_quant=True)
+        b16 = kv_bytes_per_block(eng.cfg, eng.block_size, bytes_per=2)
+        print(f"[serve] {path}: kv_bytes_per_block int8 {q8} against bf16 "
+              f"{b16} ({q8 / b16:.3f})")
     return counts, eng
 
 
@@ -578,11 +714,12 @@ OWN_KERNELS = ("paged_decode_kernel", "chunked_prefill_kernel",
                "rmsnorm_kernel", "ssd_cb_kernel", "ssd_scan_kernel")
 
 
-def phase_profile(eng) -> None:
-    """Where one decode and one prefill iteration of a served engine
-    spend their time: host wall time per iteration, device busy time by
-    kernel (torch.profiler) and the device's idle share. The iterations
-    write the engine's cache in place; the engine serves nothing after."""
+def phase_profile(eng, prefill: bool = True) -> None:
+    """Where one decode and (with ``prefill``) one prefill iteration of a
+    served engine spend their time: host wall time per iteration, device
+    busy time by kernel (torch.profiler) and the device's idle share. The
+    iterations write the engine's cache in place; the engine serves
+    nothing after."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import transformer as T
@@ -605,6 +742,9 @@ def phase_profile(eng) -> None:
             flags(1, value=True), torch.full((1,), 1023, **i32), z(0), z(0),
             flags(0), bt[:1], z(0, mb)),
     }
+    if not prefill:
+        del plans["prefill 1 row of 1024 tokens"]
+    tag = f"{eng.cfg.name}{' int8' if eng.kv_quant else ''}"
     reps = 5
     for name, args in plans.items():
         def step():
@@ -626,7 +766,7 @@ def phase_profile(eng) -> None:
         launches = sum(e.count for e in events) / reps
         busy = sum(kernels.values())
         if busy == 0:
-            print(f"[profile] {eng.cfg.name} {name}: {wall_ms:.2f} ms wall "
+            print(f"[profile] {tag} {name}: {wall_ms:.2f} ms wall "
                   f"per iteration; "
                   f"device time not measured (the profiler saw no kernel)")
             continue
@@ -638,7 +778,7 @@ def phase_profile(eng) -> None:
                                                    "sm90_xmma", "nvjet")))
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
         own_txt = ", ".join(f"{o} {t:.2f}" for o, t in own.items() if t)
-        print(f"[profile] {eng.cfg.name} {name}: {wall_ms:.2f} ms wall per "
+        print(f"[profile] {tag} {name}: {wall_ms:.2f} ms wall per "
               f"iteration, {launches:.0f} kernels, device busy {busy:.2f} ms "
               f"(idle share {max(0.0, 1 - busy / wall_ms):.1%}): the port's "
               f"kernels {own_ms:.2f} ms ({own_txt}), GEMMs {gemm:.2f} ms, "
@@ -654,7 +794,21 @@ def _clone_cache(cache):
                        for c in cache["layers"]]}
 
 
-def phase_parity() -> None:
+# the final hidden states of the 2-layer llama parity check, with pages in
+# the model dtype and with int8 pages. The int8 pages are written from
+# inputs that differ by the kernels' summation order (about 1e-6), so a
+# value on a rounding boundary lands one int8 step apart, moving a score
+# by up to a scale (max|k| / 127) times |q| D^-1/2: the limit is wider.
+LLAMA_PARITY_HIDDEN = {False: 1e-4, True: 1e-3}
+
+
+def phase_parity(kv_quant: bool = False) -> None:
+    """Two full-width llama3.2-3b layers in f32, one mixed iteration
+    (ragged prefill rows, a pad row, decode slots two of them inactive)
+    through the kernels and through the plain versions, with pages in the
+    model dtype or int8 pages: the final hidden states within
+    ``LLAMA_PARITY_HIDDEN``, the written pages within 1e-4 (int8: one
+    int8 step, and the scales within one bf16 ulp), equal sampled ids."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
@@ -667,10 +821,19 @@ def phase_parity() -> None:
     rng = np.random.default_rng(1)
     bs, n_slots, maxb = 64, 8, 16
     nb = n_slots * maxb
-    cache = T.init_paged_cache(cfg, n_slots, nb, bs, torch.float32, "cuda")
+    cache = T.init_paged_cache(cfg, n_slots, nb, bs, torch.float32, "cuda",
+                               kv_quant=kv_quant)
     for c in cache["layers"]:       # stale and prefix KV in every page
-        c.k.normal_(generator=gen)
-        c.v.normal_(generator=gen)
+        if kv_quant:
+            for t in (c.k, c.v):
+                t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                      device="cuda"))
+            for t in (c.k_scale, c.v_scale):
+                t.copy_(0.02 * torch.rand(t.shape, generator=gen,
+                                          device="cuda") + 1e-3)
+        else:
+            c.k.normal_(generator=gen)
+            c.v.normal_(generator=gen)
     perm = rng.permutation(nb).reshape(n_slots, maxb).astype(np.int32)
 
     def dev(a):
@@ -701,25 +864,55 @@ def phase_parity() -> None:
         ids = T.fused_serve_forward(params, cfg, c, *args)
         return hid, ids, c
 
+    label = "int8 pages" if kv_quant else "f32 pages"
+    decode = "paged_attention_int8" if kv_quant else "paged_attention"
+    ops.reset_counts()
     hk, ik, ck = run()
+    launched = ops.counts()
     with ops.plain_versions():
         hp, ip, cp = run()
     torch.cuda.synchronize()
+    check(launched[decode]["launches"] == 2 * cfg.num_layers
+          and launched[decode]["plain"] == 0,
+          f"parity {label}: the kernel path ran {launched}")
     live = np.r_[pre_len > 0, dec_active]
     err = float((hk - hp).abs().max())
-    check(bool(torch.isfinite(hk).all()), "parity: non-finite hidden state")
-    check(err <= 1e-4, f"parity: max |hidden kernel - plain| = {err:.3g} "
-          f"> 1e-4")
+    limit = LLAMA_PARITY_HIDDEN[kv_quant]
+    check(bool(torch.isfinite(hk).all()),
+          f"parity {label}: non-finite hidden state")
+    check(err <= limit, f"parity {label}: max |hidden kernel - plain| = "
+          f"{err:.3g} > {limit}")
     check(torch.equal(ik[dev(live)], ip[dev(live)]),
-          f"parity: sampled ids differ: {ik.tolist()} vs {ip.tolist()}")
+          f"parity {label}: sampled ids differ: {ik.tolist()} vs "
+          f"{ip.tolist()}")
     # every page but the sink, whose content is whichever invalid write
     # landed last
-    page_err = max(float((x[:-1] - y[:-1]).abs().max())
-                   for a, b in zip(ck["layers"], cp["layers"])
-                   for x, y in ((a.k, b.k), (a.v, b.v)))
-    check(page_err <= 1e-4, f"parity: written pages differ by {page_err}")
-    print(f"[parity] llama3.2-3b, 2-layer full-width f32: max |hidden "
-          f"kernel - plain| {err:.3g}, pages {page_err:.3g}, sampled ids "
+    pairs = [(x[:-1], y[:-1]) for a, b in zip(ck["layers"], cp["layers"])
+             for x, y in zip(a, b)]
+    if kv_quant:
+        steps = [(x.int() - y.int()).abs() for x, y in pairs[0::4]
+                 + pairs[1::4]]
+        page_err = max(int(d.max()) for d in steps)
+        moved = sum(int((d > 0).sum()) for d in steps)
+        total = sum(d.numel() for d in steps)
+        check(page_err <= 1, f"parity {label}: written int8 pages differ "
+              f"by {page_err} steps")
+        for x, y in pairs[2::4] + pairs[3::4]:
+            x, y = x.float(), y.float()
+            ulp = torch.exp2(torch.floor(torch.log2(
+                torch.maximum(x.abs(), y.abs()).clamp_min(1e-30))) - 7)
+            check(bool(((x - y).abs() <= ulp).all()),
+                  f"parity {label}: written scales differ by more than one "
+                  f"bf16 ulp")
+        page_txt = (f"pages within {page_err} int8 step ({moved} of "
+                    f"{total} values moved), scales within one bf16 ulp")
+    else:
+        page_err = max(float((x - y).abs().max()) for x, y in pairs)
+        check(page_err <= 1e-4, f"parity {label}: written pages differ by "
+              f"{page_err}")
+        page_txt = f"pages {page_err:.3g}"
+    print(f"[parity] llama3.2-3b, 2-layer full-width f32, {label}: max "
+          f"|hidden kernel - plain| {err:.3g}, {page_txt}, sampled ids "
           f"equal ({ik[dev(live)].tolist()})")
 
 
@@ -800,6 +993,206 @@ def phase_parity_mamba() -> None:
           f"scale, sampled ids equal ({ik[dev(live)].tolist()})")
 
 
+# ---------------------------------------------------------------- phase 6
+
+# two bf16 logits closer than this many bf16 ulps of their magnitude are
+# a near-tie: an argmax between them may flip on rounding alone
+NEAR_TIE_ULPS = 2
+
+
+def _top2(eng, tokens) -> tuple:
+    """The engine's logits after ``tokens`` (one prefill row through a
+    scratch cache of the engine's kind): the top two ids and logits."""
+    from repro_torch.models import transformer as T
+
+    cfg, dev, bs = eng.cfg, eng.device, eng.block_size
+    n = len(tokens)
+    nb = -(-n // bs)
+    dtype = eng.params.embed.dtype
+    cache = T.init_paged_cache(cfg, 1, nb, bs, dtype, dev,
+                               kv_quant=eng.kv_quant)
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def z(*shape):
+        return torch.zeros(shape, **i32)
+    with torch.inference_mode():
+        hid = T._sampled_hidden(
+            eng.params, cfg, cache, torch.tensor([list(tokens)], **i32),
+            z(1), z(1), torch.full((1,), n, **i32),
+            torch.ones((1,), dtype=torch.bool, device=dev),
+            torch.full((1,), n - 1, **i32), z(0), z(0),
+            torch.zeros((0,), dtype=torch.bool, device=dev),
+            torch.arange(nb, **i32)[None], z(0, nb))
+        w = eng.params.lm_head if eng.params.lm_head is not None \
+            else eng.params.embed.T
+        logits = (hid @ w)[0, :cfg.vocab_size].float()
+    top = torch.topk(logits, 2)
+    return top.indices.tolist(), top.values.tolist(), logits
+
+
+def _streams_agree(what: str, eng, got: dict, want: dict) -> None:
+    """Fails unless the two runs streamed the same tokens for every
+    request; at a first divergence it logs the top-2 logit gap there (a
+    fresh forward over the shared history) and lets it pass only as a
+    near-tie between the two streams' tokens."""
+    check(got.keys() == want.keys(), f"{what}: rids {sorted(got)} vs "
+          f"{sorted(want)}")
+    for rid in sorted(want):
+        a, b = got[rid], want[rid]
+        if a == b:
+            continue
+        check(len(a) == len(b), f"{what}: rid {rid} streamed {len(a)} "
+              f"tokens against {len(b)}")
+        i = next(j for j in range(len(a)) if a[j] != b[j])
+        hist = list(eng.tokens[rid]) + list(b[:i])
+        ids, vals, logits = _top2(eng, hist)
+        la, lb = float(logits[a[i]]), float(logits[b[i]])
+        ulp = 2.0 ** (np.floor(np.log2(max(abs(la), abs(lb), 1e-30))) - 7)
+        print(f"[hierarchy] {what}: rid {rid} diverges at token {i}: "
+              f"{a[i]} vs {b[i]}, their logits {la:.5f} / {lb:.5f} "
+              f"(top-2 {ids} at {vals[0]:.5f} / {vals[1]:.5f}, gap "
+              f"{vals[0] - vals[1]:.5f})")
+        check(abs(la - lb) <= NEAR_TIE_ULPS * ulp,
+              f"{what}: rid {rid} diverged at token {i} and it is not a "
+              f"near-tie (|{la:.5f} - {lb:.5f}| > {NEAR_TIE_ULPS} bf16 "
+              f"ulps)")
+
+
+def _prefix_requests():
+    """Four requests sharing a 1024-token prefix, prompts of 1100-1199
+    tokens, 8 output tokens, arriving 3 s apart in virtual time (each
+    finishes before the next arrives, so every later one finds the
+    prefix published)."""
+    from repro_torch.core.request import Request
+    from repro_torch.serving.schemes import CPU_TIERS
+    return [Request(rid=i, arrival=3.0 * i, prompt_len=1100 + 33 * i,
+                    decode_len=8, qos=CPU_TIERS[0], app_id="Q1",
+                    prefix_id=7, prefix_len=1024) for i in range(4)]
+
+
+def phase_hierarchy(kv_quant: bool) -> None:
+    """The KV hierarchy at full width, with bf16 or int8 pages. (a) The
+    prefix tier: four requests sharing a 1024-token prefix, served with
+    ``KVCacheConfig(enable_prefix=True)`` and without a hierarchy, by
+    Sarathi's fixed 64-token chunks (so both runs chunk every prompt's
+    tail alike and do the same arithmetic for each token): the streams
+    must be equal and the hot run must dispatch fewer prefill tokens.
+    (b) The swap tier: a mid-decode swap-out and swap-in round trip with
+    another request churning the freed blocks (tests/
+    test_fused_engine.py:121-165) must stream what an uninterrupted run
+    of the same engine streams."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.kvpool import kv_bytes_per_block
+    from repro_torch.core.request import Request
+    from repro_torch.core.scheduler import BatchPlan
+    from repro_torch.engine.torch_backend import TorchEngine
+    from repro_torch.kernels import ops
+    from repro_torch.serving.kvcache import KVCacheConfig, KVHierarchy
+    from repro_torch.serving.schemes import CPU_TIERS
+
+    label = "int8" if kv_quant else "bf16"
+    decode = "paged_attention_int8" if kv_quant else "paged_attention"
+    other = "paged_attention" if kv_quant else "paged_attention_int8"
+    t0 = time.perf_counter()
+    ops.reset_counts()
+    runs = {}
+    for name, kv_cfg in (("hot", KVCacheConfig(enable_prefix=True)),
+                         ("cold", None)):
+        rep = _replica("llama3.2-3b", "sarathi-fcfs", kv_quant, kv_cfg)
+        rep.submit_all(_prefix_requests())
+        rep.run()
+        check(len(rep.finished) == 4, f"hierarchy {label} {name}: "
+              f"{len(rep.finished)}/4 requests finished")
+        eng = rep.backend
+        runs[name] = (dict(eng.generated), eng.prefill_tokens, rep.kv)
+        if name == "hot":
+            kv = rep.kv
+            check(kv.prefix.hit_tokens == 3 * 1024,
+                  f"hierarchy {label}: prefix hits {kv.prefix.hit_tokens} "
+                  f"tokens, not 3 x 1024")
+            check(kv.used == kv.prefix.n_pinned == 0,
+                  f"hierarchy {label}: {kv.used} blocks used, "
+                  f"{kv.prefix.n_pinned} pinned after every request ended")
+            hot_eng = eng
+        else:
+            del eng
+        del rep
+    _streams_agree(f"prefix {label}", hot_eng, runs["hot"][0],
+                   runs["cold"][0])
+    hot_tok, cold_tok = runs["hot"][1], runs["cold"][1]
+    check(hot_tok < cold_tok, f"hierarchy {label}: the hot run dispatched "
+          f"{hot_tok} prefill tokens, the cold one {cold_tok}")
+    counts = ops.counts()
+    check(counts[decode]["launches"] > 0 and counts[other]["launches"] == 0
+          and all(c["plain"] == 0 for c in counts.values()),
+          f"hierarchy {label}: launches {counts}")
+    print(f"[hierarchy] prefix {label}: streams equal over 4 requests, "
+          f"prefill tokens dispatched hot {hot_tok} / cold {cold_tok}, "
+          f"{runs['hot'][2].prefix.hit_tokens} prefix tokens hit")
+    del hot_eng, runs
+    torch.cuda.empty_cache()
+
+    # (b) the swap tier, on one engine's plans
+    cfg, bs = get_config("llama3.2-3b"), 64
+    qos = CPU_TIERS[0]
+
+    def engine(pool=None):
+        return TorchEngine(cfg, n_slots=2, max_len=2048,
+                           quantum=32, seed=0, dtype=torch.bfloat16,
+                           block_size=bs, pool=pool, device="cuda",
+                           kv_quant=kv_quant)
+
+    def request(rid, prompt, n):
+        return Request(rid=rid, arrival=0.0, prompt_len=prompt,
+                       decode_len=n, qos=qos)
+    base = engine()
+    r = request(0, 1000, 6)
+    base.on_admit(r)
+    base.execute(BatchPlan(prefill=[(r, 1000)]), 0.0)
+    r.prefilled = 1000
+    for _ in range(5):
+        base.execute(BatchPlan(decode=[r]), 0.0)
+    want = {0: list(base.generated[0])}
+    del base
+    torch.cuda.empty_cache()
+    kv = KVHierarchy(64, bs, cfg=KVCacheConfig(enable_swap=True),
+                     bytes_per_block=kv_bytes_per_block(
+                         cfg, bs, kv_quant=kv_quant),
+                     max_seqs=2)
+    eng = engine(kv)
+    r = request(0, 1000, 6)
+    eng.on_admit(r)
+    eng.execute(BatchPlan(prefill=[(r, 1000)]), 0.0)
+    r.prefilled = 1000
+    for _ in range(2):
+        eng.execute(BatchPlan(decode=[r]), 0.0)
+    held = set(kv.block_table(0))
+    check(kv.on_relegate(0, 1002) == 1002 and kv.swapped_tokens(0) == 1002,
+          f"hierarchy {label}: the relegation did not keep 1002 tokens")
+    eng.on_release(r)
+    churn = request(9, 700, 2)
+    eng.on_admit(churn)
+    kv.grow(9, 700)
+    reused = len(set(kv.block_table(9)) & held)
+    check(reused > 0, f"hierarchy {label}: the churning request got none "
+          f"of the freed blocks")
+    eng.execute(BatchPlan(prefill=[(churn, 700)]), 0.0)
+    churn.prefilled = 700
+    eng.execute(BatchPlan(decode=[churn]), 0.0)
+    eng.on_release(churn)
+    kv.release(9)
+    for _ in range(3):
+        eng.execute(BatchPlan(decode=[r]), 0.0)     # swap-resume
+    torch.cuda.synchronize()
+    _streams_agree(f"swap {label}", eng, {0: eng.generated[0]}, want)
+    print(f"[hierarchy] swap {label}: a mid-decode round trip ({len(held)} "
+          f"blocks out, {reused} of them overwritten by another request) "
+          f"streams the uninterrupted run's {want[0]}; "
+          f"{time.perf_counter() - t0:.1f} s for the phase")
+    del eng
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -825,14 +1218,18 @@ def main() -> int:
     head = phase_kernels()
     # each served path: counts zeroed just before it, read just after
     launches = {name: 0 for name in SOURCES}
-    for arch in PATHS:
-        counts, eng = phase_serve(arch)
+    for path, (_, kv_quant, _) in PATHS.items():
+        counts, eng = phase_serve(path)
         for name in SOURCES:
             launches[name] += counts[name]["launches"]
-        phase_profile(eng)
+        phase_profile(eng, prefill=not kv_quant)
         del eng
+        torch.cuda.empty_cache()
     phase_parity()
     phase_parity_mamba()
+    phase_parity(kv_quant=True)
+    phase_hierarchy(kv_quant=False)
+    phase_hierarchy(kv_quant=True)
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         kernels.append(dict(name=name, route="cuda", source=src,

@@ -1,8 +1,12 @@
-"""Carry weights and paged caches between the JAX package and the port.
+"""Carry weights, paged caches and swap payloads between the JAX package
+and the port.
 
 Everything crosses as numpy arrays, so this module imports neither JAX
 nor the JAX package: a caller turns JAX arrays into numpy first (for
-example ``jax.tree.map(np.asarray, params)``).
+example ``jax.tree.map(np.asarray, params)``). JAX's bf16 arrays arrive
+as numpy arrays of the ``bfloat16`` dtype that ``ml_dtypes`` defines;
+they are read through a 16-bit integer view, bit for bit, so the port
+needs no ``ml_dtypes`` of its own.
 """
 from __future__ import annotations
 
@@ -13,7 +17,18 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.mamba2 import MambaState
-from repro_torch.models.transformer import PagedAttnCache
+from repro_torch.models.transformer import (PagedAttnCache,
+                                            QuantPagedAttnCache)
+
+
+def tensor_from_numpy(a) -> torch.Tensor:
+    """A numpy array (or anything ``np.asarray`` takes) as a CPU tensor of
+    the same dtype and bits; a ``bfloat16`` array becomes a
+    ``torch.bfloat16`` tensor through its int16 view."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
@@ -34,30 +49,64 @@ def params_from_numpy(tree) -> Dict[str, torch.Tensor]:
     ``TorchEngine(params=...)``."""
     flat: Dict[str, np.ndarray] = {}
     _flatten(tree, "", flat)
-    return {k: torch.from_numpy(np.array(v)) for k, v in flat.items()}
+    return {k: tensor_from_numpy(v) for k, v in flat.items()}
+
+
+def _cache_type(entry):
+    """The port's tuple type for one JAX cache entry, by its fields (or,
+    for a plain tuple, its length: 4 fields are int8 pages and scales)."""
+    fields = getattr(entry, "_fields", None)
+    if fields == MambaState._fields:
+        return MambaState
+    if fields == QuantPagedAttnCache._fields or len(entry) == 4:
+        return QuantPagedAttnCache
+    return PagedAttnCache
 
 
 def paged_cache_from_numpy(cache, device="cuda") -> Dict[str, List]:
     """A JAX paged cache (``{"layers": [...]}`` of numpy arrays: ``(k,
-    v)`` pages ``[num_blocks, bs, KV, hd]`` for attention layers,
-    ``MambaState(conv, ssm)`` rows ``[n_slots, ...]`` for Mamba layers)
-    as the port's on ``device``, with the sink page appended to every
-    attention layer and the sink row to every Mamba layer. Raises
-    without a card unless ``device="cpu"``."""
+    v)`` pages ``[num_blocks, bs, KV, hd]`` or int8 ``(k, v, k_scale,
+    v_scale)`` with bf16 scales ``[num_blocks, bs, KV]`` for attention
+    layers, ``MambaState(conv, ssm)`` rows ``[n_slots, ...]`` for Mamba
+    layers) as the port's on ``device``, dtypes kept, with the sink page
+    appended to every attention layer and the sink row to every Mamba
+    layer. Raises without a card unless ``device="cpu"``."""
     dev = resolve_device(device)
     layers = []
     for entry in cache["layers"]:
-        cls = MambaState if getattr(entry, "_fields", ()) \
-            == MambaState._fields else PagedAttnCache
-        a, b = (torch.from_numpy(np.array(t)).to(dev) for t in entry)
-        layers.append(cls(torch.cat([a, torch.zeros_like(a[:1])]),
-                          torch.cat([b, torch.zeros_like(b[:1])])))
+        ts = [tensor_from_numpy(t).to(dev) for t in entry]
+        layers.append(_cache_type(entry)(
+            *(torch.cat([t, torch.zeros_like(t[:1])]) for t in ts)))
     return {"layers": layers}
 
 
 def paged_cache_to_numpy(cache) -> Dict[str, Sequence]:
-    """The port's paged cache as numpy arrays in float32, without the
-    sink page or sink row: ``{"layers": [(k, v) or (conv, ssm), ...]}``,
-    the layout of the JAX cache."""
-    return {"layers": [tuple(t[:-1].detach().cpu().float().numpy()
-                             for t in c) for c in cache["layers"]]}
+    """The port's paged cache as numpy arrays, without the sink page or
+    sink row: ``{"layers": [(k, v), (k, v, k_scale, v_scale) or (conv,
+    ssm), ...]}``, the layout of the JAX cache. int8 pages stay int8;
+    every float (bf16 scales and pages included) becomes float32, which
+    holds a bf16 value exactly."""
+    def host(t):
+        t = t[:-1].detach().cpu()
+        return (t if t.dtype == torch.int8 else t.float()).numpy()
+    return {"layers": [tuple(host(t) for t in c) for c in cache["layers"]]}
+
+
+def swap_payload_from_numpy(payload: Mapping) -> Dict[str, Any]:
+    """A JAX engine's wire payload (``JaxEngine.export_swapped``: the
+    swap-store entry with its host pages per attention layer and recurrent
+    state per Mamba layer, the prompt tokens and the generated stream) as
+    ``TorchEngine.import_swapped`` takes it: the same structure with every
+    page and state row a CPU tensor of its own dtype (int8 pages and bf16
+    scales kept)."""
+    swap = payload["swap"]
+    return {
+        "swap": {
+            "tokens": int(swap["tokens"]),
+            "last_token": int(swap["last_token"]),
+            "pages": {int(li): tuple(tensor_from_numpy(a) for a in saved)
+                      for li, saved in swap["pages"].items()},
+            "mamba": {int(li): tuple(tensor_from_numpy(a) for a in saved)
+                      for li, saved in swap["mamba"].items()}},
+        "prompt": np.asarray(payload["prompt"], np.int32),
+        "generated": [int(t) for t in payload["generated"]]}

@@ -14,6 +14,9 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
+}
 __device__ __forceinline__ void store_float(float v, float* p) { *p = v; }
 __device__ __forceinline__ void store_float(float v, __nv_bfloat16* p) {
   *p = __float2bfloat16(v);

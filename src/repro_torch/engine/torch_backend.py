@@ -9,16 +9,20 @@ with ``kv_layout="paged"``, carrying the slot bookkeeping of its
 batch as per-slot rows bucketed to the engine quantum, block tables
 rebuilt from the scheduler's ``KVPool`` grants, Mamba layers' recurrent
 state kept per slot, greedy sampling on the device and one
-device-to-host transfer per iteration.
+device-to-host transfer per iteration. ``kv_quant`` stores int8 pages
+with bf16 scale pages. The pool's runtime hooks (``swap_out`` /
+``swap_in`` / ``drop``) and the wire hooks (``export_swapped`` /
+``import_swapped``) carry the KV hierarchy's swap tier and cross-engine
+transfers on real pages; prefix-cache hits are block tables that share
+pages.
 
-Not ported yet (ROADMAP.md queue 1): the dense layout, int8 KV pages,
-the KV hierarchy's swap and prefix tiers, SWA page reclamation, tensor
-parallelism and CUDA graphs.
+Not ported yet (ROADMAP.md queue 1): the dense layout, SWA page
+reclamation, tensor parallelism and CUDA graphs.
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,6 +34,7 @@ from repro_torch.core.scheduler import BatchPlan
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
 from repro_torch.models.config import MAMBA, ModelConfig
+from repro_torch.models.mamba2 import MambaState
 from repro_torch.models.transformer import (Transformer, fused_serve_forward,
                                             init_paged_cache, init_params)
 
@@ -42,15 +47,16 @@ class TorchEngine:
     ``params``: a ``state_dict`` (for example the JAX engine's weights
     through ``bridge.params_from_numpy``), loaded onto ``device`` in
     ``dtype``; without it the weights are drawn from a generator seeded
-    with ``seed``. ``device`` defaults to the card and raises when there
-    is none."""
+    with ``seed``. ``kv_quant`` keeps int8 KV pages with bf16 scale
+    pages (``QuantPagedAttnCache``). ``device`` defaults to the card and
+    raises when there is none."""
 
     def __init__(self, cfg: ModelConfig, n_slots: int = 8,
                  max_len: int = 512, quantum: int = 64, seed: int = 0,
                  dtype=torch.float32, block_size: int = 64,
                  pool: Optional[KVPool] = None,
                  params: Optional[Mapping[str, torch.Tensor]] = None,
-                 device="cuda"):
+                 device="cuda", kv_quant: bool = False):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.n_slots = n_slots
@@ -80,9 +86,11 @@ class TorchEngine:
         self.pool = pool if pool is not None else KVPool(
             num_blocks=n_slots * self.max_blocks, block_size=block_size,
             max_seqs=n_slots)
+        self.pool.bind_runtime(self)
+        self.kv_quant = kv_quant
         self.cache = init_paged_cache(cfg, n_slots, self.pool.num_blocks,
                                       block_size, dtype=dtype,
-                                      device=self.device)
+                                      device=self.device, kv_quant=kv_quant)
         # paged page-window bucket hits: maxb -> iteration count
         self.gather_bucket_hits: Dict[int, int] = {}
         # device block tables reused while no live row's table changed
@@ -91,6 +99,13 @@ class TorchEngine:
         self._pre_bt_dev = self._dec_bt_dev = None
         self.slot_len = np.zeros((n_slots,), np.int32)
         self.last_token = np.zeros((n_slots,), np.int32)
+        # host-parked state of swapped-out requests, CPU tensors:
+        # rid -> {"tokens", "last_token", "pages": {layer: cache fields},
+        #         "mamba": {layer: (conv, ssm)}}
+        self._swap_store: Dict[int, dict] = {}
+        # real prefill work dispatched (prefix-cache hits shrink these)
+        self.prefill_rows = 0
+        self.prefill_tokens = 0
 
     @property
     def prefix_sharing_ok(self) -> bool:
@@ -112,6 +127,62 @@ class TorchEngine:
                 0, vocab, size=n).astype(np.int32)
         return toks
 
+    # ------------------------------------------------ pool runtime hooks
+    # (called by the pool or the hierarchy, so that accounting moves carry
+    # real pages; the sink page never travels: tables never name it)
+    def swap_out(self, rid: int, block_ids: Sequence[int]) -> None:
+        """Copy ``rid``'s private pages (every field of each attention
+        layer's cache tuple, so int8 scale pages travel with their pages),
+        its slot's Mamba state and its sampling cursor to host memory.
+        Called while the request still holds its slot."""
+        slot = self.slot_of[rid]
+        ids = torch.as_tensor(list(block_ids), dtype=torch.long,
+                              device=self.device)
+        pages, mamba = {}, {}
+        for li, c in enumerate(self.cache["layers"]):
+            if isinstance(c, MambaState):
+                mamba[li] = (c.conv[slot].to("cpu", copy=True),
+                             c.ssm[slot].to("cpu", copy=True))
+            else:
+                pages[li] = tuple(a[ids].to("cpu") for a in c)
+        self._swap_store[rid] = {
+            "tokens": int(self.slot_len[slot]),
+            "last_token": int(self.last_token[slot]),
+            "pages": pages, "mamba": mamba}
+
+    def swap_in(self, rid: int, block_ids: Sequence[int]) -> None:
+        """Write ``rid``'s saved pages into the freshly granted physical
+        blocks ``block_ids``, in place; the slot's state is restored at
+        ``on_admit``."""
+        st = self._swap_store[rid]
+        ids = torch.as_tensor(list(block_ids), dtype=torch.long,
+                              device=self.device)
+        for li, saved in st["pages"].items():
+            for a, s in zip(self.cache["layers"][li], saved):
+                a.index_copy_(0, ids, s.to(self.device, a.dtype))
+
+    def drop(self, rid: int) -> None:
+        self._swap_store.pop(rid, None)
+
+    # ------------------------------------------------ cross-engine wire
+    def export_swapped(self, rid: int) -> dict:
+        """Detach ``rid``'s host-parked state as a self-contained wire
+        payload: the swap-store entry (pages, recurrent state, sampling
+        cursor), the prompt tokens and the generated stream. ``swap_out``
+        must have run."""
+        return {"swap": self._swap_store.pop(rid),
+                "prompt": self.tokens.pop(rid),
+                "generated": self.generated.pop(rid)}
+
+    def import_swapped(self, rid: int, payload: dict) -> None:
+        """Land a wire payload from a peer engine (a JAX engine's through
+        ``bridge.swap_payload_from_numpy``): ``rid`` becomes a locally
+        swap-parked request, which the swap-resume path (``swap_in`` and
+        ``on_admit``) restores into fresh blocks and a slot."""
+        self._swap_store[rid] = payload["swap"]
+        self.tokens[rid] = payload["prompt"]
+        self.generated[rid] = payload["generated"]
+
     # ------------------------------------------------ backend protocol
     def on_admit(self, req: Request) -> None:
         if req.rid in self.slot_of:
@@ -130,6 +201,25 @@ class TorchEngine:
             self.tokens[req.rid] = self._gen_tokens(req)
             self.generated[req.rid] = []
         self.slot_len[slot] = 0
+        st = self._swap_store.pop(req.rid, None)
+        if st is not None:
+            # swap-resume: the pages are back (swap_in); restore the slot's
+            # recurrent state and sampling cursor
+            for li, (conv, ssm) in st["mamba"].items():
+                c = self.cache["layers"][li]
+                c.conv[slot].copy_(conv)
+                c.ssm[slot].copy_(ssm)
+            self.last_token[slot] = st["last_token"]
+            self.slot_len[slot] = st["tokens"]
+        else:
+            # resident shared prefix pages (a fresh cache hit, or a parked
+            # request whose whole resident state was shared) already hold
+            # the leading tokens' KV: the slot starts mid-prompt. Any
+            # other mismatch keeps slot_len 0, which execute's resume
+            # check catches.
+            resident = self.pool.resident_tokens(req.rid)
+            if resident and req.prefilled == resident:
+                self.slot_len[slot] = resident
 
     def on_release(self, req: Request) -> None:
         slot = self.slot_of.pop(req.rid, None)
@@ -175,16 +265,41 @@ class TorchEngine:
                 return m
         return self.max_blocks
 
+    def _ensure_resident(self, req: Request) -> None:
+        """Admission inside ``execute``: a swap-parked request first pulls
+        its pages back through the pool (the hierarchy grants fresh blocks
+        and calls ``swap_in``; the replica's own later ``kv.swap_in`` then
+        does nothing), then takes a slot."""
+        if req.rid in self.slot_of:
+            return
+        if self.pool.swapped_tokens(req.rid) > 0:
+            self.pool.swap_in(req.rid)
+        self.on_admit(req)
+
     def _tokens_cached(self, rid: int) -> int:
+        """Tokens whose KV will be resident once ``rid`` runs: the live
+        slot's length, or the parked state (host tier and shared prefix
+        pages)."""
         slot = self.slot_of.get(rid)
-        return 0 if slot is None else int(self.slot_len[slot])
+        if slot is not None:
+            return int(self.slot_len[slot])
+        return (self.pool.swapped_tokens(rid)
+                + self.pool.resident_tokens(rid))
 
     def _blocks_needed(self, rid: int, target_tokens: int) -> int:
         """Blocks ``execute`` will grant bringing ``rid`` to
-        ``target_tokens`` resident."""
-        grow = blocks_for(target_tokens, self.pool.block_size) \
-            - self.pool.covered_blocks(rid)
-        return max(0, grow)
+        ``target_tokens`` resident: the host tier's swap-in (as many
+        blocks as went out) and any growth past what the swap-in and the
+        blocks already held cover."""
+        pool = self.pool
+        swap_blocks = 0
+        if pool.swapped_tokens(rid) > 0:
+            host = getattr(pool, "host", None)
+            if host is not None:
+                swap_blocks = host.held(rid)
+        have = pool.covered_blocks(rid) + swap_blocks
+        grow = blocks_for(target_tokens, pool.block_size) - have
+        return swap_blocks + max(0, grow)
 
     def preflight(self, plan: BatchPlan) -> None:
         """Dry-run the slot and block allocations ``execute`` would make,
@@ -266,15 +381,14 @@ class TorchEngine:
         # ---- pack the plan (host-side numpy; no device ops)
         pre: List[tuple] = []       # (slot, req, toks)
         for req, chunk in plan.prefill:
-            self.on_admit(req)
+            self._ensure_resident(req)
             slot = self.slot_of[req.rid]
             toks = self.tokens[req.rid][req.prefilled:req.prefilled + chunk]
             if req.prefilled != self.slot_len[slot]:
                 raise RuntimeError(
                     f"rid {req.rid} resumes prefill at {req.prefilled} but "
                     f"slot {slot} holds {self.slot_len[slot]} tokens — a "
-                    f"state-preserving resume needs the KV hierarchy, "
-                    f"which the port does not have yet")
+                    f"state-preserving resume needs the KV hierarchy")
             if req.prefilled + len(toks) > self.max_len:
                 raise RuntimeError(
                     f"rid {req.rid} prefill would exceed max_len "
@@ -317,7 +431,7 @@ class TorchEngine:
         dec_active = np.zeros((nd,), bool)
         emit_dec: List[Optional[int]] = [None] * nd
         for req in plan.decode:
-            self.on_admit(req)
+            self._ensure_resident(req)   # mid-decode swap-resume
             slot = self.slot_of[req.rid]
             if self.slot_len[slot] + 1 > self.max_len:
                 raise RuntimeError(
@@ -374,6 +488,8 @@ class TorchEngine:
                              self.slot_len[:nd].copy(), dec_active,
                              self._pre_bt_dev, self._dec_bt_dev)
         out = sampled.cpu().numpy()   # the ONE device->host transfer
+        self.prefill_rows += len(pre)
+        self.prefill_tokens += sum(len(t) for _, _, t in pre)
 
         # ---- host bookkeeping
         for slot, req, toks in pre:

@@ -21,8 +21,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("paged_attention", "chunked_prefill_attention", "rmsnorm",
-           "ssd_scan")
+KERNELS = ("paged_attention", "paged_attention_int8",
+           "chunked_prefill_attention", "rmsnorm", "ssd_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 

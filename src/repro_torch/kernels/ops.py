@@ -15,13 +15,15 @@ import torch
 
 from . import chunked_prefill_attention as _cpa
 from . import paged_attention as _pa
+from . import paged_attention_int8 as _pa8
 from . import ref
 from . import rmsnorm as _rms
 from . import ssd_scan as _ssd
 
 # each kernel's wrapper module, which counts its launches
-_WRAPPERS = {"paged_attention": _pa, "chunked_prefill_attention": _cpa,
-             "rmsnorm": _rms, "ssd_scan": _ssd}
+_WRAPPERS = {"paged_attention": _pa, "paged_attention_int8": _pa8,
+             "chunked_prefill_attention": _cpa, "rmsnorm": _rms,
+             "ssd_scan": _ssd}
 # calls of each plain version made through this module
 plain_calls: Dict[str, int] = {name: 0 for name in _WRAPPERS}
 _force_plain = False
@@ -47,10 +49,19 @@ def _plain(name: str, device: torch.device) -> bool:
     raise ValueError(f"{name}: no implementation for device {device}")
 
 
-def paged_attention(q, k_pages, v_pages, block_table, lens):
-    """q: [B, H, D]; k_pages/v_pages: [P, page, KV, D];
+def paged_attention(q, k_pages, v_pages, block_table, lens, *,
+                    k_scales=None, v_scales=None):
+    """q: [B, H, D]; k_pages/v_pages: [P, page, KV, D] in q's dtype, or
+    int8 with ``k_scales``/``v_scales`` [P, page, KV] bf16 (the
+    fused-dequant variant, a kernel of its own on the card);
     block_table: [B, n_pages] int32 (-1 = unused); lens: [B] int32.
-    Returns [B, H, D]."""
+    Returns [B, H, D] in q's dtype."""
+    if k_scales is not None:
+        if _plain("paged_attention_int8", q.device):
+            return ref.paged_attention_ref(q, k_pages, v_pages, block_table,
+                                           lens, k_scales, v_scales)
+        return _pa8.paged_attention_int8_cuda(q, k_pages, v_pages, k_scales,
+                                              v_scales, block_table, lens)
     if _plain("paged_attention", q.device):
         return ref.paged_attention_ref(q, k_pages, v_pages, block_table,
                                        lens)

@@ -2,8 +2,8 @@
 ``csrc/paged_attention.cu``.
 
 Replaces the Pallas kernel ``repro/kernels/paged_attention.py::
-paged_attention`` (its fp/bf16 variant; the int8 one is not ported
-yet). One CUDA block serves one ``(row, kv-head)`` pair and all G query
+paged_attention`` (its fp/bf16 variant; the int8 one is
+``paged_attention_int8``). One CUDA block serves one ``(row, kv-head)`` pair and all G query
 heads of that group, walking the row's block table page by page; see
 the source's note for the design and its bound.
 """

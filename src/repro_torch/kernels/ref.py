@@ -61,26 +61,33 @@ def chunked_prefill_attention_ref(q, k, v, q_offset, kv_len, window=None):
     return o.reshape(B, C, H, D).to(q.dtype)
 
 
-def paged_attention_ref(q, k_pages, v_pages, block_table, lens):
+def paged_attention_ref(q, k_pages, v_pages, block_table, lens,
+                        k_scales=None, v_scales=None):
     """Decode attention over a paged KV cache.
 
     q: [B, H, D]; k_pages/v_pages: [P, page, KV, D];
     block_table: [B, n_pages] int32 (page ids, -1 pad); lens: [B] int32.
+    With ``k_scales``/``v_scales`` ([P, page, KV], bf16) the pages are
+    int8 and each element reads as ``f32(k8) * f32(scale)``, exact in
+    fp32 and never rounded to bf16, as the JAX int8 kernel dequantizes.
     Returns [B, H, D]."""
     B, H, D = q.shape
     _, page, KV, _ = k_pages.shape
     G = H // KV
     n_pages = block_table.shape[1]
     safe = block_table.clamp_min(0).long()
-    k = k_pages[safe].reshape(B, n_pages * page, KV, D)
-    v = v_pages[safe].reshape(B, n_pages * page, KV, D)
+    k = k_pages[safe].reshape(B, n_pages * page, KV, D).float()
+    v = v_pages[safe].reshape(B, n_pages * page, KV, D).float()
+    if k_scales is not None:
+        k = k * k_scales[safe].reshape(B, n_pages * page, KV, 1).float()
+        v = v * v_scales[safe].reshape(B, n_pages * page, KV, 1).float()
     pos = torch.arange(n_pages * page, device=q.device)
     valid = (pos[None, :] < lens[:, None]) \
         & (block_table >= 0).repeat_interleave(page, dim=1)
     qf = q.reshape(B, KV, G, D).float()
-    s = torch.einsum("bkgd,bskd->bkgs", qf, k.float()) * D ** -0.5
+    s = torch.einsum("bkgd,bskd->bkgs", qf, k) * D ** -0.5
     p = _softmax_masked(s, valid[:, None, None, :])
-    o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    o = torch.einsum("bkgs,bskd->bkgd", p, v)
     return o.reshape(B, H, D).to(q.dtype)
 
 

@@ -7,7 +7,8 @@ the card (the default) it serves the full configuration with the
 NiyamaScheduler priced on the ``H100`` spec; ``--reduced`` gives the JAX
 serve script's ``.reduced(num_layers=2, d_model=256)`` model, for CPU runs.
 ``--arch`` picks the family: ``llama3.2-3b`` (the default) or
-``mamba2-370m``.
+``mamba2-370m``. ``--prefix-cache`` gives the replica the KV
+hierarchy's shared-prefix tier, as in the JAX serve script.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --dtype bf16 \
       --n-requests 12 --max-len 2048
@@ -26,6 +27,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.predictor import H100
 from repro_torch.core.request import Request
 from repro_torch.device import resolve_device
+from repro_torch.serving.kvcache import KVCacheConfig
 from repro_torch.serving.metrics import compute_metrics
 from repro_torch.serving.schemes import CPU_HW, CPU_TIERS, make_torch_replica
 
@@ -64,6 +66,9 @@ def main(argv=None):
     ap.add_argument("--kv-blocks", type=int, default=None,
                     help="physical blocks in the pool (default: enough "
                          "for every slot at max-len)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="enable the shared-prefix KV cache tier on the "
+                         "engine's pages")
     ap.add_argument("--n-requests", type=int, default=12)
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=256)
@@ -79,7 +84,9 @@ def main(argv=None):
         args.scheme, cfg, n_slots=args.slots, max_len=args.max_len,
         block_size=args.block_size, kv_blocks=args.kv_blocks,
         seed=args.seed, hw=H100 if device.type == "cuda" else CPU_HW,
-        device=device, dtype=DTYPES[args.dtype])
+        device=device, dtype=DTYPES[args.dtype],
+        kv_cfg=(KVCacheConfig(enable_prefix=True) if args.prefix_cache
+                else None))
     reqs = make_requests(rng, args.n_requests, args.max_len)
     # build and load the kernels and run one iteration at the model's
     # shapes before the clock starts, so no request pays for the set-up

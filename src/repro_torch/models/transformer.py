@@ -2,8 +2,9 @@
 PyTorch.
 
 Counterpart of the serve path of the JAX package's
-``models/transformer.py``: ``init_params``, ``init_paged_cache``,
-``_paged_write``, ``_paged_view``, ``_attn_paged``, ``_gather_cache_rows``,
+``models/transformer.py``: ``init_params``, ``init_paged_cache`` (with
+its int8 ``QuantPagedAttnCache`` and ``_quantize``), ``_paged_write``,
+``_paged_view``, ``_attn_paged``, ``_gather_cache_rows``,
 ``_scatter_cache_rows``, ``_apply_ffn``, ``_embed``, ``_fused_block`` and
 ``fused_serve_forward`` keep their names, their parameter layouts
 (``wq [d, H, hd]``, ``wo [H, hd, d]``, ``embed [V_pad, d]``,
@@ -167,23 +168,60 @@ class PagedAttnCache(NamedTuple):
     v: torch.Tensor
 
 
+class QuantPagedAttnCache(NamedTuple):
+    """int8 KV on the paged layout, as the JAX ``QuantPagedAttnCache``:
+    ``k``/``v`` int8 ``[num_blocks + 1, bs, KV, hd]`` and their bf16
+    scale pages ``k_scale``/``v_scale`` ``[num_blocks + 1, bs, KV]``,
+    one symmetric scale per (token, kv-head), indexed by the same block
+    tables. A block is its pages and its scales, so every pool operation
+    (grant, free, swap, prefix share) moves quantized blocks through the
+    tuple's fields without knowing about quantization. Page
+    ``num_blocks`` is the sink, as in ``PagedAttnCache``."""
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+
+
 def init_paged_cache(cfg: ModelConfig, n_slots: int, num_blocks: int,
-                     block_size: int, dtype=torch.float32,
-                     device="cuda") -> Dict:
+                     block_size: int, dtype=torch.float32, device="cuda",
+                     kv_quant: bool = False) -> Dict:
     """The zeroed serving cache on ``device``, with the arguments of the
     JAX ``init_paged_cache``: attention layers share the page pool
     (``num_blocks`` pages and the sink page), Mamba layers keep their
     O(1) recurrent state per slot (``n_slots`` rows and the sink row).
+    ``kv_quant`` stores int8 pages with bf16 scale pages beside them.
     Raises without a card unless ``device="cpu"``."""
     check_supported(cfg)
     dev = resolve_device(device)
     shape = (num_blocks + 1, block_size, cfg.num_kv_heads, cfg.head_dim)
+
+    def zeros(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    def attn_cache():
+        if kv_quant:
+            return QuantPagedAttnCache(
+                zeros(shape, torch.int8), zeros(shape, torch.int8),
+                zeros(shape[:3], torch.bfloat16),
+                zeros(shape[:3], torch.bfloat16))
+        return PagedAttnCache(zeros(shape, dtype), zeros(shape, dtype))
     return {"layers": [
         init_mamba_state(n_slots + 1, cfg, dtype, dev)
-        if spec.mixer == MAMBA else
-        PagedAttnCache(torch.zeros(shape, dtype=dtype, device=dev),
-                       torch.zeros(shape, dtype=dtype, device=dev))
-        for spec in cfg.layers]}
+        if spec.mixer == MAMBA else attn_cache() for spec in cfg.layers]}
+
+
+def _quantize(x):
+    """Symmetric per-(token, head) int8 quantization, the JAX
+    ``_quantize`` op for op: the scale is ``max|x| / 127`` in fp32,
+    floored at 1e-8; values are ``x / scale`` rounded half to even and
+    clipped to +-127; the scale is stored in bf16. x: [..., hd].
+    Returns (int8 [..., hd], bf16 [...])."""
+    xf = x.float()
+    scale = torch.amax(xf.abs(), dim=-1) / 127.0
+    scale = scale.clamp_min(1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
 
 
 def _paged_write(c: PagedAttnCache, k_new, v_new, start_pos, bt,
@@ -193,7 +231,9 @@ def _paged_write(c: PagedAttnCache, k_new, v_new, start_pos, bt,
     columns, inactive decode slots, unallocated table entries) go to the
     sink page: JAX routes them to block ``num_blocks`` and its scatter
     drops them, where torch's ``index_put_`` would raise on the CPU or
-    write out of bounds on the card."""
+    write out of bounds on the card. Quant pages quantize on write with
+    ``_quantize``; the scales go through the same ``(block, offset)``
+    index as their pages."""
     S = k_new.shape[1]
     nb, bs = c.k.shape[0] - 1, c.k.shape[1]
     maxb = bt.shape[1]
@@ -205,6 +245,14 @@ def _paged_write(c: PagedAttnCache, k_new, v_new, start_pos, bt,
     if valid is not None:
         ok = ok & valid
     idx = (torch.where(ok, blk, nb).long(), off.long())
+    if isinstance(c, QuantPagedAttnCache):
+        k8, ks = _quantize(k_new)
+        v8, vs = _quantize(v_new)
+        c.k.index_put_(idx, k8)
+        c.v.index_put_(idx, v8)
+        c.k_scale.index_put_(idx, ks)
+        c.v_scale.index_put_(idx, vs)
+        return
     c.k.index_put_(idx, k_new.to(c.k.dtype))
     c.v.index_put_(idx, v_new.to(c.v.dtype))
 
@@ -222,13 +270,18 @@ def _scatter_cache_rows(c: MambaState, sub: MambaState, idx) -> None:
     c.ssm[idx.long()] = sub.ssm
 
 
-def _paged_view(c: PagedAttnCache, bt):
+def _paged_view(c, bt):
     """Gather each row's pages into a contiguous [B, maxb*bs, KV, hd]
     view in logical-position order. Unallocated entries read page 0; the
-    attention mask hides them."""
+    attention mask hides them. Quant pages dequantize here as the JAX
+    ``_paged_view`` does, in bf16: int8 to bf16 times the bf16 scale,
+    rounded to bf16."""
     idx = bt.clamp_min(0).long()
     k, v = c.k[idx], c.v[idx]                 # [B, maxb, bs, KV, hd]
     B, maxb, bs = k.shape[:3]
+    if isinstance(c, QuantPagedAttnCache):
+        k = k.to(torch.bfloat16) * c.k_scale[idx][..., None]
+        v = v.to(torch.bfloat16) * c.v_scale[idx][..., None]
     return (k.reshape(B, maxb * bs, *k.shape[3:]),
             v.reshape(B, maxb * bs, *v.shape[3:]))
 
@@ -241,7 +294,10 @@ def _attn_paged(p: Attention, cfg: ModelConfig, x, cache: PagedAttnCache,
     table, then read. Decode rows go to ``paged_attention`` with the
     block table (no gather); prefill rows to ``chunked_prefill_attention``
     over the gathered view with per-row offsets, as the JAX kernel branch
-    does."""
+    does. Int8 pages hand their scale pages to the decode kernel's
+    fused-dequant variant (exact fp32 dequantization); prefill reads the
+    view that ``_paged_view`` dequantized in bf16, cast to q's dtype
+    (lossless), as JAX's prefill kernel reads it in fp32."""
     B, S, _ = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, p.wq)
     k = torch.einsum("bsd,dhk->bshk", x, p.wk)
@@ -251,14 +307,17 @@ def _attn_paged(p: Attention, cfg: ModelConfig, x, cache: PagedAttnCache,
     k = apply_rope(k, qpos, cfg.rope_theta)
     _paged_write(cache, k, v, start_pos, bt, valid)
     kv_lens = (start_pos + lens).to(torch.int32)
+    quant = isinstance(cache, QuantPagedAttnCache)
     if decode:
-        o = ops.paged_attention(q[:, 0], cache.k, cache.v, bt,
-                                kv_lens)[:, None]
+        o = ops.paged_attention(
+            q[:, 0], cache.k, cache.v, bt, kv_lens,
+            k_scales=cache.k_scale if quant else None,
+            v_scales=cache.v_scale if quant else None)[:, None]
     else:
         kview, vview = _paged_view(cache, bt)
         o = ops.chunked_prefill_attention(
-            q, kview, vview, q_offsets=start_pos.to(torch.int32),
-            kv_lens=kv_lens)
+            q, kview.to(q.dtype), vview.to(q.dtype),
+            q_offsets=start_pos.to(torch.int32), kv_lens=kv_lens)
     return torch.einsum("bshk,hkd->bsd", o, p.wo)
 
 

@@ -1,10 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the engine's edge cases at small shapes (G = 3, -1 holes mid-table,
 lens not a multiple of the page, fully masked rows, ragged chunks, pad
-rows, windows; norm rows that are not a multiple of 16 bytes wide; scan
-lengths padded to the chunk grid and zero-dt tails) and the wrappers'
-refusals. ``chip_smoke.py`` checks the same kernels at the main paths'
-shapes.
+rows, windows; int8 pages with G = 1 and G = 8, D = 64 and pages that are
+not a multiple of the 32-token tile; norm rows that are not a multiple
+of 16 bytes wide; scan lengths padded to the chunk grid and zero-dt
+tails) and the wrappers' refusals. ``chip_smoke.py`` checks the same
+kernels at the main paths' shapes.
 
 On a machine with an NVIDIA GPU and nvcc:
 
@@ -147,6 +148,91 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     kc = _t(rng.standard_normal((1, 16, 2, 64), np.float32), cuda)
     with pytest.raises(ValueError, match="window"):
         ops.chunked_prefill_attention(qc, kc, kc, window=0)
+
+
+def _int8_paged(rng, dev, dtype, B, H, KV, D, P, page, pages, lens, holes):
+    """The decode inputs of ``_paged`` with the pages quantized by the
+    port's write path (``_quantize``) and q in ``dtype``."""
+    from repro_torch.models.transformer import _quantize
+    q, kp, vp, bt, ln = _paged(rng, dev, torch.float32, B, H, KV, D, P,
+                               page, pages, lens, holes)
+    k8, ks = _quantize(kp)
+    v8, vs = _quantize(vp)
+    return q.to(dtype), k8, v8, ks, vs, bt, ln
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B,H,KV,D,P,page,pages,lens,holes", [
+    # G = 1, D = 64, a -1 hole mid-table
+    (3, 4, 4, 64, 20, 16, 6, (83, 40, 57), ((0, 2),)),
+    # G = 8, D = 128, a row with an all -1 table
+    (3, 32, 4, 128, 20, 64, 4, (256, 129, 70), ((1, 0), (1, 1), (1, 2))),
+    # pages of 48 and 20 tokens (not a multiple of the 32-token tile)
+    (2, 8, 8, 64, 12, 48, 5, (200, 47), ()),
+    (4, 24, 8, 128, 40, 20, 8, (150, 1, 99, 160), ((2, 3),)),
+])
+def test_paged_attention_int8_kernel_vs_plain(cuda, dt, B, H, KV, D, P,
+                                              page, pages, lens, holes):
+    """Both versions dequantize exactly in fp32, so the limits are those
+    of the model-dtype kernel (``TOL``)."""
+    from repro_torch.kernels import paged_attention_int8 as pa8
+    rng = np.random.default_rng(5)
+    q, k8, v8, ks, vs, bt, ln = _int8_paged(rng, cuda, DTYPES[dt], B, H, KV,
+                                            D, P, page, pages, lens, holes)
+    ops.reset_counts()
+    got = ops.paged_attention(q, k8, v8, bt, ln, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert ops.counts()["paged_attention_int8"] == {"launches": 1,
+                                                    "plain": 0}
+    assert ops.counts()["paged_attention"] == {"launches": 0, "plain": 0}
+    assert pa8.launches == 1
+    assert got.dtype == q.dtype
+    want = ref.paged_attention_ref(q, k8, v8, bt, ln, ks, vs)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dt])
+    bt_h = bt.cpu().numpy()
+    for b in range(B):
+        if (bt_h[b] < 0).all():          # nothing visible: zeros, not NaN
+            assert bool((got[b] == 0).all())
+
+
+def test_paged_attention_int8_all_empty_table_gives_zeros(cuda):
+    rng = np.random.default_rng(6)
+    q, k8, v8, ks, vs, bt, ln = _int8_paged(rng, cuda, torch.bfloat16, 2, 8,
+                                            2, 128, 6, 16, 3, (40, 17), ())
+    bt.fill_(-1)
+    got = ops.paged_attention(q, k8, v8, bt, ln, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert bool((got == 0).all())
+
+
+def test_paged_attention_int8_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.paged_attention_int8 import \
+        paged_attention_int8_cuda as pa8
+    rng = np.random.default_rng(7)
+    q, k8, v8, ks, vs, bt, ln = _int8_paged(rng, cuda, torch.float32, 2, 4,
+                                            2, 64, 6, 16, 2, (20, 9), ())
+    with pytest.raises(TypeError, match="int8"):
+        pa8(q, k8.float(), v8.float(), ks, vs, bt, ln)
+    with pytest.raises(TypeError, match="bfloat16"):
+        pa8(q, k8, v8, ks.float(), vs.float(), bt, ln)
+    with pytest.raises(TypeError, match="dtype"):
+        pa8(q.half(), k8, v8, ks, vs, bt, ln)
+    with pytest.raises(TypeError, match="int32"):
+        pa8(q, k8, v8, ks, vs, bt.long(), ln)
+    with pytest.raises(ValueError, match="shapes"):
+        pa8(q, k8, v8, ks[:, :8].contiguous(), vs[:, :8].contiguous(), bt,
+            ln)
+    with pytest.raises(ValueError, match="shapes"):      # G = 64 > 32
+        pa8(torch.zeros((2, 128, 64), device=cuda), k8, v8, ks, vs, bt, ln)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa8(q, k8.transpose(1, 2).contiguous().transpose(1, 2), v8, ks, vs,
+            bt, ln)
+    q96, k96, v96, ks96, vs96, bt96, ln96 = _int8_paged(
+        rng, cuda, torch.float32, 2, 4, 2, 96, 6, 16, 2, (20, 9), ())
+    with pytest.raises(ValueError, match="head_dim"):
+        pa8(q96, k96, v96, ks96, vs96, bt96, ln96)
+    with pytest.raises(ValueError, match="CUDA"):
+        pa8(q.cpu(), k8, v8, ks, vs, bt, ln)
 
 
 NORM_TOL = {"f32": dict(atol=1e-6, rtol=2 ** -20),

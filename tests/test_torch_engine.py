@@ -115,6 +115,7 @@ def test_warm_runs_both_attention_paths_without_writing_live_pages():
     # norm once over the sampled rows
     assert ops.counts() == {
         "paged_attention": {"launches": 0, "plain": tc.num_layers},
+        "paged_attention_int8": {"launches": 0, "plain": 0},
         "chunked_prefill_attention": {"launches": 0,
                                       "plain": tc.num_layers},
         "rmsnorm": {"launches": 0, "plain": 4 * tc.num_layers + 1},

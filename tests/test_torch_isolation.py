@@ -60,9 +60,25 @@ def test_no_source_imports_jax_or_repro():
             assert not any(_forbidden(n) for n in names), (path, names)
 
 
+def test_no_source_imports_ml_dtypes():
+    """JAX's bf16 arrays cross through ``bridge`` as int16 views: the
+    port needs no ``ml_dtypes``, which the card's machine lacks."""
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            assert not any(n.split(".")[0] == "ml_dtypes" for n in names), \
+                (path, names)
+
+
 def test_the_probe_walks_the_new_modules():
     """The import probe above walks every module of the package, the
-    Mamba2 slice's among them."""
+    Mamba2 slice's and the int8 / KV-hierarchy slice's among them."""
     import pkgutil
 
     import repro_torch
@@ -70,7 +86,11 @@ def test_the_probe_walks_the_new_modules():
                                                    "repro_torch.")}
     assert {"repro_torch.models.mamba2", "repro_torch.kernels.ssd_scan",
             "repro_torch.kernels.rmsnorm",
-            "repro_torch.configs.mamba2_370m"} <= names
+            "repro_torch.configs.mamba2_370m",
+            "repro_torch.kernels.paged_attention_int8",
+            "repro_torch.serving.kvcache.hierarchy",
+            "repro_torch.serving.kvcache.prefix",
+            "repro_torch.serving.kvcache.swap"} <= names
 
 
 def test_entry_points_default_to_the_card():

@@ -166,6 +166,7 @@ def test_cpu_tensors_take_the_plain_path():
         tops.chunked_prefill_attention(qc, kc, kc, q_offset=3, kv_len=40)
     assert tops.counts() == {
         "paged_attention": {"launches": 0, "plain": 1},
+        "paged_attention_int8": {"launches": 0, "plain": 0},
         "chunked_prefill_attention": {"launches": 0, "plain": 2},
         "rmsnorm": {"launches": 0, "plain": 0},
         "ssd_scan": {"launches": 0, "plain": 0}}
