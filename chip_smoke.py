@@ -14,7 +14,14 @@ Phases, each of which fails the run if it fails:
    (``F.scaled_dot_product_attention`` over the same data gathered to a
    dense view, for int8 pages a view dequantized beforehand;
    ``F.rms_norm`` with weight ``1 + w``; none for ``ssd_scan``), and the
-   least time the card could take;
+   least time the card could take; decode also at one row of 1500 and
+   one of 4096 tokens (64 pages, 32 splits) in bf16 and int8, prefill at
+   the profile's shape (one row, C = S = 1024, bf16); and the attention
+   kernels' invariance bit for bit on the card: each decode row served
+   alone against the same row in the 8-row batch and the 32-page table
+   against the same table widened to 64 columns of -1 (bf16 and int8
+   pages), each prefill row alone against the same row in the 4-row
+   batch;
 3. serve: full-width llama3.2-3b and full-width mamba2-370m through
    ``repro_torch.launch.serve.main``, then llama3.2-3b with int8 KV pages
    (``TorchEngine(kv_quant=True)`` in the same replica), random weights
@@ -102,6 +109,11 @@ PATHS = {"llama3.2-3b": ("llama3.2-3b", False,
                                "chunked_prefill_attention", "rmsnorm"))}
 
 
+# the timed shapes whose numbers go into the kernels line
+DECODE_MAIN = "bf16 B8 H24 KV8 D128"
+PREFILL_MAIN = "bf16 P4 C512 H24 KV8 D128 S1024"
+
+
 class PhaseError(RuntimeError):
     pass
 
@@ -148,17 +160,18 @@ def time_ms(fn, reps: int = 20, warmup: int = 3,
             spin_ms: float = SPIN_MS) -> float:
     """Median device time of one call of ``fn``, cold L2, CUDA events,
     with the call queued behind a spin (``_spin``) of ``spin_ms`` (longer
-    for a plain version of many launches). Fails if the host took longer
-    than the spin to queue the call, as it would if ``fn`` waited on the
-    device."""
+    for a plain version of many launches). A sample whose call took the
+    host longer than the spin to queue is dropped, since its events may
+    hold host time, and taken again; fails after ``reps`` such samples,
+    as it would if ``fn`` waited on the device."""
     for _ in range(warmup):
         fn()
     # the spin's calibration and the flush buffer's allocation wait on the
     # device: do them once here, not inside a timed call's issue window
     _spin(spin_ms)
     _flush_l2()
-    times = []
-    for _ in range(reps):
+    times, stalls = [], 0
+    while len(times) < reps:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -170,8 +183,12 @@ def time_ms(fn, reps: int = 20, warmup: int = 3,
         e1.record()
         issue_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
-        check(issue_ms < spin_ms, f"timing: the host took {issue_ms:.2f} ms "
-              f"to queue one call, longer than the {spin_ms} ms spin")
+        if issue_ms >= spin_ms:
+            stalls += 1
+            check(stalls <= reps, f"timing: the host took {issue_ms:.2f} ms "
+                  f"to queue one call, longer than the {spin_ms} ms spin, "
+                  f"{stalls} times")
+            continue
         times.append(e0.elapsed_time(e1))
     return float(np.median(times))
 
@@ -193,7 +210,8 @@ def phase_build() -> float:
           f"{secs:.1f} s")
     for name, log in build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("Function properties", "registers",
+                                       "spill")):
                 print(f"[build] {name}: {line.strip()}")
     return secs
 
@@ -332,13 +350,16 @@ def phase_kernels() -> dict:
             (torch.float32, "f32 P4 C512 H24 KV8 D128 S1024",
              (4, 512, 24, 8, 128, 1024), [0, 128, 300, 0],
              [512, 512, 77, 0], None),
-            (torch.bfloat16, "bf16 P4 C512 H24 KV8 D128 S1024",
+            (torch.bfloat16, PREFILL_MAIN,
              (4, 512, 24, 8, 128, 1024), [0, 128, 300, 0],
              [512, 512, 77, 0], None),
             (torch.float32, "f32 P2 C200 H8 KV8 D64 S512 (G=1)",
              (2, 200, 8, 8, 64, 512), [37, 0], [200, 150], None),
             (torch.float32, "f32 P2 C128 H24 KV8 D128 S512 window 100",
-             (2, 128, 24, 8, 128, 512), [300, 5], [128, 100], 100)]:
+             (2, 128, 24, 8, 128, 512), [300, 5], [128, 100], 100),
+            (torch.bfloat16, "bf16 P1 C1024 H24 KV8 D128 S1024 (the "
+             "profile's prefill)", (1, 1024, 24, 8, 128, 1024), [0], [1024],
+             None)]:
         B, C, H, KV, D, S = shape
         q, k, v, qo, kl = _prefill_case(rng, dtype, B, C, H, KV, D, S,
                                         offs, reals)
@@ -351,6 +372,17 @@ def phase_kernels() -> dict:
         pad = [b for b, r in enumerate(reals) if r == 0]
         check(all(bool((got[b] == 0).all()) for b in pad),
               "chunked_prefill_attention: a pad row must give 0")
+        if label == PREFILL_MAIN:
+            # each row alone is the same row of the batch, bit for bit
+            for b in range(B):
+                alone = chunked_prefill_attention_cuda(
+                    q[b:b + 1], k[b:b + 1], v[b:b + 1], qo[b:b + 1],
+                    kl[b:b + 1], window=window)
+                check(torch.equal(alone, got[b:b + 1]),
+                      f"chunked_prefill_attention [{label}]: row {b} alone "
+                      f"differs from the same row in the batch")
+            print(f"[kernels] chunked_prefill_attention {label}: each row "
+                  f"alone equals its row of the batch, bit for bit")
         ms = time_ms(lambda: chunked_prefill_attention_cuda(
             q, k, v, qo, kl, window=window))
         plain = time_ms(lambda: ref.chunked_prefill_attention_ref(
@@ -367,7 +399,7 @@ def phase_kernels() -> dict:
         print(f"[kernels] chunked_prefill_attention {label}: {ms:.4f} ms, "
               f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.4f} "
               f"ms ({by}), max err {err:.3g} ({worst:.2f} of the limit)")
-        if label.startswith("bf16"):
+        if label == PREFILL_MAIN:
             head["chunked_prefill_attention"] = dict(
                 ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
                 bound_by=by, max_abs_err=err)
@@ -405,8 +437,12 @@ def _kernels_paged(head: dict, rng, quant: bool) -> None:
     table is all -1) through ``paged_attention`` in f32 and bf16 and at
     G = 1 and G = 8, or with ``quant`` through ``paged_attention_int8``
     on the same kind of inputs, the pages quantized by ``_quantize``, with
-    an f32 and a bf16 query and at G = 1. Both int8 versions dequantize
-    exactly in fp32, so the limits are ``TOL``'s either way."""
+    an f32 and a bf16 query and at G = 1; then, in bf16, one row of 1500
+    tokens and one of 4096 (64 pages, 32 splits). Both int8 versions
+    dequantize exactly in fp32, so the limits are ``TOL``'s either way.
+    On the main batch the split-K kernel's invariance is checked bit for
+    bit: each row served alone equals its row of the batch, and the
+    32-page table widened to 64 columns of -1 gives the same output."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -416,18 +452,24 @@ def _kernels_paged(head: dict, rng, quant: bool) -> None:
 
     name = "paged_attention_int8" if quant else "paged_attention"
     lens = [2048, 1500, 1, 700, 64, 1023, 333, 900]
-    cases = [(torch.float32, "f32 B8 H24 KV8 D128", (8, 24, 8, 128)),
-             (torch.bfloat16, "bf16 B8 H24 KV8 D128", (8, 24, 8, 128)),
-             (torch.float32, "f32 B8 H8 KV8 D64 (G=1)", (8, 8, 8, 64))]
+    holes = [(2, 0)] + [(5, pi) for pi in range(32)] + [(1, 7)]
+    batch = (32, lens, holes)
+    cases = [(torch.float32, "f32 B8 H24 KV8 D128", (8, 24, 8, 128), batch),
+             (torch.bfloat16, DECODE_MAIN, (8, 24, 8, 128), batch),
+             (torch.float32, "f32 B8 H8 KV8 D64 (G=1)", (8, 8, 8, 64),
+              batch)]
     if not quant:
         cases.append((torch.float32, "f32 B8 H32 KV4 D128 (G=8)",
-                      (8, 32, 4, 128)))
-    for dtype, label, shape in cases:
+                      (8, 32, 4, 128), batch))
+    cases += [(torch.bfloat16, "bf16 B1 H24 KV8 D128, 1500 tokens",
+               (1, 24, 8, 128), (32, [1500], [])),
+              (torch.bfloat16, "bf16 B1 H24 KV8 D128, one row of 4096 "
+               "tokens (64 pages)", (1, 24, 8, 128), (64, [4096], []))]
+    for dtype, label, shape, (n_pages, row_lens, row_holes) in cases:
         B, H, KV, D = shape
-        holes = [(2, 0)] + [(5, pi) for pi in range(32)] + [(1, 7)]
         q, kp, vp, bt, ln = _paged_case(rng, torch.float32 if quant
-                                        else dtype, B, H, KV, D, 64, 32,
-                                        lens, holes)
+                                        else dtype, B, H, KV, D, 64,
+                                        n_pages, row_lens, row_holes)
         if quant:
             q = q.to(dtype)
             k8, v8, ks, vs = _quantized_pages(kp, vp)
@@ -449,8 +491,26 @@ def _kernels_paged(head: dict, rng, quant: bool) -> None:
         want = ref.paged_attention_ref(*plain_args)
         torch.cuda.synchronize()
         err, worst = _compare(name, label, dtype, got, want)
-        check(bool((got[5] == 0).all()),
-              f"{name}: a row whose table is all -1 must give 0")
+        if B == 8:
+            check(bool((got[5] == 0).all()),
+                  f"{name}: a row whose table is all -1 must give 0")
+        if label == DECODE_MAIN:
+            def call(q_, bt_, ln_):
+                return kernel(q_, *args[1:-2], bt_, ln_)
+            for b in range(B):
+                check(torch.equal(call(q[b:b + 1], bt[b:b + 1],
+                                       ln[b:b + 1]), got[b:b + 1]),
+                      f"{name} [{label}]: row {b} alone differs from the "
+                      f"same row in the batch")
+            wide = torch.full((B, 2 * n_pages), -1, dtype=torch.int32,
+                              device="cuda")
+            wide[:, :n_pages] = bt
+            check(torch.equal(call(q, wide, ln), got),
+                  f"{name} [{label}]: the table widened to {2 * n_pages} "
+                  f"columns of -1 gives another output")
+            print(f"[kernels] {name} {label}: each row alone equals its row "
+                  f"of the batch, and the {n_pages}-page table equals it "
+                  f"widened to {2 * n_pages} columns, bit for bit")
         ms = time_ms(lambda: kernel(*args))
         plain = time_ms(lambda: ref.paged_attention_ref(*plain_args))
         kd, vd, mask = _gathered(kp, vp, bt, ln, H)
@@ -461,7 +521,7 @@ def _kernels_paged(head: dict, rng, quant: bool) -> None:
         print(f"[kernels] {name} {label}: {ms:.4f} ms, plain {plain:.4f} "
               f"ms, {lib_label} {lib:.4f} ms, bound {bms:.4f} ms ({by}), "
               f"max err {err:.3g} ({worst:.2f} of the limit)")
-        if label.startswith("bf16"):
+        if label == DECODE_MAIN:
             head[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                               bound_ms=bms, bound_by=by, max_abs_err=err)
 
@@ -710,8 +770,8 @@ def _device_us(event) -> float:
 
 
 # the kernels of the port, as the profiler names them
-OWN_KERNELS = ("paged_decode_kernel", "chunked_prefill_kernel",
-               "rmsnorm_kernel", "ssd_cb_kernel", "ssd_scan_kernel")
+OWN_KERNELS = ("paged_decode", "chunked_prefill", "rmsnorm_kernel",
+               "ssd_cb_kernel", "ssd_scan_kernel")
 
 
 def phase_profile(eng, prefill: bool = True) -> None:

@@ -11,26 +11,53 @@
 // qpos - kpos < window. Online softmax in fp32; the output is
 // acc / max(l, 1e-30), so a pad row (kv_lens = 0) gives zeros.
 //
-// Bound: operations for long chunks (4 flops per query-key pair and head
-// dimension against the q, k, v and output bytes), bytes for short ones.
-// This first version does its products on the CUDA cores in fp32, not on
-// the tensor cores, so it runs far from the bf16 tensor-core bound; wgmma,
-// TMA and split-K are for later changes.
+// Bound: operations for long chunks (4 flops per visible query-key pair
+// and head dimension against the q, k, v and output bytes), bytes for
+// short ones. At the timed bf16 shape (4 rows of 512-token chunks, 24
+// heads, D 128, S 1024) the bound is 0.0094 ms of bytes; the ~4.4 GFLOP
+// of visible pairs take 0.0044 ms at the 989 TFLOP/s bf16 tensor-core
+// rate and 0.065 ms at the 67 TFLOP/s fp32 rate of the CUDA cores.
 //
-// Design: one block per (tile of 32 query rows, head, row b). The Pallas
-// grid's sequential k-block axis becomes a loop inside the block over
-// 32-key tiles, from the window's first visible key to the tile's own
-// causal frontier min(kv_lens[b], q_offsets[b] + last row + 1): nothing
-// past it is read. Ragged edges of C and S are masked in the kernel (the
-// Pallas `C % bq == 0` assertion does not carry over). The Q tile and each
-// K/V tile sit in shared memory as fp32 (K rows padded by one float so
-// that 32 lanes reading 32 keys hit distinct banks). Warp w owns query rows
-// 8w .. 8w+7: lane j scores key j against all 8 rows, the softmax max and
-// sum are warp shuffles, and lane d' keeps the output columns d' + 32c of
-// its 8 rows in registers.
+// bf16 design (chunked_prefill_mma_kernel), which the serve paths run: one
+// block per (tile of 64 query rows, head, row b), four warps of 16 query
+// rows each; the grid issues the last query tile of a chunk first, since
+// under the causal mask it has the most keys. The Pallas grid's sequential
+// k-block axis becomes a loop inside the block over 64-key tiles that start
+// at multiples of 64 in absolute key position, from the window's first
+// visible key to the tile's causal frontier min(kv_lens[b], q_offsets[b] +
+// last row + 1). K and V tiles stay bf16 in shared memory (rows padded by 16
+// bytes, so ldmatrix's eight row reads hit distinct banks) and arrive by
+// 16-byte cp.async into a two-stage ring: the next tile loads while this one
+// is computed. The Q fragments are read once with ldmatrix and stay in
+// registers. S = Q.K^T runs on the tensor cores (mma.sync m16n8k16, bf16 in,
+// fp32 accumulate: bf16 products are exact in fp32). The online softmax runs
+// in fp32 registers, in log2 units (exp2 of scores scaled by D^-1/2 log2 e);
+// a tile that all 16 rows of a warp see whole skips the mask arithmetic. A
+// masked score enters the max as -inf, so a fully masked tile leaves m, l
+// and acc bit-unchanged and a query's result does not depend on the tile,
+// chunk or batch it lands in. P.V keeps P's precision: P is split into hi =
+// bf16(P) and lo = bf16(P - hi) and both products accumulate in fp32 on the
+// tensor cores (twice the P.V MMAs; the error is ~2^-17 of the output, where
+// rounding P to bf16 would miss the one-bf16-ulp limit on small outputs).
+// Ragged C and the key tail past the frontier are zero-filled by cp.async
+// and masked. Three blocks fit an SM (167 registers a thread at D = 128,
+// 68 KB of shared memory). Left for later: wgmma with TMA-fed tiles and warp
+// specialisation, and skipping the P.V products of key steps that a warp's
+// rows cannot see.
+//
+// f32 design (chunked_prefill_kernel): the tensor cores have no fp32
+// path that holds the f32 limit (1e-4) with TF32 off, and f32 is the
+// parity and test dtype, not the serve dtype, so f32 keeps the first
+// version's body: one block per (32 query rows, head, row b), fp32 tiles
+// in shared memory, 32-key tiles (also aligned to absolute key
+// positions), products on the CUDA cores, warp w owning rows 8w .. 8w+7.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------- f32
 
 constexpr int kRows = 32;                 // query rows per block
 constexpr int kKeys = 32;                 // keys per tile: one per lane
@@ -176,23 +203,313 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+// ---------------------------------------------------------------- bf16
+
+constexpr int kMmaRows = 64;              // query rows per block
+constexpr int kMmaKeys = 64;              // keys per tile
+constexpr int kMmaWarps = 4;              // 16 query rows each
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr,
+                                                  uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a . b for one 16 x 8 tile: a the 16 x 16 bf16 row-major fragment,
+// b the 16 x 8 column-major one, c fp32.
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x, y) as bf16 pairs hi = bf16(x, y) and lo = bf16(x - hi.x, y - hi.y)
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x - __low2float(h), y - __high2float(h));
+}
+
+// Thread layout of the m16n8k16 fragments (PTX ISA): lane = 4 * gr + tg;
+// an accumulator holds rows gr and gr + 8, columns 2 tg and 2 tg + 1.
+template <int D>
+__global__ void __launch_bounds__(kMmaWarps * 32, 3)
+    chunked_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                               const __nv_bfloat16* __restrict__ k,
+                               const __nv_bfloat16* __restrict__ v,
+                               const int* __restrict__ q_offsets,
+                               const int* __restrict__ kv_lens,
+                               __nv_bfloat16* __restrict__ out, int C, int H,
+                               int S, int KV, int window, float scale) {
+  constexpr int ROW = D + 8;              // padded smem row, bf16 elements
+  constexpr int TILE = kMmaKeys * ROW;    // one K or V tile
+  constexpr int CH = D / 8;               // 16-byte chunks per row
+  constexpr int KSTEPS = D / 16;          // k-steps of Q.K^T
+  constexpr int NB = kMmaKeys / 8;        // key blocks of 8 in S
+  constexpr int DB = D / 8;               // column blocks of 8 in acc
+  // grid (H, B, query tiles), the last query tile first: under the causal
+  // mask it has the most keys, so the longest blocks start first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kMmaRows;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gr = lane >> 2, tg = lane & 3;
+  // scores in log2 units: exp(x) = exp2(x * log2(e))
+  const float scale2 = scale * 1.4426950408889634f;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2]
+  __nv_bfloat16* Vs = Ks + 2 * TILE;                               // [2]
+  __nv_bfloat16* Qs = Ks + TILE;        // the Q tile shares K's stage 1
+
+  const int nq = min(kMmaRows, C - q0);
+  const int qoff = q_offsets[b];
+  const int kv_len = min(kv_lens[b], S);
+  const int kv_end = min(kv_len, qoff + q0 + nq);
+  int kv_begin = 0;
+  if (window > 0) kv_begin = max(0, qoff + q0 - window + 1);
+  kv_begin = kv_begin / kMmaKeys * kMmaKeys;
+
+  const int r_lo = warp * 16 + gr;        // this thread's rows r_lo, +8
+  __nv_bfloat16* o_row[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    o_row[r] = out + (((size_t)b * C + q0 + r_lo + 8 * r) * H + h) * D;
+
+  if (kv_begin >= kv_end) {               // nothing visible: zeros
+    const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (r_lo + 8 * r >= nq) continue;
+#pragma unroll
+      for (int nd = 0; nd < DB; ++nd)
+        *reinterpret_cast<__nv_bfloat162*>(o_row[r] + nd * 8 + 2 * tg) =
+            zero;
+    }
+    return;
+  }
+
+  // K and V rows k0 .. k0 + 63 into stage st; rows at or past kv_end are
+  // zero-filled (they are masked, and never read from global memory).
+  auto load_kv = [&](int k0, int st) {
+    const uint32_t kd = smem_u32(Ks + st * TILE);
+    const uint32_t vd = smem_u32(Vs + st * TILE);
+    for (int i = tid; i < kMmaKeys * CH; i += kMmaWarps * 32) {
+      const int t = i / CH, c = (i % CH) * 8;
+      const bool in = k0 + t < kv_end;
+      const size_t off =
+          (((size_t)b * S + (in ? k0 + t : 0)) * KV + kvh) * D + c;
+      const uint32_t so = (uint32_t)(t * ROW + c) * 2;
+      cp_async16(kd + so, k + off, in ? 16 : 0);
+      cp_async16(vd + so, v + off, in ? 16 : 0);
+    }
+  };
+
+  // the Q tile (rows past nq zero-filled) and the first K/V tile
+  {
+    const uint32_t qd = smem_u32(Qs);
+    for (int i = tid; i < kMmaRows * CH; i += kMmaWarps * 32) {
+      const int r = i / CH, c = (i % CH) * 8;
+      const bool in = r < nq;
+      const size_t off =
+          (((size_t)b * C + q0 + (in ? r : 0)) * H + h) * D + c;
+      cp_async16(qd + (uint32_t)(r * ROW + c) * 2, q + off, in ? 16 : 0);
+    }
+  }
+  load_kv(kv_begin, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[KSTEPS][4];
+  {
+    const uint32_t qb = smem_u32(Qs);
+    const int row = warp * 16 + (lane & 15);
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk)
+      ldmatrix_x4(qb + (uint32_t)(row * ROW + kk * 16 + (lane >> 4) * 8) * 2,
+                  qf[kk]);
+  }
+  __syncthreads();                        // Q read before stage 1 reloads
+
+  float acc[DB][4];
+#pragma unroll
+  for (int nd = 0; nd < DB; ++nd)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nd][i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};                // this thread's share of the sum
+  int qpos[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) qpos[r] = qoff + q0 + r_lo + 8 * r;
+  const bool row_in[2] = {r_lo < nq, r_lo + 8 < nq};
+
+  int st = 0;
+  for (int k0 = kv_begin; k0 < kv_end; k0 += kMmaKeys, st ^= 1) {
+    if (k0 + kMmaKeys < kv_end) load_kv(k0 + kMmaKeys, st ^ 1);
+    cp_async_commit();                    // (an empty group at the end)
+    cp_async_wait<1>();                   // this tile has landed
+    __syncthreads();
+
+    // S = Q . K^T for this warp's 16 rows and the tile's 64 keys
+    float s[NB][4];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nb][i] = 0.f;
+    const uint32_t kb = smem_u32(Ks + st * TILE);
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+#pragma unroll
+      for (int nb = 0; nb < NB; nb += 2) {
+        const int key = nb * 8 + (lane & 7) + ((lane >> 4) << 3);
+        const int col = kk * 16 + ((lane >> 3) & 1) * 8;
+        uint32_t kf[4];
+        ldmatrix_x4(kb + (uint32_t)(key * ROW + col) * 2, kf);
+        mma_bf16(s[nb], qf[kk], kf[0], kf[1]);
+        mma_bf16(s[nb + 1], qf[kk], kf[2], kf[3]);
+      }
+    }
+
+    // scale (log2 units) and mask; the row max over the quad sharing a
+    // row. A tile that every row of the warp sees whole skips the mask.
+    float mx[2] = {m[0], m[1]};
+    const int qlo = qoff + q0 + warp * 16;  // the warp's first row
+    const bool whole = warp * 16 + 16 <= nq && k0 + kMmaKeys - 1 <= qlo &&
+                       k0 + kMmaKeys <= kv_len &&
+                       (window <= 0 || qlo + 15 - k0 < window);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = i >> 1;
+        const int kpos = k0 + nb * 8 + 2 * tg + (i & 1);
+        const bool valid =
+            whole || (row_in[r] && kpos <= qpos[r] && kpos < kv_len &&
+                      (window <= 0 || qpos[r] - kpos < window));
+        s[nb][i] = valid ? s[nb][i] * scale2 : -INFINITY;
+        mx[r] = fmaxf(mx[r], s[nb][i]);
+      }
+    }
+    float alpha[2], m_use[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // a row with nothing visible yet keeps m = -inf, l = 0, acc = 0; a
+      // tile that raises no row max leaves m, l and acc bit-unchanged
+      m_use[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+      alpha[r] = m[r] == m_use[r] ? 1.f : exp2f(m[r] - m_use[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = exp2f(s[nb][i] - m_use[i >> 1]);  // exp2(-inf) = 0
+        s[nb][i] = p;
+        l[i >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int nd = 0; nd < DB; ++nd)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[nd][i] *= alpha[i >> 1];
+
+    // acc += P . V, P as hi + lo in bf16
+    const uint32_t vb = smem_u32(Vs + st * TILE);
+#pragma unroll
+    for (int ks = 0; ks < kMmaKeys / 16; ++ks) {
+      uint32_t ph[4], pl[4];
+      split_bf16(s[2 * ks][0], s[2 * ks][1], ph[0], pl[0]);
+      split_bf16(s[2 * ks][2], s[2 * ks][3], ph[1], pl[1]);
+      split_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1], ph[2], pl[2]);
+      split_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3], ph[3], pl[3]);
+      const int key = ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int nd = 0; nd < DB; nd += 2) {
+        const int col = nd * 8 + (lane >> 4) * 8;
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vb + (uint32_t)(key * ROW + col) * 2, vf);
+        mma_bf16(acc[nd], ph, vf[0], vf[1]);
+        mma_bf16(acc[nd], pl, vf[0], vf[1]);
+        mma_bf16(acc[nd + 1], ph, vf[2], vf[3]);
+        mma_bf16(acc[nd + 1], pl, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();                      // stage st read before reload
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (!row_in[r]) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+#pragma unroll
+    for (int nd = 0; nd < DB; ++nd)
+      *reinterpret_cast<__nv_bfloat162*>(o_row[r] + nd * 8 + 2 * tg) =
+          __floats2bfloat162_rn(acc[nd][2 * r] * inv,
+                                acc[nd][2 * r + 1] * inv);
+  }
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* q_offsets, const void* kv_lens, void* out,
                    int B, int C, int H, int S, int KV, int window,
                    float scale, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(kRows * D + kKeys * (D + 1) + kKeys * D + kRows * kKeys) *
-      sizeof(float);
-  auto kernel = chunked_prefill_kernel<T, D>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((C + kRows - 1) / kRows, H, B);
-  kernel<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(q_offsets),
-      static_cast<const int*>(kv_lens), static_cast<T*>(out), C, H, S, KV,
-      window, scale);
+  if constexpr (std::is_same<T, float>::value) {
+    const size_t smem =
+        (size_t)(kRows * D + kKeys * (D + 1) + kKeys * D + kRows * kKeys) *
+        sizeof(float);
+    auto kernel = chunked_prefill_kernel<T, D>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((C + kRows - 1) / kRows, H, B);
+    kernel<<<grid, kWarps * 32, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const int*>(q_offsets),
+        static_cast<const int*>(kv_lens), static_cast<T*>(out), C, H, S, KV,
+        window, scale);
+  } else {
+    // two stages of K and V tiles; the Q tile shares K's stage 1
+    const size_t smem = (size_t)4 * kMmaKeys * (D + 8) * sizeof(T);
+    auto kernel = chunked_prefill_mma_kernel<D>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(H, B, (C + kMmaRows - 1) / kMmaRows);
+    kernel<<<grid, kMmaWarps * 32, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const int*>(q_offsets),
+        static_cast<const int*>(kv_lens), static_cast<T*>(out), C, H, S, KV,
+        window, scale);
+  }
   return cudaGetLastError();
 }
 

@@ -101,14 +101,12 @@ HEAD_DIMS = (64, 128)
 
 def check_inputs(name: str, floats: Sequence[torch.Tensor],
                  ints: Sequence[torch.Tensor]) -> None:
-    """The checks every kernel wrapper makes before its shape rules: one
-    CUDA device; the float tensors share a dtype of ``DTYPES``, the
-    index tensors are int32; all are contiguous; the float tensors are
-    16-byte aligned (the kernels load 16 bytes at a time)."""
+    """The checks every kernel wrapper makes before its shape rules: the
+    float tensors share a dtype of ``DTYPES``, the index tensors are
+    int32; all are contiguous; the float tensors are 16-byte aligned (the
+    kernels load 16 bytes at a time). The device is checked last, by
+    ``check_device``, so that these rules hold on any device."""
     tensors = (*floats, *ints)
-    dev = floats[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(f"{name}: all tensors must be on one CUDA device")
     dt = floats[0].dtype
     if dt not in DTYPES or any(t.dtype != dt for t in floats):
         raise TypeError(f"{name}: the float inputs must share a dtype of "
@@ -121,6 +119,13 @@ def check_inputs(name: str, floats: Sequence[torch.Tensor],
     if any(t.data_ptr() % 16 for t in floats):
         raise ValueError(f"{name}: the float inputs must be 16-byte aligned "
                          f"(the kernel loads 16 bytes at a time)")
+
+
+def check_device(name: str, tensors: Sequence[torch.Tensor]) -> None:
+    """Every wrapper's last check: all tensors on one CUDA device."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: all tensors must be on one CUDA device")
 
 
 def check_head_dim(name: str, head_dim: int) -> None:

@@ -6,7 +6,9 @@ chunked_prefill_attention`` in both of its modes. The dynamic mode
 (per-row ``q_offsets`` / ``kv_lens``) is what the engine calls; the
 static mode (one ``q_offset`` / ``kv_len`` for every row) runs the same
 kernel with the two values broadcast, since the kernel trims each query
-tile's key loop at its own causal frontier either way.
+tile's key loop at its own causal frontier either way. In bf16 the
+products run on the tensor cores; f32 keeps a CUDA-core body (see the
+source's note).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ def _check(q, k, v, q_offsets, kv_lens, window):
     if window is not None and window <= 0:
         raise ValueError(f"chunked_prefill_attention: window {window} "
                          f"must be positive")
+    build.check_device(NAME, (q, k, v, q_offsets, kv_lens))
 
 
 def chunked_prefill_attention_cuda(q, k, v, q_offsets, kv_lens, window=None):

@@ -4,31 +4,31 @@
 Replaces the int8 variant of the Pallas kernel
 ``repro/kernels/paged_attention.py::paged_attention`` (``_kernel_quant``):
 int8 K/V pages with bf16 scale pages, one scale per token and kv-head,
-dequantized inside the kernel exactly in fp32. The kernel is the bf16
-decode kernel's, instantiated for int8 pages; see the source's note.
+dequantized inside the kernel exactly in fp32. The kernels are the bf16
+decode kernels' (a split-K partial pass and a combine pass),
+instantiated for int8 pages, with the same split plan; see the source's
+note.
 """
 from __future__ import annotations
 
 import torch
 
 from . import build
-from .paged_attention import MAX_GROUP
+from .paged_attention import MAX_GROUP, plan_splits, workspace
 
 NAME = "paged_attention_int8"
 
-launches = 0    # kernel launches by this process
+launches = 0    # wrapper calls that launched the kernels, by this process
 
 
 def _check(q, k_pages, v_pages, k_scales, v_scales, block_table, lens):
     """``build.check_inputs`` for q and the index tensors (its one-dtype
     rule cannot take the int8 pages), then this kernel's own rules: pages
     int8, contiguous and 16-byte aligned, and scales bf16 of shape
-    ``[P, page, KV]``, on q's device; head dim 64 or 128 and at most
-    ``MAX_GROUP`` query heads per kv-head."""
+    ``[P, page, KV]``; head dim 64 or 128 and at most ``MAX_GROUP`` query
+    heads per kv-head; last, every tensor on q's CUDA device."""
     build.check_inputs(NAME, (q,), (block_table, lens))
     pages, scales = (k_pages, v_pages), (k_scales, v_scales)
-    if any(t.device != q.device for t in pages + scales):
-        raise ValueError(f"{NAME}: all tensors must be on one CUDA device")
     if any(t.dtype != torch.int8 for t in pages):
         raise TypeError(f"{NAME}: the pages must be int8, got "
                         f"{[t.dtype for t in pages]}")
@@ -54,6 +54,7 @@ def _check(q, k_pages, v_pages, k_scales, v_scales, block_table, lens):
             f"block_table {tuple(block_table.shape)}, lens "
             f"{tuple(lens.shape)} (scales are [P, page, KV]; at most "
             f"{MAX_GROUP} query heads per kv-head)")
+    build.check_device(NAME, (q, *pages, *scales, block_table, lens))
 
 
 def paged_attention_int8_cuda(q, k_pages, v_pages, k_scales, v_scales,
@@ -61,7 +62,8 @@ def paged_attention_int8_cuda(q, k_pages, v_pages, k_scales, v_scales,
     """q: [B, H, D] (f32 or bf16); k_pages/v_pages: [P, page, KV, D] int8;
     k_scales/v_scales: [P, page, KV] bf16; block_table: [B, n_pages]
     int32 (-1 = unallocated); lens: [B] int32. Returns [B, H, D] in q's
-    dtype. Launches on the current stream."""
+    dtype. Launches the partial and the combine kernel on the current
+    stream (one count)."""
     global launches
     _check(q, k_pages, v_pages, k_scales, v_scales, block_table, lens)
     B, H, D = q.shape
@@ -69,8 +71,12 @@ def paged_attention_int8_cuda(q, k_pages, v_pages, k_scales, v_scales,
     out = torch.empty_like(q)
     if B == 0:
         return out
+    n_pages = block_table.shape[1]
+    pages_per_split, n_splits = plan_splits(n_pages, page)
+    ml, acc = workspace(q, n_pages, page)
     build.launch(NAME, q, k_pages, v_pages, k_scales, v_scales, block_table,
-                 lens, out, B, H, KV, D, page, block_table.shape[1],
-                 build.DTYPES[q.dtype], D ** -0.5)
+                 lens, ml, acc, out, B, H, KV, D, page, n_pages,
+                 pages_per_split, n_splits, build.DTYPES[q.dtype],
+                 D ** -0.5)
     launches += 1
     return out

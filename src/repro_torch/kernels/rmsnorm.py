@@ -22,6 +22,7 @@ def _check(x, w):
     if x.dim() != 2 or w.shape != (x.shape[1],):
         raise ValueError(f"rmsnorm: unsupported shapes x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)} (x is [N, D], w is [D])")
+    build.check_device(NAME, (x, w))
 
 
 def rmsnorm_cuda(x, w, eps: float = 1e-5):

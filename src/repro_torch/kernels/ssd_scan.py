@@ -48,6 +48,7 @@ def _check(x, dt, A, B_, C_, h0, chunk):
             f"ssd_scan: chunk {chunk} must be a multiple of {TILE} up to "
             f"{MAX_CHUNK}, head_dim {hd} a multiple of {HD_SLICE}, d_state "
             f"{ds} one of {STATE_DIMS}")
+    build.check_device(NAME, (x, dt, A, B_, C_, h0))
 
 
 def ssd_scan_cuda(x, dt, A, B_, C_, init_state, chunk: int):

@@ -1,11 +1,16 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the engine's edge cases at small shapes (G = 3, -1 holes mid-table,
 lens not a multiple of the page, fully masked rows, ragged chunks, pad
-rows, windows; int8 pages with G = 1 and G = 8, D = 64 and pages that are
-not a multiple of the 32-token tile; norm rows that are not a multiple
-of 16 bytes wide; scan lengths padded to the chunk grid and zero-dt
-tails) and the wrappers' refusals. ``chip_smoke.py`` checks the same
-kernels at the main paths' shapes.
+rows, windows; decode with one row, with a 4096-token row over 32
+splits and with splits whose pages are all holes; int8 pages with G = 1
+and G = 8, D = 64 and pages that are not a multiple of the 32-token
+tile; prefill chunks of 1, 65 and 1024 tokens; norm rows that are not a
+multiple of 16 bytes wide; scan lengths padded to the chunk grid and
+zero-dt tails), the attention kernels' bit-equality (a row alone against
+the same row in a batch, a narrower block table or cache view against a
+wider one, a shorter chunk against a longer one) and the wrappers'
+refusals. ``chip_smoke.py`` checks the same kernels at the main paths'
+shapes.
 
 On a machine with an NVIDIA GPU and nvcc:
 
@@ -67,6 +72,11 @@ def _paged(rng, dev, dtype, B, H, KV, D, P, page, pages, lens, holes):
     (4, 24, 8, 128, 40, 64, 8, (512, 1, 300, 65), ((1, 0), (2, 3))),
     (2, 8, 8, 64, 12, 48, 5, (200, 47), ()),
     (2, 32, 4, 128, 10, 64, 4, (256, 129), ((0, 1),)),
+    # one row of 4096 tokens: 32 splits of 2 pages
+    (1, 24, 8, 128, 70, 64, 64, (4096,), ()),
+    # splits whose pages are all holes (row 0's pages 4-7, row 1's 8-11)
+    (2, 24, 8, 128, 80, 64, 40, (2500, 2000),
+     ((0, 4), (0, 5), (0, 6), (0, 7), (1, 8), (1, 9), (1, 10), (1, 11))),
 ])
 def test_paged_attention_kernel_vs_plain(cuda, dt, B, H, KV, D, P, page,
                                          pages, lens, holes):
@@ -92,6 +102,9 @@ def test_paged_attention_kernel_vs_plain(cuda, dt, B, H, KV, D, P, page,
     (4, 45, 6, 2, 64, 128, (0, 17, 80, 0), (45, 30, 45, 0), None),
     (2, 96, 24, 8, 128, 256, (0, 100), (96, 96), None),
     (3, 64, 8, 4, 128, 320, (256, 0, 31), (64, 1, 64), 40),
+    (2, 1, 24, 8, 128, 256, (0, 200), (1, 1), None),           # C = 1
+    (3, 65, 8, 4, 64, 300, (0, 100, 0), (65, 65, 0), 50),      # C = 65
+    (1, 1024, 24, 8, 128, 1024, (0,), (1024,), None),           # C = 1024
 ])
 def test_chunked_prefill_kernel_vs_plain(cuda, dt, B, C, H, KV, D, S, offs,
                                          reals, window):
@@ -170,6 +183,10 @@ def _int8_paged(rng, dev, dtype, B, H, KV, D, P, page, pages, lens, holes):
     # pages of 48 and 20 tokens (not a multiple of the 32-token tile)
     (2, 8, 8, 64, 12, 48, 5, (200, 47), ()),
     (4, 24, 8, 128, 40, 20, 8, (150, 1, 99, 160), ((2, 3),)),
+    # one row of 4096 tokens (32 splits); splits of holes beside it
+    (1, 24, 8, 128, 70, 64, 64, (4096,), ()),
+    (2, 24, 8, 128, 80, 64, 40, (2500, 2000),
+     ((0, 4), (0, 5), (0, 6), (0, 7))),
 ])
 def test_paged_attention_int8_kernel_vs_plain(cuda, dt, B, H, KV, D, P,
                                               page, pages, lens, holes):
@@ -233,6 +250,66 @@ def test_paged_attention_int8_refuses_what_it_does_not_take(cuda):
         pa8(q96, k96, v96, ks96, vs96, bt96, ln96)
     with pytest.raises(ValueError, match="CUDA"):
         pa8(q.cpu(), k8, v8, ks, vs, bt, ln)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_attention_rows_are_batch_and_width_invariant(cuda, dt,
+                                                            quant):
+    """Split-K plans its splits from the table's width and the page size
+    alone and merges them in order: each row served alone equals the
+    same row in the batch, and the 32-page table widened to 64 columns
+    of -1 gives the same output, bit for bit."""
+    rng = np.random.default_rng(8)
+    B, H, KV, D, page, pages = 5, 24, 8, 128, 64, 32
+    shape = (B, H, KV, D, 3 * pages, page, pages, (2048, 1500, 1, 700, 333),
+             ((2, 0), (1, 7)))
+    if quant:
+        q, kp, vp, ks, vs, bt, ln = _int8_paged(rng, cuda, DTYPES[dt],
+                                                *shape)
+    else:
+        q, kp, vp, bt, ln = _paged(rng, cuda, DTYPES[dt], *shape)
+        ks = vs = None
+
+    def run(q, bt, ln):
+        return ops.paged_attention(q, kp, vp, bt, ln, k_scales=ks,
+                                   v_scales=vs)
+    full = run(q, bt, ln)
+    wide = torch.full((B, 2 * pages), -1, dtype=torch.int32, device=cuda)
+    wide[:, :pages] = bt
+    assert torch.equal(run(q, wide, ln), full)
+    for b in range(B):
+        assert torch.equal(run(q[b:b + 1], bt[b:b + 1], ln[b:b + 1]),
+                           full[b:b + 1])
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_chunked_prefill_rows_are_batch_width_and_chunk_invariant(cuda, dt):
+    """Key tiles start at fixed absolute positions and a masked tile
+    leaves the softmax state unchanged: a row alone equals the same row
+    in the 4-row batch, a wider cache view (the next page-window bucket)
+    and a longer chunk (the next chunk bucket) give the same outputs,
+    bit for bit."""
+    rng = np.random.default_rng(9)
+    dtype = DTYPES[dt]
+    B, C, H, KV, D, S = 4, 200, 24, 8, 128, 512
+    q = _t(rng.standard_normal((B, C + 56, H, D), np.float32), cuda, dtype)
+    k = _t(rng.standard_normal((B, 2 * S, KV, D), np.float32), cuda, dtype)
+    v = _t(rng.standard_normal((B, 2 * S, KV, D), np.float32), cuda, dtype)
+    qo = _t(np.asarray([0, 100, 37, 0], np.int32), cuda)
+    kl = _t(np.asarray([200, 250, 237, 0], np.int32), cuda)
+
+    def run(q, k, v, qo, kl):
+        return ops.chunked_prefill_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), q_offsets=qo,
+            kv_lens=kl)
+    full = run(q[:, :C], k[:, :S], v[:, :S], qo, kl)
+    for b in range(B):
+        alone = run(q[b:b + 1, :C], k[b:b + 1, :S], v[b:b + 1, :S],
+                    qo[b:b + 1], kl[b:b + 1])
+        assert torch.equal(alone, full[b:b + 1])
+    assert torch.equal(run(q[:, :C], k, v, qo, kl), full)
+    assert torch.equal(run(q, k[:, :S], v[:, :S], qo, kl)[:, :C], full)
 
 
 NORM_TOL = {"f32": dict(atol=1e-6, rtol=2 ** -20),
