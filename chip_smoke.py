@@ -16,12 +16,14 @@ Phases, each of which fails the run if it fails:
    ``F.rms_norm`` with weight ``1 + w``; none for ``ssd_scan``), and the
    least time the card could take; decode also at one row of 1500 and
    one of 4096 tokens (64 pages, 32 splits) in bf16 and int8, prefill at
-   the profile's shape (one row, C = S = 1024, bf16); and the attention
-   kernels' invariance bit for bit on the card: each decode row served
-   alone against the same row in the 8-row batch and the 32-page table
-   against the same table widened to 64 columns of -1 (bf16 and int8
-   pages), each prefill row alone against the same row in the 4-row
-   batch;
+   the profile's shape (one row, C = S = 1024, bf16), the scan at one
+   chunk, at a ragged length read in place and at d_state 16 (nh 128);
+   and the kernels' invariance bit for bit on the card: each decode row
+   served alone against the same row in the 8-row batch and the 32-page
+   table against the same table widened to 64 columns of -1 (bf16 and
+   int8 pages), each prefill row and each scan row alone against the same
+   row in the 4-row batch, norm rows alone against the same rows of
+   [8, D] and [1024, D];
 3. serve: full-width llama3.2-3b and full-width mamba2-370m through
    ``repro_torch.launch.serve.main``, then llama3.2-3b with int8 KV pages
    (``TorchEngine(kv_quant=True)`` in the same replica), random weights
@@ -533,11 +535,13 @@ def _label(dtype) -> str:
 def _kernels_rmsnorm(head: dict) -> None:
     """The norms of both paths: the llama decode batch [8, 3072], a
     prefill chunk of llama [1024, 3072] and of mamba2-370m [1024, 1024];
-    then rows whose width is not a multiple of 16 bytes."""
+    then rows whose width is not a multiple of 16 bytes; then each width
+    of both paths' rows alone, [1, D], against the same rows in [8, D] and
+    in [1024, D], bit for bit."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.kernels.rmsnorm import plan, rmsnorm_cuda
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
@@ -561,20 +565,40 @@ def _kernels_rmsnorm(head: dict) -> None:
         # each element read once and written once, ~4 fp32 flops each
         bms, by = bound_ms((2 * N * D + D) * x.element_size(), 4.0 * N * D,
                            torch.float32)
-        print(f"[kernels] rmsnorm {label}: {ms:.4f} ms, plain {plain:.4f} "
-              f"ms, F.rms_norm {lib:.4f} ms, bound {bms:.4f} ms ({by}), max "
-              f"err {err:.3g} ({worst:.2f} of the limit)")
+        print(f"[kernels] rmsnorm {label} {tuple(plan(D, dtype))}: "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, F.rms_norm {lib:.4f} ms, "
+              f"bound {bms:.4f} ms ({by}), max err {err:.3g} ({worst:.2f} "
+              f"of the limit)")
         if label == "bf16 [1024, 3072]":
             head["rmsnorm"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                    bound_ms=bms, bound_by=by,
                                    max_abs_err=err)
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in (3072, 1024):
+            x = torch.randn((1024, D), generator=gen, device="cuda").to(dtype)
+            w = (0.1 * torch.randn(D, generator=gen, device="cuda")).to(dtype)
+            full = rmsnorm_cuda(x, w, 1e-5)
+            eight = rmsnorm_cuda(x[:8].contiguous(), w, 1e-5)
+            check(torch.equal(eight, full[:8]),
+                  f"rmsnorm {_label(dtype)} D {D}: [8, D] differs from the "
+                  f"same rows of [1024, D]")
+            for r in range(8):
+                check(torch.equal(rmsnorm_cuda(x[r:r + 1], w, 1e-5),
+                                  full[r:r + 1]),
+                      f"rmsnorm {_label(dtype)} D {D}: row {r} alone differs "
+                      f"from the same row in [1024, D]")
+    torch.cuda.synchronize()
+    print("[kernels] rmsnorm: rows alone equal the same rows of [8, D] and "
+          "[1024, D], bit for bit, D 3072 and 1024, f32 and bf16")
 
 
 def _ssd_case(gen, dtype, Bt, S, nh=32, hd=64, ds=128, zero_tail=0):
-    """Scan inputs at mamba2-370m's widths: x, B, C ~ N(0, 1) in
-    ``dtype``; dt = softplus(N(0, 1)), the last ``zero_tail`` tokens 0
-    (masked pad tokens); A = -linspace(1, 16) (the model's init); a
-    random carried state."""
+    """Scan inputs at mamba2-370m's widths (or ``nh``, ``ds`` given): x, B,
+    C ~ N(0, 1) in ``dtype``, as strided slices of one [Bt, S, nh hd + 2
+    ds] tensor, as the mixer passes its ``xBC`` projection; dt =
+    softplus(N(0, 1)), the last ``zero_tail`` tokens 0 (masked pad
+    tokens); A = -linspace(1, 16) (the model's init); a random carried
+    state."""
     import torch.nn.functional as F
 
     def randn(*shape):
@@ -582,43 +606,65 @@ def _ssd_case(gen, dtype, Bt, S, nh=32, hd=64, ds=128, zero_tail=0):
     dt = F.softplus(randn(Bt, S, nh))
     if zero_tail:
         dt[:, S - zero_tail:] = 0.0
-    return (randn(Bt, S, nh, hd).to(dtype), dt,
+    xBC = randn(Bt, S, nh * hd + 2 * ds).to(dtype)
+    d_in = nh * hd
+    return (xBC[..., :d_in].reshape(Bt, S, nh, hd), dt,
             -torch.linspace(1.0, 16.0, nh, device="cuda"),
-            randn(Bt, S, ds).to(dtype), randn(Bt, S, ds).to(dtype),
+            xBC[..., d_in:d_in + ds], xBC[..., d_in + ds:],
             randn(Bt, nh, hd, ds))
 
 
 def _ssd_work(x, B, chunk):
-    """Bytes (inputs read once, y and the state written once) and fp32
-    flops of the chunked dual form: C.B^T and the weighted sum over the
-    causal pairs of each chunk, and the state's two terms."""
+    """Bytes (inputs read once, y and the state written once) and the
+    operations of the chunked dual form over this run's rows: the
+    tensor-core products of the kernel's body, with the split of each
+    fp32 factor into bf16 hi + lo counted (two products per pair, three
+    with f32 inputs): C.B^T over each chunk's causal pairs (once, shared
+    by the heads), W.x over the same pairs, C.H_in^T and the chunk states
+    x^T (B dt e^...); and, for comparison with the first version's bound,
+    the same work as fp32 multiply-adds (no split)."""
     Bt, S, nh, hd = x.shape
     ds = B.shape[-1]
-    n = -(-S // chunk)
     nbytes = (x.numel() + 2 * B.numel()) * x.element_size() \
         + 4 * (Bt * S * nh + nh + Bt * S * nh * hd + 2 * Bt * nh * hd * ds)
-    pairs = chunk * (chunk + 1) / 2
-    flops = Bt * n * (2 * pairs * (ds + nh * hd) + 4 * chunk * nh * hd * ds)
-    return nbytes, flops
+    pairs = 0.0
+    for t0 in range(0, S, chunk):
+        n = min(chunk, S - t0)
+        pairs += n * (n + 1) / 2
+    split = 3 if x.dtype == torch.float32 else 2
+    cb = 2 * pairs * ds * Bt
+    wx = 2 * pairs * nh * hd * Bt
+    inter_states = 2 * 2 * S * nh * hd * ds * Bt
+    mma = (split if x.dtype == torch.float32 else 1) * cb \
+        + split * (wx + inter_states)
+    return nbytes, mma, cb + wx + inter_states
 
 
 def _kernels_ssd_scan(head: dict) -> None:
     """Full-width prefill rows of 1024 tokens (1 and 4 rows, the chunk of
-    256), then 2 rows of 700 tokens (padded to the chunk grid) whose
-    last 200 tokens have dt = 0."""
+    256), one chunk (1 x 256), 2 rows of 700 tokens (a ragged last chunk,
+    read in place) whose last 200 tokens have dt = 0, and jamba-v0.1's
+    d_state 16 at nh 128; f32 and bf16, x, B and C strided slices of one
+    projection as the mixer passes them. Then each row of the 4-row batch
+    alone against its row of the batch, bit for bit, y and the state."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     chunk = 256
-    cases = [(dtype, rows, 1024, 0) for rows in (1, 4)
+    cases = [(dtype, rows, S, tail, nh, ds)
+             for rows, S, tail, nh, ds in ((1, 1024, 0, 32, 128),
+                                           (4, 1024, 0, 32, 128),
+                                           (1, 256, 0, 32, 128),
+                                           (2, 700, 200, 32, 128),
+                                           (1, 1024, 0, 128, 16))
              for dtype in (torch.float32, torch.bfloat16)]
-    cases += [(torch.bfloat16, 2, 700, 200)]
-    for dtype, rows, S, tail in cases:
+    for dtype, rows, S, tail, nh, ds in cases:
         label = f"{_label(dtype)} {rows} x {S}" \
-            + (f", dt = 0 on the last {tail}" if tail else "")
-        args = _ssd_case(gen, dtype, rows, S, zero_tail=tail)
+            + (f", dt = 0 on the last {tail}" if tail else "") \
+            + (f", nh {nh} d_state {ds}" if ds != 128 else "")
+        args = _ssd_case(gen, dtype, rows, S, nh=nh, ds=ds, zero_tail=tail)
         y, h = ssd_scan_cuda(*args, chunk)
         y_ref, h_ref = ref.ssd_scan_ref(*args, chunk)
         torch.cuda.synchronize()
@@ -635,15 +681,34 @@ def _kernels_ssd_scan(head: dict) -> None:
             _compare("ssd_scan", f"{label}, state vs the cut rows", dtype, h,
                      h_cut, dict(atol=SSD_REL * float(h_cut.abs().max()),
                                  rtol=0.0, cap=float("inf")))
+        if rows == 4:         # each row alone is its row of the batch
+            for b in range(rows):
+                ya, ha = ssd_scan_cuda(*(a[b:b + 1] if a.dim() > 1 else a
+                                         for a in args), chunk)
+                check(torch.equal(ya, y[b:b + 1]) and
+                      torch.equal(ha, h[b:b + 1]),
+                      f"ssd_scan [{label}]: row {b} alone differs from the "
+                      f"same row in the batch")
+            # strided slices read as their contiguous copies, bit for bit
+            yc, hc = ssd_scan_cuda(*(a.contiguous() for a in args), chunk)
+            check(torch.equal(yc, y) and torch.equal(hc, h),
+                  f"ssd_scan [{label}]: contiguous copies differ from the "
+                  f"strided slices")
+            print(f"[kernels] ssd_scan {label}: each row alone equals its "
+                  f"row of the batch, and contiguous copies the strided "
+                  f"slices, bit for bit")
         ms = time_ms(lambda: ssd_scan_cuda(*args, chunk))
         plain = time_ms(lambda: ref.ssd_scan_ref(*args, chunk), reps=10,
                         spin_ms=60.0)
-        bms, by = bound_ms(*_ssd_work(args[0], args[3], chunk),
-                           torch.float32)
+        nbytes, mma, fp32 = _ssd_work(args[0], args[3], chunk)
+        bms, by = bound_ms(nbytes, mma, torch.bfloat16)
+        old, old_by = bound_ms(nbytes, fp32, torch.float32)
         print(f"[kernels] ssd_scan {label}: {ms:.4f} ms, plain {plain:.4f} "
-              f"ms, no library call, bound {bms:.4f} ms ({by}), max err y "
-              f"{errs[0]:.3g} (of {float(y_ref.abs().max()):.3g}), state "
-              f"{errs[1]:.3g} (of {float(h_ref.abs().max()):.3g})")
+              f"ms, no library call, bound {bms:.4f} ms ({by}; "
+              f"{mma / 1e9:.3g} GFLOP of bf16 MMAs, {nbytes / 1e6:.3g} MB; "
+              f"the first version's fp32 bound {old:.4f} ms, {old_by}), max "
+              f"err y {errs[0]:.3g} (of {float(y_ref.abs().max()):.3g}), "
+              f"state {errs[1]:.3g} (of {float(h_ref.abs().max()):.3g})")
         if label == "bf16 1 x 1024":
             head["ssd_scan"] = dict(ms=ms, plain_ms=plain, library_ms=None,
                                     bound_ms=bms, bound_by=by,
@@ -771,7 +836,8 @@ def _device_us(event) -> float:
 
 # the kernels of the port, as the profiler names them
 OWN_KERNELS = ("paged_decode", "chunked_prefill", "rmsnorm_kernel",
-               "ssd_cb_kernel", "ssd_scan_kernel")
+               "ssd_chunk_state_kernel", "ssd_state_pass_kernel",
+               "ssd_chunk_scan_kernel")
 
 
 def phase_profile(eng, prefill: bool = True) -> None:

@@ -209,46 +209,6 @@ constexpr int kMmaRows = 64;              // query rows per block
 constexpr int kMmaKeys = 64;              // keys per tile
 constexpr int kMmaWarps = 4;              // 16 query rows each
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t* r) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr,
-                                                  uint32_t* r) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c += a . b for one 16 x 8 tile: a the 16 x 16 bf16 row-major fragment,
-// b the 16 x 8 column-major one, c fp32.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x, y) as bf16 pairs hi = bf16(x, y) and lo = bf16(x - hi.x, y - hi.y)
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x - __low2float(h), y - __high2float(h));
-}
-
 // Thread layout of the m16n8k16 fragments (PTX ISA): lane = 4 * gr + tg;
 // an accumulator holds rows gr and gr + 8, columns 2 tg and 2 tg + 1.
 template <int D>

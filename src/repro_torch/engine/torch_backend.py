@@ -106,6 +106,17 @@ class TorchEngine:
         # real prefill work dispatched (prefix-cache hits shrink these)
         self.prefill_rows = 0
         self.prefill_tokens = 0
+        # (plan.cost(), wall seconds) of every executed plan, as JaxEngine
+        # keeps it
+        self.iteration_log: List[tuple] = []
+        # the (P, L, nd, maxb) shape buckets that execute has served
+        self._buckets: set = set()
+
+    @property
+    def buckets_seen(self) -> tuple:
+        """Distinct shape buckets served by ``execute``: (prefill rows,
+        chunk length, decode rows, page-window width)."""
+        return tuple(sorted(self._buckets))
 
     @property
     def prefix_sharing_ok(self) -> bool:
@@ -488,6 +499,7 @@ class TorchEngine:
                              self.slot_len[:nd].copy(), dec_active,
                              self._pre_bt_dev, self._dec_bt_dev)
         out = sampled.cpu().numpy()   # the ONE device->host transfer
+        self._buckets.add((P, L, nd, maxb))
         self.prefill_rows += len(pre)
         self.prefill_tokens += sum(len(t) for _, _, t in pre)
 
@@ -507,4 +519,6 @@ class TorchEngine:
             self.generated[rid].append(tok)
             self.last_token[slot] = tok
             self.slot_len[slot] += 1
-        return time.perf_counter() - t0
+        elapsed = time.perf_counter() - t0
+        self.iteration_log.append((plan.cost(), elapsed))
+        return elapsed

@@ -136,17 +136,25 @@ def check_head_dim(name: str, head_dim: int) -> None:
                          f"{HEAD_DIMS}")
 
 
+class Long(int):
+    """An int that a kernel's C interface takes as ``long long`` (a
+    stride or an offset that may pass 2^31)."""
+
+
 def _ctype(arg):
     if isinstance(arg, torch.Tensor):
         return ctypes.c_void_p
+    if isinstance(arg, Long):
+        return ctypes.c_longlong
     return ctypes.c_float if isinstance(arg, float) else ctypes.c_int
 
 
 def launch(name: str, *args) -> None:
     """Call ``<name>_launch(*args, stream)`` of ``csrc/<name>.cu`` on the
     current stream of the tensors' device. Tensors pass as their data
-    pointers, Python ints as ``int`` and floats as ``float``. Raises with
-    CUDA's error string if the launch fails."""
+    pointers, ``Long`` as ``long long``, other Python ints as ``int`` and
+    floats as ``float``. Raises with CUDA's error string if the launch
+    fails."""
     lib = load_library(name)
     fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:

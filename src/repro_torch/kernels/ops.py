@@ -102,9 +102,10 @@ def rmsnorm(x, w, eps: float = 1e-5):
 
 def ssd_scan(x, dt, A, B_, C_, init_state, *, chunk: int):
     """x: [Bt, S, nh, hd]; dt: [Bt, S, nh] f32; A: [nh] f32; B_, C_:
-    [Bt, S, ds]; init_state: [Bt, nh, hd, ds] f32. Any ``S``: both
-    versions zero-pad to the chunk grid. Returns (y [Bt, S, nh, hd] f32,
-    final state [Bt, nh, hd, ds] f32)."""
+    [Bt, S, ds]; init_state: [Bt, nh, hd, ds] f32. Any ``S``: the plain
+    version zero-pads to the chunk grid, the kernel reads the last chunk's
+    tail as dt = 0 in place. Returns (y [Bt, S, nh, hd] f32, final state
+    [Bt, nh, hd, ds] f32)."""
     if _plain("ssd_scan", x.device):
         return ref.ssd_scan_ref(x, dt, A, B_, C_, init_state, chunk)
     return _ssd.ssd_scan_cuda(x, dt, A, B_, C_, init_state, chunk)

@@ -5,11 +5,12 @@ rows, windows; decode with one row, with a 4096-token row over 32
 splits and with splits whose pages are all holes; int8 pages with G = 1
 and G = 8, D = 64 and pages that are not a multiple of the 32-token
 tile; prefill chunks of 1, 65 and 1024 tokens; norm rows that are not a
-multiple of 16 bytes wide; scan lengths padded to the chunk grid and
-zero-dt tails), the attention kernels' bit-equality (a row alone against
-the same row in a batch, a narrower block table or cache view against a
-wider one, a shorter chunk against a longer one) and the wrappers'
-refusals. ``chip_smoke.py`` checks the same kernels at the main paths'
+multiple of 16 bytes wide; scan lengths off the chunk grid, read in place
+down to one token, zero-dt tails and d_state 16), the bit-equality of
+the kernels' rows (attention: a row alone against the same row in a
+batch, a narrower block table or cache view against a wider one, a
+shorter chunk against a longer one; the scan and the norm: a row alone
+against the same row in a batch) and the wrappers' refusals. ``chip_smoke.py`` checks the same kernels at the main paths'
 shapes.
 
 On a machine with an NVIDIA GPU and nvcc:
@@ -372,9 +373,13 @@ def _close_scaled(got, want, rel=5e-4):
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("B,S,nh,hd,ds,chunk,zero_tail", [
     (1, 512, 32, 64, 128, 256, 0),    # full width, two chunks
-    (2, 700, 4, 64, 128, 256, 0),     # ragged: padded to the chunk grid
+    (2, 700, 4, 64, 128, 256, 0),     # ragged: the last chunk read in place
     (3, 130, 2, 32, 64, 64, 40),      # ds 64, hd 32, a zero-dt tail
-    (1, 64, 8, 16, 128, 64, 0),       # a single chunk, hd = one slice
+    (1, 64, 8, 16, 128, 64, 0),       # a single chunk, hd = one mma block
+    (2, 130, 32, 64, 128, 256, 0),    # one ragged chunk at full width
+    (1, 1, 32, 64, 128, 256, 0),      # one token
+    (1, 1024, 128, 64, 16, 256, 0),   # jamba-v0.1's d_state 16
+    (2, 300, 8, 128, 16, 256, 37),    # d_state 16, hd 128, a zero-dt tail
 ])
 def test_ssd_scan_kernel_vs_plain(cuda, dt, B, S, nh, hd, ds, chunk,
                                   zero_tail):
@@ -395,6 +400,47 @@ def test_ssd_scan_kernel_vs_plain(cuda, dt, B, S, nh, hd, ds, chunk,
                and a.shape[1] == S else a for a in args]
         _, h_cut = ops.ssd_scan(*cut, chunk=chunk)
         _close_scaled(h, h_cut)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("S,ds", [(1024, 128), (700, 128), (300, 16)])
+def test_ssd_scan_rows_are_batch_invariant(cuda, dt, S, ds):
+    """Each row of a 4-row batch alone gives the same y and final state
+    as in the batch, bit for bit: no block, scratch or sum order depends
+    on the batch. The mixer's strided slices read as their contiguous
+    copies, bit for bit."""
+    rng = np.random.default_rng(8)
+    args = _scan_inputs(rng, cuda, DTYPES[dt], 4, S, 32, 64, ds)
+    y, h = ops.ssd_scan(*args, chunk=256)
+    for b in range(4):
+        ya, ha = ops.ssd_scan(*(a[b:b + 1] if a.dim() > 1 else a
+                                for a in args), chunk=256)
+        assert torch.equal(ya, y[b:b + 1]) and torch.equal(ha, h[b:b + 1])
+    x, dt_, A, B, C, h0 = args
+    xBC = torch.cat([x.reshape(4, S, -1), B, C], dim=-1)
+    d_in = x.shape[2] * x.shape[3]
+    ys, hs = ops.ssd_scan(xBC[..., :d_in].reshape(x.shape), dt_, A,
+                          xBC[..., d_in:d_in + ds], xBC[..., d_in + ds:], h0,
+                          chunk=256)
+    assert torch.equal(ys, y) and torch.equal(hs, h)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("D", [3072, 1024, 1001])
+def test_rmsnorm_rows_are_batch_invariant(cuda, dt, D):
+    """A row alone, [1, D], equals the same row in [8, D] and in
+    [1024, D], bit for bit: the warps per row and the reduction order
+    depend on the width alone."""
+    from repro_torch.kernels import rmsnorm as rms
+    rng = np.random.default_rng(9)
+    x = _t(rng.standard_normal((1024, D), np.float32) * 3, cuda, DTYPES[dt])
+    w = _t(rng.standard_normal((D,), np.float32) * 0.1, cuda, DTYPES[dt])
+    full = rms.rmsnorm_cuda(x, w)
+    eight = rms.rmsnorm_cuda(x[:8].contiguous(), w)
+    assert torch.equal(eight, full[:8])
+    for r in range(8):           # a fresh row: 16-byte aligned at any D
+        alone = x[r:r + 1].clone()
+        assert torch.equal(rms.rmsnorm_cuda(alone, w), full[r:r + 1])
 
 
 def test_ssd_scan_kernel_refuses_what_it_does_not_take(cuda):

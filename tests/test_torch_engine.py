@@ -72,6 +72,13 @@ def _requests(req_cls, qos_cls, n):
             for i in range(n)]
 
 
+def _cost_fields(cost):
+    """A ``BatchPlanCost``'s fields as plain lists (``decode_ctxs`` may
+    be a numpy array)."""
+    return {k: np.asarray(v).tolist()
+            for k, v in dataclasses.asdict(cost).items()}
+
+
 @pytest.mark.parametrize("cfg_name", ["reduced", "narrow", "mamba"])
 def test_torch_replica_streams_equal_jax_replica(cfg_name):
     jc, tc = _configs(cfg_name)
@@ -100,6 +107,15 @@ def test_torch_replica_streams_equal_jax_replica(cfg_name):
     # the page window grew through several buckets, as in JAX
     assert len(teng.gather_bucket_hits) >= 3
     assert teng.gather_bucket_hits == jeng.gather_bucket_hits
+    # the reference's interfaces: one (plan.cost(), seconds) entry per
+    # executed plan with the same costs, and the same shape buckets
+    assert len(teng.iteration_log) == len(jeng.iteration_log) == len(plans)
+    for (tcost, tsec), (jcost, jsec) in zip(teng.iteration_log,
+                                           jeng.iteration_log):
+        assert _cost_fields(tcost) == _cost_fields(jcost)
+        assert tsec > 0 and jsec > 0
+    assert teng.buckets_seen == jeng.buckets_seen
+    assert len(teng.buckets_seen) >= 3
 
 
 def test_warm_runs_both_attention_paths_without_writing_live_pages():
