@@ -16,7 +16,10 @@ Phases, each of which fails the run if it fails:
    ``F.rms_norm`` with weight ``1 + w``; none for ``ssd_scan``), and the
    least time the card could take; decode also at one row of 1500 and
    one of 4096 tokens (64 pages, 32 splits) in bf16 and int8, prefill at
-   the profile's shape (one row, C = S = 1024, bf16), the scan at one
+   the profile's shape (one row, C = S = 1024, bf16), decode and prefill
+   in bf16 at the head layouts of qwen3-moe-30b-a3b (H32 KV4 D64, G 8),
+   qwen-7b (H32 KV32 D128, G 1) and starcoder2-15b (H48 KV4 D128, G 12),
+   the scan at one
    chunk, at a ragged length read in place and at d_state 16 (nh 128);
    and the kernels' invariance bit for bit on the card: each decode row
    served alone against the same row in the 8-row batch and the 32-page
@@ -26,32 +29,41 @@ Phases, each of which fails the run if it fails:
    [8, D] and [1024, D];
 3. serve: full-width llama3.2-3b and full-width mamba2-370m through
    ``repro_torch.launch.serve.main``, then llama3.2-3b with int8 KV pages
-   (``TorchEngine(kv_quant=True)`` in the same replica), random weights
+   (``TorchEngine(kv_quant=True)`` in the same replica), full-width
+   qwen3-moe-30b-a3b (48 layers, 128 experts, top-8, the grouped MoE) and
+   the paper's llama3-8b through ``make_torch_replica``, random weights
    from a seed, bf16, the NiyamaScheduler priced on the H100 spec; every
    request must finish with all its tokens, every kernel of each path
    must have launched in that path's run (counts zeroed just before it),
    no kernel of another path may have, and no plain version may have run;
+   the MoE path's host reads of its largest expert segment are counted;
+   each engine is freed before the next model is built;
 4. profile: one decode and one prefill iteration of each served engine
    (the int8 one: decode), timed on the host and traced with
-   torch.profiler (device time by kernel, idle share);
-5. parity: full-width 2-layer f32 copies of both families, and of llama
-   with int8 pages, run one mixed iteration through the kernels and
-   through the plain versions; the final hidden states and the written
-   pages or state rows agree within the limits stated there and the
-   sampled ids are equal;
+   torch.profiler (device time by kernel, idle share; for the MoE engine
+   also the expert products, the router and the combine);
+5. parity: full-width 2-layer f32 copies of both families, of llama
+   with int8 pages and of qwen3-moe-30b-a3b, run one mixed iteration
+   through the kernels and through the plain versions; the final hidden
+   states and the written pages or state rows agree within the limits
+   stated there and the sampled ids are equal; and the grouped MoE
+   against the dropless one on a 1024-token row;
 6. hierarchy: full-width llama3.2-3b with bf16 and with int8 pages: four
    requests sharing a 1024-token prefix stream the same tokens with the
    KV hierarchy's prefix tier as without it and dispatch fewer prefill
    tokens; a mid-decode swap-out and swap-in round trip streams what an
    uninterrupted run streams.
 
-Prints the card's name and power limit, one JSON line of the kernels and,
-as its last line, ``{"ok": true, "device": {...}}``. Exits non-zero
-without a result where torch sees no CUDA device.
+Prints each phase's seconds and peak device memory
+(``torch.cuda.max_memory_allocated``), the card's name and power limit,
+one JSON line of the kernels and, as its last line, ``{"ok": true,
+"device": {...}}``. Exits non-zero without a result where torch sees no
+CUDA device.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -100,16 +112,28 @@ SOURCES = {
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:70"),
 }
-# each served path: its family, whether its KV pages are int8, and the
-# kernels it runs (and no other)
-PATHS = {"llama3.2-3b": ("llama3.2-3b", False,
-                         ("paged_attention", "chunked_prefill_attention",
-                          "rmsnorm")),
+# each served path: its architecture, whether its KV pages are int8, and
+# the kernels it runs (and no other)
+ATTENTION_PATH = ("paged_attention", "chunked_prefill_attention", "rmsnorm")
+PATHS = {"llama3.2-3b": ("llama3.2-3b", False, ATTENTION_PATH),
          "mamba2-370m": ("mamba2-370m", False, ("rmsnorm", "ssd_scan")),
          "llama3.2-3b int8": ("llama3.2-3b", True,
                               ("paged_attention_int8",
-                               "chunked_prefill_attention", "rmsnorm"))}
+                               "chunked_prefill_attention", "rmsnorm")),
+         "qwen3-moe-30b-a3b": ("qwen3-moe-30b-a3b", False, ATTENTION_PATH),
+         "llama3-8b": ("llama3-8b", False, ATTENTION_PATH)}
+# the paths that the serve script drives as a user runs it; the others
+# build their replica as ``_replica`` does
+SCRIPT_PATHS = ("llama3.2-3b", "mamba2-370m")
 
+
+# the head layouts of the families ported since the MoE slice, which the
+# bf16 cases of llama3.2-3b's layout (H24 KV8 D128, G 3) do not cover:
+# (family, H, KV, head_dim)
+NEW_HEAD_LAYOUTS = (("qwen3-moe-30b-a3b", 32, 4, 64),
+                    ("llama3-8b", 32, 8, 128),
+                    ("qwen-7b", 32, 32, 128),
+                    ("starcoder2-15b", 48, 4, 128))
 
 # the timed shapes whose numbers go into the kernels line
 DECODE_MAIN = "bf16 B8 H24 KV8 D128"
@@ -123,6 +147,14 @@ class PhaseError(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise PhaseError(msg)
+
+
+def _free_device_memory() -> None:
+    """Return the memory of engines dropped by the caller to the card:
+    an engine and its pool refer to each other (``bind_runtime``), so only
+    the cycle collector frees them."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- timing
@@ -361,7 +393,11 @@ def phase_kernels() -> dict:
              (2, 128, 24, 8, 128, 512), [300, 5], [128, 100], 100),
             (torch.bfloat16, "bf16 P1 C1024 H24 KV8 D128 S1024 (the "
              "profile's prefill)", (1, 1024, 24, 8, 128, 1024), [0], [1024],
-             None)]:
+             None)] + [
+            (torch.bfloat16, f"bf16 P4 C512 H{H} KV{KV} D{D} S1024 ({arch}, "
+             f"G={H // KV})", (4, 512, H, KV, D, 1024), [0, 128, 300, 0],
+             [512, 512, 77, 0], None)
+            for arch, H, KV, D in NEW_HEAD_LAYOUTS]:
         B, C, H, KV, D, S = shape
         q, k, v, qo, kl = _prefill_case(rng, dtype, B, C, H, KV, D, S,
                                         offs, reals)
@@ -463,6 +499,9 @@ def _kernels_paged(head: dict, rng, quant: bool) -> None:
     if not quant:
         cases.append((torch.float32, "f32 B8 H32 KV4 D128 (G=8)",
                       (8, 32, 4, 128), batch))
+        cases += [(torch.bfloat16, f"bf16 B8 H{H} KV{KV} D{D} ({arch}, "
+                   f"G={H // KV})", (8, H, KV, D), batch)
+                  for arch, H, KV, D in NEW_HEAD_LAYOUTS]
     cases += [(torch.bfloat16, "bf16 B1 H24 KV8 D128, 1500 tokens",
                (1, 24, 8, 128), (32, [1500], [])),
               (torch.bfloat16, "bf16 B1 H24 KV8 D128, one row of 4096 "
@@ -532,11 +571,17 @@ def _label(dtype) -> str:
     return "f32" if dtype == torch.float32 else "bf16"
 
 
+# the d_model of every served path: llama3.2-3b, mamba2-370m,
+# qwen3-moe-30b-a3b, llama3-8b
+SERVED_WIDTHS = (3072, 1024, 2048, 4096)
+
+
 def _kernels_rmsnorm(head: dict) -> None:
-    """The norms of both paths: the llama decode batch [8, 3072], a
-    prefill chunk of llama [1024, 3072] and of mamba2-370m [1024, 1024];
-    then rows whose width is not a multiple of 16 bytes; then each width
-    of both paths' rows alone, [1, D], against the same rows in [8, D] and
+    """The norms of every served path: a decode batch [8, D] and a
+    prefill chunk [1024, D] at the widths of llama3.2-3b (3072),
+    mamba2-370m (1024), qwen3-moe-30b-a3b (2048) and llama3-8b (4096);
+    then rows whose width is not a multiple of 16 bytes; then at each
+    served width rows alone, [1, D], against the same rows in [8, D] and
     in [1024, D], bit for bit."""
     import torch.nn.functional as F
 
@@ -546,7 +591,9 @@ def _kernels_rmsnorm(head: dict) -> None:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     cases = [(dtype, shape) for shape in ((8, 3072), (1024, 3072),
-                                          (1024, 1024))
+                                          (1024, 1024), (8, 2048),
+                                          (1024, 2048), (8, 4096),
+                                          (1024, 4096))
              for dtype in (torch.float32, torch.bfloat16)]
     cases += [(torch.bfloat16, (5, 1001)), (torch.float32, (3, 77))]
     for dtype, (N, D) in cases:
@@ -574,7 +621,7 @@ def _kernels_rmsnorm(head: dict) -> None:
                                    bound_ms=bms, bound_by=by,
                                    max_abs_err=err)
     for dtype in (torch.float32, torch.bfloat16):
-        for D in (3072, 1024):
+        for D in SERVED_WIDTHS:
             x = torch.randn((1024, D), generator=gen, device="cuda").to(dtype)
             w = (0.1 * torch.randn(D, generator=gen, device="cuda")).to(dtype)
             full = rmsnorm_cuda(x, w, 1e-5)
@@ -588,8 +635,8 @@ def _kernels_rmsnorm(head: dict) -> None:
                       f"rmsnorm {_label(dtype)} D {D}: row {r} alone differs "
                       f"from the same row in [1024, D]")
     torch.cuda.synchronize()
-    print("[kernels] rmsnorm: rows alone equal the same rows of [8, D] and "
-          "[1024, D], bit for bit, D 3072 and 1024, f32 and bf16")
+    print(f"[kernels] rmsnorm: rows alone equal the same rows of [8, D] "
+          f"and [1024, D], bit for bit, D {SERVED_WIDTHS}, f32 and bf16")
 
 
 def _ssd_case(gen, dtype, Bt, S, nh=32, hd=64, ds=128, zero_tail=0):
@@ -717,13 +764,21 @@ def _kernels_ssd_scan(head: dict) -> None:
 
 # ---------------------------------------------------------------- phase 3
 
+def _model_config(arch: str):
+    """The port's config of ``arch``: the registry's, or the paper's own
+    model (``configs/paper_models``, outside the registry as in JAX)."""
+    from repro_torch.configs import get_config, paper_models
+    if arch == "llama3-8b":
+        return paper_models.LLAMA3_8B
+    return get_config(arch)
+
+
 def _replica(arch: str, scheme: str, kv_quant: bool, kv_cfg=None):
     """A full-width replica on the card (bf16 weights, 8 slots,
     ``--max-len 2048``, 64-token blocks, seed 0, priced on the H100 spec)
     as ``make_torch_replica`` builds it, or, for int8 KV pages, from the
     factory's own pieces with ``TorchEngine(kv_quant=True)``: the
     factory, like the JAX one, has no int8 switch."""
-    from repro_torch.configs import get_config
     from repro_torch.core.kvpool import KVPool, kv_bytes_per_block
     from repro_torch.core.predictor import H100, ModelCostModel
     from repro_torch.core.scheduler import (NiyamaConfig, NiyamaScheduler,
@@ -733,7 +788,7 @@ def _replica(arch: str, scheme: str, kv_quant: bool, kv_cfg=None):
     from repro_torch.serving.replica import Replica
     from repro_torch.serving.schemes import make_torch_replica
 
-    cfg = get_config(arch)
+    cfg = _model_config(arch)
     kw = dict(n_slots=8, max_len=2048, block_size=64, quantum=32, seed=0)
     if not kv_quant:
         return make_torch_replica(scheme, cfg, hw=H100, device="cuda",
@@ -760,30 +815,35 @@ def _replica(arch: str, scheme: str, kv_quant: bool, kv_cfg=None):
 def phase_serve(path: str) -> tuple:
     """Serve 12 requests on ``path`` at full width with the counts zeroed
     just before; returns the counts read just after, and the engine. The
-    model-dtype paths run the serve script (``repro_torch.launch.serve``)
-    as a user does; the int8 path serves the script's request mix through
-    the same scheduler, replica and engine with int8 pages."""
+    ``SCRIPT_PATHS`` run the serve script (``repro_torch.launch.serve``)
+    as a user does; the others serve the script's request mix through the
+    replica that ``_replica`` builds (the int8 path with int8 pages, the
+    paper's llama3-8b from ``paper_models``)."""
     from repro_torch.core.kvpool import kv_bytes_per_block
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
+    from repro_torch.models import moe
     from repro_torch.serving.metrics import compute_metrics
 
     arch, kv_quant, kernels = PATHS[path]
     ops.reset_counts()
+    moe.rungs.clear()
     t0 = time.perf_counter()
-    if kv_quant:
-        rep = _replica(arch, "niyama", kv_quant=True)
+    if path in SCRIPT_PATHS:
+        rep = serve.main(["--arch", arch, "--device", "cuda", "--dtype",
+                          "bf16", "--n-requests", "12", "--max-len", "2048",
+                          "--slots", "8", "--seed", "0"])
+    else:
+        rep = _replica(arch, "niyama", kv_quant=kv_quant)
         rep.backend.warm()
         rep.submit_all(serve.make_requests(np.random.default_rng(0), 12,
                                            2048))
         rep.run()
-    else:
-        rep = serve.main(["--arch", arch, "--device", "cuda", "--dtype",
-                          "bf16", "--n-requests", "12", "--max-len", "2048",
-                          "--slots", "8", "--seed", "0"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.counts()
+    rungs = dict(sorted(moe.rungs.items()))
+    reads = sum(rungs.values())
     eng = rep.backend
     reqs = rep.all_requests()
     check(len(rep.finished) == len(reqs) == 12,
@@ -816,6 +876,17 @@ def phase_serve(path: str) -> tuple:
           f"tok/s; TTFT p99 {m.ttft_p99:.3f} s, TBT p99 "
           f"{m.tbt_p99 * 1e3:.1f} ms; launches {counts}")
     print(f"[serve] {path}: page-window buckets: {eng.gather_bucket_hits}")
+    n_moe = sum(1 for l in eng.cfg.layers if l.ffn == "moe")
+    check((reads > 0) == (n_moe > 0),
+          f"serve {path}: {reads} host reads of the MoE segment size over "
+          f"{n_moe} MoE layers")
+    if n_moe:
+        # warm() is one more iteration, with both sub-batches
+        print(f"[serve] {path}: {reads} host reads of the largest expert "
+              f"segment over {rep.iterations + 1} iterations (warm() "
+              f"included), {reads / (rep.iterations + 1):.1f} an iteration: "
+              f"one per MoE layer ({n_moe}) and sub-batch; capacity rungs "
+              f"(rows an expert: calls) {rungs}")
     if kv_quant:
         q8 = kv_bytes_per_block(eng.cfg, eng.block_size, kv_quant=True)
         b16 = kv_bytes_per_block(eng.cfg, eng.block_size, bytes_per=2)
@@ -843,28 +914,38 @@ OWN_KERNELS = ("paged_decode", "chunked_prefill", "rmsnorm_kernel",
 def phase_profile(eng, prefill: bool = True) -> None:
     """Where one decode and (with ``prefill``) one prefill iteration of a
     served engine spend their time: host wall time per iteration, device
-    busy time by kernel (torch.profiler) and the device's idle share. The
-    iterations write the engine's cache in place; the engine serves
-    nothing after."""
+    busy time by kernel (torch.profiler) and the device's idle share; for
+    an engine with MoE layers, also the device time of the router, the
+    expert products and the combine (``_moe_split``). The iterations
+    write the engine's cache in place; the engine serves nothing
+    after."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import transformer as T
 
     n, mb, dev = eng.n_slots, 16, eng.device
     i32 = dict(dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
 
     def z(*shape):
         return torch.zeros(shape, **i32)
+
+    def tokens(*shape):
+        # random ids: a MoE routes each token by its value, and one id
+        # repeated would send every row to the same experts
+        return torch.randint(0, eng.cfg.vocab_size, shape, generator=gen,
+                             **i32)
     bt = torch.arange(n * mb, **i32).reshape(n, mb)
     def flags(*shape, value=False):
         return torch.full(shape, value, dtype=torch.bool, device=dev)
     plans = {
         "decode 8 rows at 1000 tokens": (
-            z(0, 1), z(0), z(0), z(0), flags(0), z(0), z(n),
+            z(0, 1), z(0), z(0), z(0), flags(0), z(0), tokens(n),
             torch.full((n,), 1000, **i32), flags(n, value=True), z(0, mb),
             bt),
         "prefill 1 row of 1024 tokens": (
-            z(1, 1024), z(1), z(1), torch.full((1,), 1024, **i32),
+            tokens(1, 1024), z(1), z(1), torch.full((1,), 1024, **i32),
             flags(1, value=True), torch.full((1,), 1023, **i32), z(0), z(0),
             flags(0), bt[:1], z(0, mb)),
     }
@@ -911,6 +992,51 @@ def phase_profile(eng, prefill: bool = True) -> None:
               f"other {busy - own_ms - gemm:.2f} ms")
         for k, t in top:
             print(f"[profile]   {t:.3f} ms  {k[:90]}")
+        if any(l.ffn == "moe" for l in eng.cfg.layers):
+            attn = own["paged_decode"] + own["chunked_prefill"]
+            _moe_split(f"{tag} {name}", step, reps, busy, attn,
+                       own["rmsnorm_kernel"])
+
+
+# the spans of ``models/moe.py`` whose device time the profile reads
+MOE_SPANS = {"router": "moe.router", "expert products": "moe.experts",
+             "combine": "moe.combine"}
+
+
+def _moe_split(what: str, step, reps: int, busy: float, attn: float,
+               norms: float) -> None:
+    """Profile ``step`` again with the host's ops, and print the device
+    time under each of ``MOE_SPANS`` beside attention, the norms and the
+    rest of ``busy``, and the capacity rungs (rows an expert) that the
+    grouped buffer took. A span that reads no device time fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import moe
+
+    moe.rungs.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    rungs = dict(sorted(moe.rungs.items()))
+    # a span's device time: the kernels launched inside it, as its
+    # host-side event adds them up
+    spans = {label: 0.0 for label in MOE_SPANS}
+    names = {v: k for k, v in MOE_SPANS.items()}
+    for e in prof.key_averages():
+        if e.key in names and str(e.device_type).endswith("CPU"):
+            spans[names[e.key]] += getattr(e, "device_time_total",
+                                           0.0) / reps / 1e3
+    print(f"[profile] {what}: capacity rungs (rows an expert: calls) "
+          f"{rungs}")
+    check(all(spans.values()), f"profile {what}: a MoE span read no "
+          f"device time: {spans}")
+    rest = busy - attn - norms - sum(spans.values())
+    print(f"[profile] {what}, by part: attention kernels {attn:.2f} ms, "
+          f"norms {norms:.2f} ms, "
+          + ", ".join(f"{k} {t:.2f} ms" for k, t in spans.items())
+          + f", other ops {rest:.2f} ms (of {busy:.2f} ms busy)")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -920,26 +1046,41 @@ def _clone_cache(cache):
                        for c in cache["layers"]]}
 
 
-# the final hidden states of the 2-layer llama parity check, with pages in
-# the model dtype and with int8 pages. The int8 pages are written from
-# inputs that differ by the kernels' summation order (about 1e-6), so a
-# value on a rounding boundary lands one int8 step apart, moving a score
-# by up to a scale (max|k| / 127) times |q| D^-1/2: the limit is wider.
-LLAMA_PARITY_HIDDEN = {False: 1e-4, True: 1e-3}
+# the final hidden states of the 2-layer parity checks: llama with pages
+# in the model dtype and with int8 pages, and qwen3-moe. The int8 pages
+# are written from inputs that differ by the kernels' summation order
+# (about 1e-6), so a value on a rounding boundary lands one int8 step
+# apart, moving a score by up to a scale (max|k| / 127) times |q| D^-1/2:
+# the limit is wider.
+PARITY_HIDDEN = {("llama3.2-3b", False): 1e-4, ("llama3.2-3b", True): 1e-3,
+                 ("qwen3-moe-30b-a3b", False): 1e-4}
+# the grouped MoE against the dropless sweep on the card, f32: both route
+# through the same ``_route``, so they can differ only where cuBLAS sums
+# a row's products in another order for another row count (the grouped
+# buffer holds C rows an expert, the sweep every token): a few fp32 ulps
+# of outputs of magnitude ~1. The whole 2-layer iteration served with
+# ``moe_impl="dropless"`` against the grouped default is held to the
+# model's ``PARITY_HIDDEN``: the same reordering, carried through a layer.
+MOE_GROUPED_DROPLESS = 1e-5
 
 
-def phase_parity(kv_quant: bool = False) -> None:
-    """Two full-width llama3.2-3b layers in f32, one mixed iteration
-    (ragged prefill rows, a pad row, decode slots two of them inactive)
-    through the kernels and through the plain versions, with pages in the
-    model dtype or int8 pages: the final hidden states within
-    ``LLAMA_PARITY_HIDDEN``, the written pages within 1e-4 (int8: one
-    int8 step, and the scales within one bf16 ulp), equal sampled ids."""
-    from repro_torch.configs import get_config
+def phase_parity(arch: str = "llama3.2-3b", kv_quant: bool = False) -> None:
+    """Two full-width layers of ``arch`` in f32 (qwen3-moe-30b-a3b: 7.4 GB
+    of weights, 4.8 GB of them experts), one mixed iteration (ragged
+    prefill rows, a pad row, decode slots two of them inactive) through
+    the kernels and through the plain versions, with pages in the model
+    dtype or int8 pages: the final hidden states within
+    ``PARITY_HIDDEN``, the written pages within 1e-4 (int8: one int8
+    step, and the scales within one bf16 ulp), equal sampled ids. With
+    MoE layers, then the same iteration served with
+    ``moe_impl="dropless"`` against the grouped default (hidden states
+    within ``PARITY_HIDDEN``, equal sampled ids), and each layer's grouped
+    MoE against its dropless sweep on one 1024-token row of normed hidden
+    states, within ``MOE_GROUPED_DROPLESS``."""
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
 
-    full = get_config("llama3.2-3b")
+    full = _model_config(arch)
     cfg = dataclasses.replace(full, num_layers=2, layers=full.layers[:2])
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -1003,7 +1144,7 @@ def phase_parity(kv_quant: bool = False) -> None:
           f"parity {label}: the kernel path ran {launched}")
     live = np.r_[pre_len > 0, dec_active]
     err = float((hk - hp).abs().max())
-    limit = LLAMA_PARITY_HIDDEN[kv_quant]
+    limit = PARITY_HIDDEN[arch, kv_quant]
     check(bool(torch.isfinite(hk).all()),
           f"parity {label}: non-finite hidden state")
     check(err <= limit, f"parity {label}: max |hidden kernel - plain| = "
@@ -1037,9 +1178,56 @@ def phase_parity(kv_quant: bool = False) -> None:
         check(page_err <= 1e-4, f"parity {label}: written pages differ by "
               f"{page_err}")
         page_txt = f"pages {page_err:.3g}"
-    print(f"[parity] llama3.2-3b, 2-layer full-width f32, {label}: max "
+    print(f"[parity] {arch}, 2-layer full-width f32, {label}: max "
           f"|hidden kernel - plain| {err:.3g}, {page_txt}, sampled ids "
           f"equal ({ik[dev(live)].tolist()})")
+    if cfg.moe is not None:
+        del hp, ck, cp
+        with torch.inference_mode():
+            hd = T._sampled_hidden(params, cfg, _clone_cache(cache), *args,
+                                   moe_impl="dropless")
+        idd = T.fused_serve_forward(params, cfg, cache, *args,
+                                    moe_impl="dropless")
+        torch.cuda.synchronize()
+        err = float((hd - hk).abs().max())
+        check(err <= limit, f"parity {label}: max |hidden dropless - "
+              f"grouped| = {err:.3g} > {limit}")
+        check(torch.equal(idd[dev(live)], ik[dev(live)]),
+              f"parity {label}: dropless sampled {idd.tolist()}, grouped "
+              f"{ik.tolist()}")
+        print(f"[parity] {arch}, the same iteration with "
+              f"moe_impl=\"dropless\": max |hidden dropless - grouped| "
+              f"{err:.3g}, sampled ids equal")
+        del hk, hd, cache
+        _grouped_against_dropless(params, cfg, gen)
+
+
+def _grouped_against_dropless(params, cfg, gen) -> None:
+    """Each MoE layer's grouped FFN against its dropless sweep on one
+    1024-token row of normed hidden states, and the capacity rung (rows
+    an expert) that the grouped buffer took."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+
+    x = torch.randn((1, 1024, cfg.d_model), generator=gen, device="cuda")
+    errs = []
+    with torch.inference_mode():
+        for li, layer in enumerate(params.layers):
+            h = T.rmsnorm(x, layer.norm2, cfg.norm_eps)
+            moe.rungs.clear()
+            g = moe.moe_forward_grouped(layer.moe, h, cfg)
+            (rung,) = moe.rungs
+            d = moe.moe_forward_dropless(layer.moe, h, cfg)
+            torch.cuda.synchronize()
+            e = float((g - d).abs().max())
+            check(bool(torch.isfinite(g).all()) and e <= MOE_GROUPED_DROPLESS,
+                  f"parity {cfg.name} layer {li}: max |grouped - dropless| "
+                  f"= {e:.3g} > {MOE_GROUPED_DROPLESS}")
+            errs.append((e, float(d.abs().max()), rung))
+    print(f"[parity] {cfg.name} grouped vs dropless MoE, 1 x 1024 tokens, "
+          f"f32: max |diff| per layer "
+          + ", ".join(f"{e:.3g} (of {m:.3g}; grouped at rung {c} rows an "
+                      f"expert, the sweep at 1024)" for e, m, c in errs))
 
 
 def phase_parity_mamba() -> None:
@@ -1256,7 +1444,7 @@ def phase_hierarchy(kv_quant: bool) -> None:
           f"prefill tokens dispatched hot {hot_tok} / cold {cold_tok}, "
           f"{runs['hot'][2].prefix.hit_tokens} prefix tokens hit")
     del hot_eng, runs
-    torch.cuda.empty_cache()
+    _free_device_memory()
 
     # (b) the swap tier, on one engine's plans
     cfg, bs = get_config("llama3.2-3b"), 64
@@ -1280,7 +1468,7 @@ def phase_hierarchy(kv_quant: bool) -> None:
         base.execute(BatchPlan(decode=[r]), 0.0)
     want = {0: list(base.generated[0])}
     del base
-    torch.cuda.empty_cache()
+    _free_device_memory()
     kv = KVHierarchy(64, bs, cfg=KVCacheConfig(enable_swap=True),
                      bytes_per_block=kv_bytes_per_block(
                          cfg, bs, kv_quant=kv_quant),
@@ -1316,10 +1504,11 @@ def phase_hierarchy(kv_quant: bool) -> None:
           f"streams the uninterrupted run's {want[0]}; "
           f"{time.perf_counter() - t0:.1f} s for the phase")
     del eng
-    torch.cuda.empty_cache()
+    _free_device_memory()
 
 
 # ---------------------------------------------------------------- main
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1340,22 +1529,34 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    phase_build()
-    head = phase_kernels()
-    # each served path: counts zeroed just before it, read just after
+
+    def timed(name, fn, *args, **kw):
+        """Run one phase; print its seconds and its peak device memory."""
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print(f"[time] {name}: {time.perf_counter() - t:.1f} s, peak "
+              f"device memory {peak:.2f} GB allocated")
+        return out
+    timed("build", phase_build)
+    head = timed("kernels", phase_kernels)
+    # each served path: counts zeroed just before it, read just after;
+    # its engine profiled, then freed before the next model is built
     launches = {name: 0 for name in SOURCES}
     for path, (_, kv_quant, _) in PATHS.items():
-        counts, eng = phase_serve(path)
+        counts, eng = timed(f"serve {path}", phase_serve, path)
         for name in SOURCES:
             launches[name] += counts[name]["launches"]
-        phase_profile(eng, prefill=not kv_quant)
+        timed(f"profile {path}", phase_profile, eng, prefill=not kv_quant)
         del eng
-        torch.cuda.empty_cache()
-    phase_parity()
-    phase_parity_mamba()
-    phase_parity(kv_quant=True)
-    phase_hierarchy(kv_quant=False)
-    phase_hierarchy(kv_quant=True)
+        _free_device_memory()
+    timed("parity llama3.2-3b", phase_parity)
+    timed("parity mamba2-370m", phase_parity_mamba)
+    timed("parity llama3.2-3b int8", phase_parity, kv_quant=True)
+    timed("parity qwen3-moe-30b-a3b", phase_parity, "qwen3-moe-30b-a3b")
+    timed("hierarchy bf16", phase_hierarchy, kv_quant=False)
+    timed("hierarchy int8", phase_hierarchy, kv_quant=True)
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         kernels.append(dict(name=name, route="cuda", source=src,

@@ -16,8 +16,12 @@ with bf16 scale pages. The pool's runtime hooks (``swap_out`` /
 transfers on real pages; prefix-cache hits are block tables that share
 pages.
 
-Not ported yet (ROADMAP.md queue 1): the dense layout, SWA page
-reclamation, tensor parallelism and CUDA graphs.
+Mixture-of-experts layers serve through ``moe_impl``: the grouped GEMM
+(the default, as ``JaxEngine``'s) or the dropless every-expert sweep.
+
+Not ported yet (ROADMAP.md queue 1): the dense layout, the
+sliding-window path and its page reclamation, tensor parallelism and
+CUDA graphs.
 """
 from __future__ import annotations
 
@@ -35,7 +39,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import build
 from repro_torch.models.config import MAMBA, ModelConfig
 from repro_torch.models.mamba2 import MambaState
-from repro_torch.models.transformer import (Transformer, fused_serve_forward,
+from repro_torch.models.transformer import (MOE_IMPLS, Transformer,
+                                            fused_serve_forward,
                                             init_paged_cache, init_params)
 
 
@@ -48,16 +53,22 @@ class TorchEngine:
     through ``bridge.params_from_numpy``), loaded onto ``device`` in
     ``dtype``; without it the weights are drawn from a generator seeded
     with ``seed``. ``kv_quant`` keeps int8 KV pages with bf16 scale
-    pages (``QuantPagedAttnCache``). ``device`` defaults to the card and
-    raises when there is none."""
+    pages (``QuantPagedAttnCache``). ``moe_impl`` is the MoE layers'
+    FFN, ``"grouped"`` or ``"dropless"`` (``models/moe.py``). ``device``
+    defaults to the card and raises when there is none."""
 
     def __init__(self, cfg: ModelConfig, n_slots: int = 8,
                  max_len: int = 512, quantum: int = 64, seed: int = 0,
                  dtype=torch.float32, block_size: int = 64,
                  pool: Optional[KVPool] = None,
                  params: Optional[Mapping[str, torch.Tensor]] = None,
-                 device="cuda", kv_quant: bool = False):
+                 device="cuda", kv_quant: bool = False,
+                 moe_impl: str = "grouped"):
+        if moe_impl not in MOE_IMPLS:
+            raise ValueError(f"unknown moe_impl {moe_impl!r}; one of "
+                             f"{list(MOE_IMPLS)}")
         self.device = resolve_device(device)
+        self.moe_impl = moe_impl
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len
@@ -365,14 +376,16 @@ class TorchEngine:
         return fused_serve_forward(
             self.params, self.cfg, self.cache, d(pre_tokens), d(pre_slots),
             d(pre_start), d(pre_len), d(pre_reset), d(pre_sample),
-            d(dec_tokens), d(dec_start), d(dec_active), pre_bt, dec_bt)
+            d(dec_tokens), d(dec_start), d(dec_active), pre_bt, dec_bt,
+            self.moe_impl)
 
     def warm(self) -> None:
         """Build and load the kernels (on the card), and launch each once
         with a state-safe iteration: one pad prefill row on the sink row
         of the Mamba state and an inactive decode batch, with empty block
         tables, so every page write goes to the sink page and no live
-        slot's state moves."""
+        slot's state moves. Both sub-batches run every layer's FFN, the
+        MoE ones through ``moe_impl``."""
         if self.device.type == "cuda":
             build.build()
         n = self.n_slots

@@ -6,8 +6,11 @@ replica, served by ``TorchEngine`` through ``make_torch_replica``. On
 the card (the default) it serves the full configuration with the
 NiyamaScheduler priced on the ``H100`` spec; ``--reduced`` gives the JAX
 serve script's ``.reduced(num_layers=2, d_model=256)`` model, for CPU runs.
-``--arch`` picks the family: ``llama3.2-3b`` (the default) or
-``mamba2-370m``. ``--prefix-cache`` gives the replica the KV
+``--arch`` picks the architecture from the port's registry
+(``repro_torch.configs``): ``llama3.2-3b`` (the default),
+``mamba2-370m``, the MoE decoders ``qwen3-moe-30b-a3b`` and
+``dbrx-132b``, the hybrid ``jamba-v0.1-52b``, ``granite-8b`` or
+``starcoder2-15b``. ``--prefix-cache`` gives the replica the KV
 hierarchy's shared-prefix tier, as in the JAX serve script.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --dtype bf16 \
@@ -15,6 +18,8 @@ hierarchy's shared-prefix tier, as in the JAX serve script.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
       --dtype bf16 --n-requests 12 --max-len 2048
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
+      --arch qwen3-moe-30b-a3b
 """
 from __future__ import annotations
 
@@ -53,7 +58,7 @@ def make_requests(rng: np.random.Generator, n: int, max_len: int):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-3b",
-                    help="llama3.2-3b or mamba2-370m")
+                    help="an architecture of repro_torch.configs")
     ap.add_argument("--scheme", default="niyama")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32",

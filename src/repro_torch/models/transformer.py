@@ -22,9 +22,11 @@ pages, and pad rows' outputs are discarded.
 
 Attention reads, the norms and the SSD scan go through ``kernels.ops``:
 the hand-written CUDA kernels for tensors on the card, the plain PyTorch
-versions on the CPU. Mixture-of-experts, sliding-window and
-encoder-decoder families are not ported yet and raise
-``NotImplementedError``.
+versions on the CPU. Mixture-of-experts FFNs (``models/moe.py``) serve
+through ``moe_forward_grouped`` by default, or ``moe_forward_dropless``
+on request (``moe_impl``), as in the JAX fused serve path. Sliding-window
+and encoder-decoder families and modality frontends are not ported yet
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -36,23 +38,29 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
-from .config import ATTN, DENSE, MAMBA, NONE, ModelConfig
+from .config import ATTN, DENSE, MAMBA, MOE, NONE, ModelConfig
 from .layers import apply_rope, rmsnorm, swiglu
 from .mamba2 import (Mamba, MambaState, init_mamba_params, init_mamba_state,
                      mamba_forward, mamba_step)
+from .moe import MoE, moe_forward_dropless, moe_forward_grouped
+
+# the serve-path MoE FFNs, by the name ``moe_impl`` gives them
+MOE_IMPLS = {"grouped": moe_forward_grouped,
+             "dropless": moe_forward_dropless}
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise unless ``cfg`` is a decoder the port can serve: every layer
-    mixes with full attention or Mamba2, and its FFN is dense or absent."""
+    mixes with full attention or Mamba2, and its FFN is dense, MoE or
+    absent."""
     if cfg.is_encdec or cfg.frontend is not None or any(
-            l.mixer not in (ATTN, MAMBA) or l.ffn not in (DENSE, NONE)
+            l.mixer not in (ATTN, MAMBA) or l.ffn not in (DENSE, MOE, NONE)
             for l in cfg.layers):
         raise NotImplementedError(
             f"{cfg.name}: the port serves decoder-only families of full "
-            f"attention or Mamba2 layers with a dense FFN or none so far; "
-            f"MoE, sliding window and encoder-decoder wait in ROADMAP.md "
-            f"queue 1")
+            f"attention or Mamba2 layers with a dense or MoE FFN or none so "
+            f"far; sliding window, encoder-decoder and modality frontends "
+            f"wait in ROADMAP.md queue 1")
 
 
 # ================================================================ params
@@ -86,8 +94,8 @@ class DenseFFN(nn.Module):
 
 class Layer(nn.Module):
     """One block, holding what the JAX ``_init_layer`` holds: ``norm1``
-    and ``mamba`` or ``attn``; ``norm2`` and ``ffn`` only where the
-    layer has an FFN."""
+    and ``mamba`` or ``attn``; ``norm2`` and ``ffn`` (dense) or ``moe``
+    only where the layer has an FFN."""
 
     def __init__(self, cfg: ModelConfig, spec, device, dtype):
         super().__init__()
@@ -97,7 +105,10 @@ class Layer(nn.Module):
             self.mamba = Mamba(cfg, **kw)
         else:
             self.attn = Attention(cfg, **kw)
-        if spec.ffn != NONE:
+        if spec.ffn == MOE:
+            self.norm2 = _param(cfg.d_model, **kw)
+            self.moe = MoE(cfg, **kw)
+        elif spec.ffn != NONE:
             self.norm2 = _param(cfg.d_model, **kw)
             self.ffn = DenseFFN(cfg, **kw)
 
@@ -105,9 +116,9 @@ class Layer(nn.Module):
 class Transformer(nn.Module):
     """The parameters, named as the JAX parameter tree is nested:
     ``embed``, ``final_norm``, ``lm_head``, ``layers.3.attn.wq``,
-    ``layers.3.ffn.w_gate``, ``layers.3.mamba.A_log``, ``layers.3.norm1``
-    ... The forward pass is ``fused_serve_forward``, a plain function over
-    this container."""
+    ``layers.3.ffn.w_gate``, ``layers.3.moe.router``,
+    ``layers.3.mamba.A_log``, ``layers.3.norm1`` ... The forward pass
+    is ``fused_serve_forward``, a plain function over this container."""
 
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
@@ -121,15 +132,17 @@ class Transformer(nn.Module):
             _param(cfg.d_model, cfg.vocab_padded, **kw)
 
 
-# std of each attention and FFN weight's normal draw, as the JAX
-# init_params scales it (the Mamba leaves: ``init_mamba_params``)
+# std of each attention, FFN and MoE weight's normal draw, as the JAX
+# init_params and init_moe_params scale it (the Mamba leaves:
+# ``init_mamba_params``)
 def _init_std(name: str, cfg: ModelConfig) -> float:
     leaf = name.rsplit(".", 1)[-1]
     if leaf in ("embed", "lm_head"):
         return 0.02
-    d, f, h, hd = cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.head_dim
-    fan_in = {"wq": d, "wk": d, "wv": d, "wo": h * hd, "w_gate": d,
-              "w_up": d, "w_down": f}[leaf]
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    f = cfg.moe.d_ff_expert if ".moe." in name else cfg.d_ff
+    fan_in = {"wq": d, "wk": d, "wv": d, "wo": h * hd, "router": d,
+              "w_gate": d, "w_up": d, "w_down": f}[leaf]
     return fan_in ** -0.5
 
 
@@ -321,10 +334,15 @@ def _attn_paged(p: Attention, cfg: ModelConfig, x, cache: PagedAttnCache,
     return torch.einsum("bshk,hkd->bsd", o, p.wo)
 
 
-def _apply_ffn(p: Layer, cfg: ModelConfig, spec, x):
+def _apply_ffn(p: Layer, cfg: ModelConfig, spec, x,
+               moe_impl: str = "grouped"):
+    """The layer's FFN with its residual. A MoE layer serves through
+    ``MOE_IMPLS[moe_impl]``, as the JAX fused serve path routes it."""
     if spec.ffn == NONE:
         return x
     h = rmsnorm(x, p.norm2, cfg.norm_eps)
+    if spec.ffn == MOE:
+        return x + MOE_IMPLS[moe_impl](p.moe, h, cfg)
     f = p.ffn
     return x + swiglu(h, f.w_gate, f.w_up, f.w_down)
 
@@ -367,7 +385,8 @@ def _mamba_block(p: Layer, cfg: ModelConfig, x_pre, x_dec,
 
 def _fused_block(p: Layer, cfg: ModelConfig, spec, x_pre, x_dec,
                  layer_cache, pre_slots, pre_start, pre_len, pre_reset,
-                 pre_valid, dec_start, dec_active, pre_bt, dec_bt):
+                 pre_valid, dec_start, dec_active, pre_bt, dec_bt,
+                 moe_impl: str = "grouped"):
     """One layer of the fused serve iteration: the prefill sub-batch
     ([P, L] chunk rows) and the decode sub-batch ([N, 1]) advance
     together; a request is in one of them only, so their page writes
@@ -390,16 +409,16 @@ def _fused_block(p: Layer, cfg: ModelConfig, spec, x_pre, x_dec,
                 p.attn, cfg, h, layer_cache, dec_bt, dec_start,
                 dec_active.to(dec_start.dtype), dec_active[:, None], True)
     if x_pre.shape[0]:
-        x_pre = _apply_ffn(p, cfg, spec, x_pre)
+        x_pre = _apply_ffn(p, cfg, spec, x_pre, moe_impl)
     if x_dec.shape[0]:
-        x_dec = _apply_ffn(p, cfg, spec, x_dec)
+        x_dec = _apply_ffn(p, cfg, spec, x_dec, moe_impl)
     return x_pre, x_dec
 
 
 def _sampled_hidden(params: Transformer, cfg: ModelConfig, cache: Dict,
                     pre_tokens, pre_slots, pre_start, pre_len, pre_reset,
                     pre_sample_col, dec_tokens, dec_start, dec_active,
-                    pre_bt, dec_bt):
+                    pre_bt, dec_bt, moe_impl: str = "grouped"):
     """Every layer of one fused iteration, then the final norm of the
     rows that are sampled: ``[P + N, d]``, prefill rows (their
     ``pre_sample_col`` column) then decode slots. This is what the LM
@@ -413,7 +432,7 @@ def _sampled_hidden(params: Transformer, cfg: ModelConfig, cache: Dict,
         x_pre, x_dec = _fused_block(
             params.layers[li], cfg, spec, x_pre, x_dec, cache["layers"][li],
             pre_slots, pre_start, pre_len, pre_reset, pre_valid, dec_start,
-            dec_active, pre_bt, dec_bt)
+            dec_active, pre_bt, dec_bt, moe_impl)
     parts: List[torch.Tensor] = []
     if P:
         # the norm is per row: gathering the sampled column first gives
@@ -430,8 +449,8 @@ def _sampled_hidden(params: Transformer, cfg: ModelConfig, cache: Dict,
 def fused_serve_forward(params: Transformer, cfg: ModelConfig, cache: Dict,
                         pre_tokens, pre_slots, pre_start, pre_len,
                         pre_reset, pre_sample_col, dec_tokens, dec_start,
-                        dec_active, pre_bt=None,
-                        dec_bt=None) -> torch.Tensor:
+                        dec_active, pre_bt=None, dec_bt=None,
+                        moe_impl: str = "grouped") -> torch.Tensor:
     """ONE fused serve iteration executing a whole BatchPlan, with greedy
     sampling on the device. The arguments are those of the JAX
     ``fused_serve_forward`` (paged layout):
@@ -441,14 +460,16 @@ def fused_serve_forward(params: Transformer, cfg: ModelConfig, cache: Dict,
       = pad row); pre_reset [P] bool (a request's first chunk: zero its
       Mamba state); pre_sample_col [P] int32; dec_tokens / dec_start [N]
       int32, dec_active [N] bool; pre_bt [P, maxb] / dec_bt [N, maxb]
-      int32 block tables (-1 = unallocated).
+      int32 block tables (-1 = unallocated); moe_impl ``"grouped"`` or
+      ``"dropless"``, the MoE layers' FFN.
 
     The cache's pages and Mamba state rows are updated in place. Returns
     the sampled ids, ``[P + N]`` int32 (prefill rows, then decode
     slots)."""
     xs = _sampled_hidden(params, cfg, cache, pre_tokens, pre_slots,
                          pre_start, pre_len, pre_reset, pre_sample_col,
-                         dec_tokens, dec_start, dec_active, pre_bt, dec_bt)
+                         dec_tokens, dec_start, dec_active, pre_bt, dec_bt,
+                         moe_impl)
     w = params.lm_head if params.lm_head is not None else params.embed.T
     logits = xs @ w
     # torch.argmax, like jnp.argmax, returns the first maximum

@@ -6,7 +6,10 @@ NiyamaScheduler + KVPool and through ``repro_torch``'s copies, both
 driven by a stub backend that reports a constant iteration time. Every
 iteration's BatchPlan — prefill (rid, chunk) items and decode rids — must
 be identical, under the CPU demo hardware and under the port's H100 spec
-(built on the JAX side from the same numbers).
+(built on the JAX side from the same numbers). The MoE configs'
+cost models (the grouped GEMM priced as the capacity path, and the
+dropless sweep) price every plan with the same floats as the JAX ones,
+and the scheduler on them makes the same plans.
 """
 import numpy as np
 import pytest
@@ -59,9 +62,9 @@ def _hw(pred, name):
         "mfu", "overhead_s", "ici_bw")})
 
 
-def _serve(side, hw_name, dt, seed=0, n=40):
+def _serve(side, hw_name, dt, seed=0, n=40, arch="llama3.2-3b"):
     kv, pred, qos, req, sched, rep, get_cfg = side
-    cfg = get_cfg("llama3.2-3b")
+    cfg = get_cfg(arch)
     hw = _hw(pred, hw_name)
     rng = np.random.default_rng(seed)
     arrivals = np.cumsum(rng.exponential(0.08, n))
@@ -97,3 +100,45 @@ def test_h100_spec_is_the_data_sheet():
     h = tpred.H100
     assert (h.name, h.flops_peak, h.hbm_bw, h.hbm_size, h.link_bw) == \
         ("h100", 989e12, 3.35e12, 80e9, 450e9)
+
+
+MOE_ARCHS = ["qwen3-moe-30b-a3b", "dbrx-132b"]
+
+
+@pytest.mark.parametrize("sweep", [False, True])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_cost_model_prices_as_jax(arch, sweep):
+    rng = np.random.default_rng(1)
+    plans = [([(int(rng.integers(1, 4096)), int(rng.integers(0, 8192)))
+               for _ in range(int(rng.integers(0, 3)))],
+              rng.integers(1, 16384, int(rng.integers(0, 40))).tolist(),
+              float(rng.integers(0, 2)) * 3e6)
+             for _ in range(40)]
+    for hw_name in ("cpu", "h100"):
+        j = jpred.ModelCostModel(jax_get_config(arch), _hw(jpred, hw_name),
+                                 moe_dropless_sweep=sweep)
+        t = tpred.ModelCostModel(get_config(arch), _hw(tpred, hw_name),
+                                 moe_dropless_sweep=sweep)
+        assert t._w_expert_bytes == j._w_expert_bytes > 0
+        for pre, dec, swap in plans:
+            assert t.iteration_time(tpred.BatchPlanCost(pre, dec, swap)) \
+                == j.iteration_time(jpred.BatchPlanCost(pre, dec, swap))
+            assert t.weight_read_bytes(len(dec)) == \
+                j.weight_read_bytes(len(dec))
+        for rem, prefix in ((100, 0), (5000, 300), (30000, 2048)):
+            assert t.prefill_time_estimate(rem, prefix) == \
+                j.prefill_time_estimate(rem, prefix)
+            assert t.decode_time_estimate(rem, prefix) == \
+                j.decode_time_estimate(rem, prefix)
+        for slack in (0.01, 0.05, 0.3):
+            assert t.solve_max_chunk(slack, 512, [700, 1500]) == \
+                j.solve_max_chunk(slack, 512, [700, 1500])
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_copied_scheduler_makes_identical_plans_on_moe(arch):
+    want, n_want, out_want = _serve(JAX_SIDE, "h100", 0.03, arch=arch)
+    got, n_got, out_got = _serve(PORT_SIDE, "h100", 0.03, arch=arch)
+    assert n_got == n_want == 40
+    assert got == want
+    assert out_got == out_want

@@ -78,7 +78,8 @@ def test_no_source_imports_ml_dtypes():
 
 def test_the_probe_walks_the_new_modules():
     """The import probe above walks every module of the package, the
-    Mamba2 slice's and the int8 / KV-hierarchy slice's among them."""
+    Mamba2 slice's, the int8 / KV-hierarchy slice's and the MoE slice's
+    among them."""
     import pkgutil
 
     import repro_torch
@@ -90,13 +91,20 @@ def test_the_probe_walks_the_new_modules():
             "repro_torch.kernels.paged_attention_int8",
             "repro_torch.serving.kvcache.hierarchy",
             "repro_torch.serving.kvcache.prefix",
-            "repro_torch.serving.kvcache.swap"} <= names
+            "repro_torch.serving.kvcache.swap",
+            "repro_torch.models.moe",
+            "repro_torch.configs.qwen3_moe_30b_a3b",
+            "repro_torch.configs.dbrx_132b",
+            "repro_torch.configs.jamba_v0_1_52b",
+            "repro_torch.configs.granite_8b",
+            "repro_torch.configs.starcoder2_15b",
+            "repro_torch.configs.paper_models"} <= names
 
 
 def test_entry_points_default_to_the_card():
     """Without a card and without device="cpu", the engine, the model
     init, the paged cache (made or bridged), the replica factory and the
-    serve script raise, for both served families."""
+    serve script raise, for the dense, Mamba2 and MoE families."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
     import numpy as np
@@ -133,18 +141,33 @@ def test_entry_points_default_to_the_card():
         make_torch_replica("niyama", mamba)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--reduced", "--arch", "mamba2-370m"])
+    moe = get_config("qwen3-moe-30b-a3b").reduced(num_layers=2, d_model=128)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchEngine(moe)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(moe, torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_torch_replica("niyama", moe)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--reduced", "--arch", "qwen3-moe-30b-a3b"])
 
 
 def test_unported_families_raise():
     import dataclasses
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import NOT_PORTED, get_config
     from repro_torch.engine.torch_backend import TorchEngine
     from repro_torch.models.config import SWA, LayerSpec
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("qwen3-moe-30b-a3b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("jamba-v0.1-52b")
+    for arch, waits in (("gemma3-4b", "sliding-window"),
+                        ("internvl2-76b", "vision frontend"),
+                        ("whisper-medium", "encoder-decoder")):
+        with pytest.raises(NotImplementedError, match=waits):
+            get_config(arch)
+    assert set(NOT_PORTED) == {"gemma3-4b", "internvl2-76b",
+                               "whisper-medium"}
+    for arch in ("qwen3-moe-30b-a3b", "dbrx-132b", "jamba-v0.1-52b",
+                 "granite-8b", "starcoder2-15b"):
+        assert get_config(arch).name == arch
     with pytest.raises(KeyError):
         get_config("no-such-model")
     swa = dataclasses.replace(
