@@ -19,7 +19,12 @@ Phases, each of which fails the run if it fails:
    the profile's shape (one row, C = S = 1024, bf16), decode and prefill
    in bf16 at the head layouts of qwen3-moe-30b-a3b (H32 KV4 D64, G 8),
    qwen-7b (H32 KV32 D128, G 1) and starcoder2-15b (H48 KV4 D128, G 12),
-   the scan at one
+   gemma3-4b's head_dim 256 (H8 KV4) in f32 and bf16: decode (both page
+   types, -1 holes), prefill with and without its 1024-token window over
+   a 2048-token view, windowed decode rows (C = 1) over the view, and
+   the same rows over a view whose dead blocks are -1 holes (equal, bit
+   for bit, to the view without holes), the norm at d_model 2560; the
+   scan at one
    chunk, at a ragged length read in place and at d_state 16 (nh 128);
    and the kernels' invariance bit for bit on the card: each decode row
    served alone against the same row in the 8-row batch and the 32-page
@@ -30,29 +35,41 @@ Phases, each of which fails the run if it fails:
 3. serve: full-width llama3.2-3b and full-width mamba2-370m through
    ``repro_torch.launch.serve.main``, then llama3.2-3b with int8 KV pages
    (``TorchEngine(kv_quant=True)`` in the same replica), full-width
-   qwen3-moe-30b-a3b (48 layers, 128 experts, top-8, the grouped MoE) and
-   the paper's llama3-8b through ``make_torch_replica``, random weights
-   from a seed, bf16, the NiyamaScheduler priced on the H100 spec; every
-   request must finish with all its tokens, every kernel of each path
-   must have launched in that path's run (counts zeroed just before it),
-   no kernel of another path may have, and no plain version may have run;
+   qwen3-moe-30b-a3b (48 layers, 128 experts, top-8, the grouped MoE),
+   the paper's llama3-8b and gemma3-4b (34 layers, five of every six
+   sliding with a 1024-token window, head_dim 256; prompts of 1100-1899
+   tokens, longer than the window) through ``make_torch_replica``,
+   random weights from a seed, bf16, the NiyamaScheduler priced on the
+   H100 spec; every request must finish with all its tokens, every
+   kernel of each path must have launched in that path's run (counts
+   zeroed just before it; gemma3-4b: the prefill kernel with the window
+   at D 256 and the decode kernel at D 256), no kernel of another path
+   may have, and no plain version may have run;
    the MoE path's host reads of its largest expert segment are counted;
    each engine is freed before the next model is built;
 4. profile: one decode and one prefill iteration of each served engine
-   (the int8 one: decode), timed on the host and traced with
+   (the int8 one: decode; gemma3-4b's at positions past its window),
+   timed on the host and traced with
    torch.profiler (device time by kernel, idle share; for the MoE engine
    also the expert products, the router and the combine);
 5. parity: full-width 2-layer f32 copies of both families, of llama
-   with int8 pages and of qwen3-moe-30b-a3b, run one mixed iteration
+   with int8 pages, of qwen3-moe-30b-a3b and of gemma3-4b (a
+   sliding-window and a global layer), run one mixed iteration
    through the kernels and through the plain versions; the final hidden
    states and the written pages or state rows agree within the limits
-   stated there and the sampled ids are equal; and the grouped MoE
+   stated there and the sampled ids are equal (gemma3-4b: or a logged
+   near-tie);
+   and the grouped MoE
    against the dropless one on a 1024-token row;
 6. hierarchy: full-width llama3.2-3b with bf16 and with int8 pages: four
    requests sharing a 1024-token prefix stream the same tokens with the
    KV hierarchy's prefix tier as without it and dispatch fewer prefill
    tokens; a mid-decode swap-out and swap-in round trip streams what an
-   uninterrupted run streams.
+   uninterrupted run streams;
+7. reclaim: full-width llama3.2-3b in its ``long_500k`` variant (every
+   layer sliding, window 8192) sheds the dead blocks of a 9000-token
+   prompt and of its decode, hands a freed page to a request admitted
+   after, and streams what the same engine streams with reclamation off.
 
 Prints each phase's seconds and peak device memory
 (``torch.cuda.max_memory_allocated``), the card's name and power limit,
@@ -112,19 +129,58 @@ SOURCES = {
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:70"),
 }
-# each served path: its architecture, whether its KV pages are int8, and
-# the kernels it runs (and no other)
 ATTENTION_PATH = ("paged_attention", "chunked_prefill_attention", "rmsnorm")
-PATHS = {"llama3.2-3b": ("llama3.2-3b", False, ATTENTION_PATH),
-         "mamba2-370m": ("mamba2-370m", False, ("rmsnorm", "ssd_scan")),
-         "llama3.2-3b int8": ("llama3.2-3b", True,
-                              ("paged_attention_int8",
-                               "chunked_prefill_attention", "rmsnorm")),
-         "qwen3-moe-30b-a3b": ("qwen3-moe-30b-a3b", False, ATTENTION_PATH),
-         "llama3-8b": ("llama3-8b", False, ATTENTION_PATH)}
-# the paths that the serve script drives as a user runs it; the others
-# build their replica as ``_replica`` does
-SCRIPT_PATHS = ("llama3.2-3b", "mamba2-370m")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServedPath:
+    """One served path and its settings in the serve, profile and parity
+    phases."""
+    arch: str
+    kernels: tuple = ATTENTION_PATH     # the kernels it runs (and no other)
+    kv_quant: bool = False              # int8 KV pages
+    # served by the serve script as a user runs it; otherwise through the
+    # replica that ``_replica`` builds
+    script: bool = False
+    # prompts longer than the window (``_long_prompt_requests``): the
+    # script's mix, prompts of 32-1023 tokens, would leave a 1024-token
+    # window masking nothing
+    long_prompts: bool = False
+    # (kernel, variant) pairs of ``ops.variants`` that its serve run must
+    # have launched
+    variants: tuple = ()
+    # (decode context, prefill start) of the profiled iterations
+    profile_at: tuple = (1000, 0)
+    # the two layers of its parity check, the limit on their final hidden
+    # states, and whether two sampled ids may differ at a logged near-tie
+    # (``_ids_agree``); otherwise they must be equal
+    parity_layers: tuple = (0, 1)
+    parity_hidden: float = 1e-4
+    near_tie: bool = False
+
+
+PATHS = {"llama3.2-3b": ServedPath("llama3.2-3b", script=True),
+         "mamba2-370m": ServedPath("mamba2-370m", ("rmsnorm", "ssd_scan"),
+                                   script=True),
+         # the int8 pages are written from inputs that differ by the
+         # kernels' summation order (about 1e-6), so a value on a rounding
+         # boundary lands one int8 step apart, moving a score by up to a
+         # scale (max|k| / 127) times |q| D^-1/2: the parity limit is wider
+         "llama3.2-3b int8": ServedPath(
+             "llama3.2-3b", ("paged_attention_int8",
+                             "chunked_prefill_attention", "rmsnorm"),
+             kv_quant=True, parity_hidden=1e-3),
+         "qwen3-moe-30b-a3b": ServedPath("qwen3-moe-30b-a3b"),
+         "llama3-8b": ServedPath("llama3-8b"),
+         # the prefill kernel at D 256 with the window (prefill rows and
+         # windowed decode rows), the decode kernel at D 256 (the global
+         # layers); profiled past the window; its parity check takes its
+         # first sliding-window layer and its first global layer
+         "gemma3-4b": ServedPath(
+             "gemma3-4b", long_prompts=True,
+             variants=(("chunked_prefill_attention", (256, 1024)),
+                       ("paged_attention", 256)),
+             profile_at=(2000, 1000), parity_layers=(0, 5), near_tie=True)}
 
 
 # the head layouts of the families ported since the MoE slice, which the
@@ -138,6 +194,52 @@ NEW_HEAD_LAYOUTS = (("qwen3-moe-30b-a3b", 32, 4, 64),
 # the timed shapes whose numbers go into the kernels line
 DECODE_MAIN = "bf16 B8 H24 KV8 D128"
 PREFILL_MAIN = "bf16 P4 C512 H24 KV8 D128 S1024"
+
+# gemma3-4b's attention (H8 KV4 D256, G 2, window 1024), which the
+# sliding-window slice added: every prefill row and every windowed decode
+# row go through the prefill kernel (decode rows as C = 1 chunks over the
+# gathered view), the global layers' decode rows through the decode
+# kernel. Each case's rows alone equal their rows of the batch, bit for
+# bit.
+GEMMA_WINDOW = 1024
+GEMMA_DECODE = "bf16 B8 H8 KV4 D256 (gemma3-4b, G=2)"
+
+
+# llama3.2-3b's long_500k variant (H24 KV8 D128, every layer sliding with
+# a window of 8192), which the reclaim phase serves: chunks of up to 2048
+# at offsets past the window over a 9216-token view (the window cuts both
+# rows: queries up to 9215 and 8999), rows alone against the batch
+LONG_WINDOW = 8192
+LONG_PREFILL = (f"bf16 P2 C2048 H24 KV8 D128 S9216 window {LONG_WINDOW} "
+                f"(llama3.2-3b long_500k)")
+# windowed decode rows over views with -1 holes: (layout, H, KV, D, table
+# width in 64-token pages, window, each row's length)
+HOLE_CASES = (("H8 KV4 D256 (gemma3-4b)", 8, 4, 256, 32, GEMMA_WINDOW,
+               [2048, 1500, 1100, 1024, 1025, 2000, 1087, 700]),
+              ("H24 KV8 D128 (llama3.2-3b long_500k)", 24, 8, 128, 144,
+               LONG_WINDOW, [9216, 9024, 9000, 8193, 8192, 8256, 9100,
+                             700]))
+
+
+def _gemma_prefill_cases():
+    """(dtype, label, (B, C, H, KV, D, S), offsets, chunk lengths,
+    window): a 4-row bucket of 512-token chunks over a 2048-token view,
+    ragged offsets, one pad row, without and with the window; and 8
+    windowed decode rows (C = 1) over a 2048-token view, one of them a
+    pad row."""
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for window in (None, GEMMA_WINDOW):
+            cases.append((dtype, f"{_label(dtype)} P4 C512 H8 KV4 D256 S2048"
+                          + (f" window {window}" if window else "")
+                          + " (gemma3-4b)", (4, 512, 8, 4, 256, 2048),
+                          [0, 700, 1500, 0], [512, 512, 300, 0], window))
+        cases.append((dtype, f"{_label(dtype)} P8 C1 H8 KV4 D256 S2048 "
+                      f"window {GEMMA_WINDOW} (gemma3-4b windowed decode)",
+                      (8, 1, 8, 4, 256, 2048),
+                      [2047, 1500, 1023, 1024, 5, 0, 1800, 900],
+                      [1, 1, 1, 1, 1, 0, 1, 1], GEMMA_WINDOW))
+    return cases
 
 
 class PhaseError(RuntimeError):
@@ -397,7 +499,10 @@ def phase_kernels() -> dict:
             (torch.bfloat16, f"bf16 P4 C512 H{H} KV{KV} D{D} S1024 ({arch}, "
              f"G={H // KV})", (4, 512, H, KV, D, 1024), [0, 128, 300, 0],
              [512, 512, 77, 0], None)
-            for arch, H, KV, D in NEW_HEAD_LAYOUTS]:
+            for arch, H, KV, D in NEW_HEAD_LAYOUTS] \
+            + _gemma_prefill_cases() + [
+            (torch.bfloat16, LONG_PREFILL, (2, 2048, 24, 8, 128, 9216),
+             [7168, 8192], [2048, 808], LONG_WINDOW)]:
         B, C, H, KV, D, S = shape
         q, k, v, qo, kl = _prefill_case(rng, dtype, B, C, H, KV, D, S,
                                         offs, reals)
@@ -410,7 +515,7 @@ def phase_kernels() -> dict:
         pad = [b for b, r in enumerate(reals) if r == 0]
         check(all(bool((got[b] == 0).all()) for b in pad),
               "chunked_prefill_attention: a pad row must give 0")
-        if label == PREFILL_MAIN:
+        if label in (PREFILL_MAIN, LONG_PREFILL) or D == 256:
             # each row alone is the same row of the batch, bit for bit
             for b in range(B):
                 alone = chunked_prefill_attention_cuda(
@@ -455,10 +560,69 @@ def phase_kernels() -> dict:
                       torch.float32, got, want)
     print(f"[kernels] chunked_prefill_attention static mode f32: max err "
           f"{err:.3g}")
+    _kernels_windowed_holes(np.random.default_rng(5))
     _kernels_paged(head, np.random.default_rng(4), quant=True)
     _kernels_rmsnorm(head)
     _kernels_ssd_scan(head)
     return head
+
+
+def _kernels_windowed_holes(rng) -> None:
+    """Windowed decode rows (C = 1) over a view gathered from pages whose
+    table has -1 holes where SWA reclamation freed the blocks that slid
+    out of the window, at each layout of ``HOLE_CASES``: the holes read
+    page 0, which the window masks, so the kernel's output equals its
+    output over the same table without holes, bit for bit, and the plain
+    version's within ``TOL``; each row alone equals its row of the batch,
+    bit for bit. A row about to attend from position ``len - 1`` had
+    ``len - 1`` tokens after the iteration before, whose reclaim freed
+    its blocks of positions <= len - 1 - window. f32 and bf16."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.chunked_prefill_attention import \
+        chunked_prefill_attention_cuda
+    from repro_torch.models.transformer import PagedAttnCache, _paged_view
+
+    page = 64
+    for layout, H, KV, D, n_pages, W, lens in HOLE_CASES:
+        B = len(lens)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kp, vp, bt, ln = _paged_case(rng, dtype, B, H, KV, D, page,
+                                            n_pages, lens, [])
+            holes = bt.clone()
+            dead = [max(0, (n - W) // page) for n in lens]
+            for b, n in enumerate(dead):
+                holes[b, :n] = -1
+            qo = ln - 1
+            q1 = q[:, None].contiguous()
+            views = [_paged_view(PagedAttnCache(kp, vp), t)
+                     for t in (holes, bt)]
+            outs = [chunked_prefill_attention_cuda(q1, k, v, qo, ln,
+                                                   window=W)
+                    for k, v in views]
+            want = ref.chunked_prefill_attention_ref(q1, *views[0], qo, ln,
+                                                     window=W)
+            torch.cuda.synchronize()
+            label = (f"{_label(dtype)} B{B} C1 {layout} S{n_pages * page} "
+                     f"window {W}, holes")
+            err, worst = _compare("chunked_prefill_attention", label, dtype,
+                                  outs[0], want)
+            check(torch.equal(outs[0], outs[1]),
+                  f"chunked_prefill_attention [{label}]: the table with -1 "
+                  f"holes gives another output than the table without")
+            k, v = views[0]
+            for b in range(B):
+                alone = chunked_prefill_attention_cuda(
+                    q1[b:b + 1], k[b:b + 1], v[b:b + 1], qo[b:b + 1],
+                    ln[b:b + 1], window=W)
+                check(torch.equal(alone, outs[0][b:b + 1]),
+                      f"chunked_prefill_attention [{label}]: row {b} alone "
+                      f"differs from the same row in the batch")
+            print(f"[kernels] chunked_prefill_attention {label}: "
+                  f"{sum(dead)} dead blocks as -1 holes give the output of "
+                  f"the full table, each row alone its row of the batch, "
+                  f"bit for bit; max err {err:.3g} ({worst:.2f} of the "
+                  f"limit)")
+            del q, kp, vp, views, outs, want, k, v
 
 
 def _quantized_pages(k_pages, v_pages):
@@ -475,12 +639,14 @@ def _kernels_paged(head: dict, rng, quant: bool) -> None:
     table is all -1) through ``paged_attention`` in f32 and bf16 and at
     G = 1 and G = 8, or with ``quant`` through ``paged_attention_int8``
     on the same kind of inputs, the pages quantized by ``_quantize``, with
-    an f32 and a bf16 query and at G = 1; then, in bf16, one row of 1500
-    tokens and one of 4096 (64 pages, 32 splits). Both int8 versions
+    an f32 and a bf16 query and at G = 1; both at gemma3-4b's D 256 (H8
+    KV4); then, in bf16, one row of 1500 tokens and one of 4096 (64 pages,
+    32 splits). Both int8 versions
     dequantize exactly in fp32, so the limits are ``TOL``'s either way.
-    On the main batch the split-K kernel's invariance is checked bit for
-    bit: each row served alone equals its row of the batch, and the
-    32-page table widened to 64 columns of -1 gives the same output."""
+    On the main batch and the bf16 D 256 batch the split-K kernel's
+    invariance is checked bit for bit: each row served alone equals its
+    row of the batch, and the 32-page table widened to 64 columns of -1
+    gives the same output."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -502,6 +668,10 @@ def _kernels_paged(head: dict, rng, quant: bool) -> None:
         cases += [(torch.bfloat16, f"bf16 B8 H{H} KV{KV} D{D} ({arch}, "
                    f"G={H // KV})", (8, H, KV, D), batch)
                   for arch, H, KV, D in NEW_HEAD_LAYOUTS]
+    # gemma3-4b's global layers, D 256, with both page types
+    cases += [(torch.float32, "f32 B8 H8 KV4 D256 (gemma3-4b, G=2)",
+               (8, 8, 4, 256), batch),
+              (torch.bfloat16, GEMMA_DECODE, (8, 8, 4, 256), batch)]
     cases += [(torch.bfloat16, "bf16 B1 H24 KV8 D128, 1500 tokens",
                (1, 24, 8, 128), (32, [1500], [])),
               (torch.bfloat16, "bf16 B1 H24 KV8 D128, one row of 4096 "
@@ -535,7 +705,7 @@ def _kernels_paged(head: dict, rng, quant: bool) -> None:
         if B == 8:
             check(bool((got[5] == 0).all()),
                   f"{name}: a row whose table is all -1 must give 0")
-        if label == DECODE_MAIN:
+        if label in (DECODE_MAIN, GEMMA_DECODE):
             def call(q_, bt_, ln_):
                 return kernel(q_, *args[1:-2], bt_, ln_)
             for b in range(B):
@@ -572,14 +742,15 @@ def _label(dtype) -> str:
 
 
 # the d_model of every served path: llama3.2-3b, mamba2-370m,
-# qwen3-moe-30b-a3b, llama3-8b
-SERVED_WIDTHS = (3072, 1024, 2048, 4096)
+# qwen3-moe-30b-a3b, llama3-8b, gemma3-4b
+SERVED_WIDTHS = (3072, 1024, 2048, 4096, 2560)
 
 
 def _kernels_rmsnorm(head: dict) -> None:
     """The norms of every served path: a decode batch [8, D] and a
     prefill chunk [1024, D] at the widths of llama3.2-3b (3072),
-    mamba2-370m (1024), qwen3-moe-30b-a3b (2048) and llama3-8b (4096);
+    mamba2-370m (1024), qwen3-moe-30b-a3b (2048), llama3-8b (4096) and
+    gemma3-4b (2560);
     then rows whose width is not a multiple of 16 bytes; then at each
     served width rows alone, [1, D], against the same rows in [8, D] and
     in [1024, D], bit for bit."""
@@ -593,7 +764,8 @@ def _kernels_rmsnorm(head: dict) -> None:
     cases = [(dtype, shape) for shape in ((8, 3072), (1024, 3072),
                                           (1024, 1024), (8, 2048),
                                           (1024, 2048), (8, 4096),
-                                          (1024, 4096))
+                                          (1024, 4096), (8, 2560),
+                                          (1024, 2560))
              for dtype in (torch.float32, torch.bfloat16)]
     cases += [(torch.bfloat16, (5, 1001)), (torch.float32, (3, 77))]
     for dtype, (N, D) in cases:
@@ -812,36 +984,59 @@ def _replica(arch: str, scheme: str, kv_quant: bool, kv_cfg=None):
     return Replica(scheduler=sched, backend=eng, kv=kv)
 
 
+def _long_prompt_requests(rng, n: int):
+    """The serve script's mix (arrivals over ``n`` seconds, 4-23 output
+    tokens, the three tiers in turn, every fifth request unimportant)
+    with prompts of 1100-1899 tokens, longer than gemma3-4b's 1024-token
+    window, within ``--max-len 2048``."""
+    from repro_torch.core.request import Request
+    from repro_torch.serving.schemes import CPU_TIERS
+
+    reqs = []
+    for i, t in enumerate(np.sort(rng.uniform(0, n * 1.0, n))):
+        q = CPU_TIERS[i % 3]
+        reqs.append(Request(
+            rid=i, arrival=float(t), prompt_len=int(rng.integers(1100, 1900)),
+            decode_len=int(rng.integers(4, 24)), qos=q, app_id=q.name,
+            important=bool(i % 5)))
+    return reqs
+
+
 def phase_serve(path: str) -> tuple:
     """Serve 12 requests on ``path`` at full width with the counts zeroed
     just before; returns the counts read just after, and the engine. The
-    ``SCRIPT_PATHS`` run the serve script (``repro_torch.launch.serve``)
+    paths with ``script`` run the serve script (``repro_torch.launch.serve``)
     as a user does; the others serve the script's request mix through the
     replica that ``_replica`` builds (the int8 path with int8 pages, the
-    paper's llama3-8b from ``paper_models``)."""
+    paper's llama3-8b from ``paper_models``); a path with ``long_prompts``
+    serves ``_long_prompt_requests`` instead; each must have launched its
+    ``variants``."""
     from repro_torch.core.kvpool import kv_bytes_per_block
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import moe
     from repro_torch.serving.metrics import compute_metrics
 
-    arch, kv_quant, kernels = PATHS[path]
+    p = PATHS[path]
+    arch, kv_quant, kernels = p.arch, p.kv_quant, p.kernels
     ops.reset_counts()
     moe.rungs.clear()
     t0 = time.perf_counter()
-    if path in SCRIPT_PATHS:
+    if p.script:
         rep = serve.main(["--arch", arch, "--device", "cuda", "--dtype",
                           "bf16", "--n-requests", "12", "--max-len", "2048",
                           "--slots", "8", "--seed", "0"])
     else:
         rep = _replica(arch, "niyama", kv_quant=kv_quant)
         rep.backend.warm()
-        rep.submit_all(serve.make_requests(np.random.default_rng(0), 12,
-                                           2048))
+        rng = np.random.default_rng(0)
+        rep.submit_all(_long_prompt_requests(rng, 12) if p.long_prompts
+                       else serve.make_requests(rng, 12, 2048))
         rep.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.counts()
+    variants = ops.variants()
     rungs = dict(sorted(moe.rungs.items()))
     reads = sum(rungs.values())
     eng = rep.backend
@@ -858,6 +1053,10 @@ def phase_serve(path: str) -> tuple:
     for name in kernels:
         check(counts[name]["launches"] > 0,
               f"serve {path}: {name} was never launched")
+    for name, v in p.variants:
+        check(variants[name].get(v, 0) > 0,
+              f"serve {path}: {name} never launched as {v}: "
+              f"{variants[name]}")
     for name, c in counts.items():
         check(c["plain"] == 0,
               f"serve {path}: the plain {name} ran {c['plain']} times")
@@ -875,7 +1074,8 @@ def phase_serve(path: str) -> tuple:
           f"{n_tok / busy:.1f} output tok/s, {(n_prompt + n_tok) / busy:.1f} "
           f"tok/s; TTFT p99 {m.ttft_p99:.3f} s, TBT p99 "
           f"{m.tbt_p99 * 1e3:.1f} ms; launches {counts}")
-    print(f"[serve] {path}: page-window buckets: {eng.gather_bucket_hits}")
+    print(f"[serve] {path}: page-window buckets: {eng.gather_bucket_hits}; "
+          f"attention launches by variant {variants}")
     n_moe = sum(1 for l in eng.cfg.layers if l.ffn == "moe")
     check((reads > 0) == (n_moe > 0),
           f"serve {path}: {reads} host reads of the MoE segment size over "
@@ -911,19 +1111,21 @@ OWN_KERNELS = ("paged_decode", "chunked_prefill", "rmsnorm_kernel",
                "ssd_chunk_scan_kernel")
 
 
-def phase_profile(eng, prefill: bool = True) -> None:
+def phase_profile(eng, prefill: bool = True, at: tuple = (1000, 0)) -> None:
     """Where one decode and (with ``prefill``) one prefill iteration of a
     served engine spend their time: host wall time per iteration, device
     busy time by kernel (torch.profiler) and the device's idle share; for
     an engine with MoE layers, also the device time of the router, the
-    expert products and the combine (``_moe_split``). The iterations
-    write the engine's cache in place; the engine serves nothing
-    after."""
+    expert products and the combine (``_moe_split``). ``at``: the decode
+    rows' context and the prefill row's start. The iterations write the
+    engine's cache in place; the engine serves nothing after."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import transformer as T
 
-    n, mb, dev = eng.n_slots, 16, eng.device
+    ctx, start = at
+    n, dev = eng.n_slots, eng.device
+    mb = -(-max(ctx + 1, start + 1024) // eng.block_size)
     i32 = dict(dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
@@ -939,18 +1141,21 @@ def phase_profile(eng, prefill: bool = True) -> None:
     bt = torch.arange(n * mb, **i32).reshape(n, mb)
     def flags(*shape, value=False):
         return torch.full(shape, value, dtype=torch.bool, device=dev)
+    pre_name = "prefill 1 row of 1024 tokens" + (f" at {start}" if start
+                                                 else "")
     plans = {
-        "decode 8 rows at 1000 tokens": (
+        f"decode 8 rows at {ctx} tokens": (
             z(0, 1), z(0), z(0), z(0), flags(0), z(0), tokens(n),
-            torch.full((n,), 1000, **i32), flags(n, value=True), z(0, mb),
+            torch.full((n,), ctx, **i32), flags(n, value=True), z(0, mb),
             bt),
-        "prefill 1 row of 1024 tokens": (
-            tokens(1, 1024), z(1), z(1), torch.full((1,), 1024, **i32),
-            flags(1, value=True), torch.full((1,), 1023, **i32), z(0), z(0),
-            flags(0), bt[:1], z(0, mb)),
+        pre_name: (
+            tokens(1, 1024), z(1), torch.full((1,), start, **i32),
+            torch.full((1,), 1024, **i32), flags(1, value=start == 0),
+            torch.full((1,), 1023, **i32), z(0), z(0), flags(0), bt[:1],
+            z(0, mb)),
     }
     if not prefill:
-        del plans["prefill 1 row of 1024 tokens"]
+        del plans[pre_name]
     tag = f"{eng.cfg.name}{' int8' if eng.kv_quant else ''}"
     reps = 5
     for name, args in plans.items():
@@ -1046,47 +1251,51 @@ def _clone_cache(cache):
                        for c in cache["layers"]]}
 
 
-# the final hidden states of the 2-layer parity checks: llama with pages
-# in the model dtype and with int8 pages, and qwen3-moe. The int8 pages
-# are written from inputs that differ by the kernels' summation order
-# (about 1e-6), so a value on a rounding boundary lands one int8 step
-# apart, moving a score by up to a scale (max|k| / 127) times |q| D^-1/2:
-# the limit is wider.
-PARITY_HIDDEN = {("llama3.2-3b", False): 1e-4, ("llama3.2-3b", True): 1e-3,
-                 ("qwen3-moe-30b-a3b", False): 1e-4}
+# two logits of the plain run closer than this are a near-tie: an argmax
+# between them may flip on the kernels' summation order alone (f32 hidden
+# states within ``parity_hidden``, times |lm_head| ~ 0.02 over d_model)
+NEAR_TIE_LOGIT = 1e-4
 # the grouped MoE against the dropless sweep on the card, f32: both route
 # through the same ``_route``, so they can differ only where cuBLAS sums
 # a row's products in another order for another row count (the grouped
 # buffer holds C rows an expert, the sweep every token): a few fp32 ulps
 # of outputs of magnitude ~1. The whole 2-layer iteration served with
 # ``moe_impl="dropless"`` against the grouped default is held to the
-# model's ``PARITY_HIDDEN``: the same reordering, carried through a layer.
+# path's ``parity_hidden``: the same reordering, carried through a layer.
 MOE_GROUPED_DROPLESS = 1e-5
 
 
-def phase_parity(arch: str = "llama3.2-3b", kv_quant: bool = False) -> None:
-    """Two full-width layers of ``arch`` in f32 (qwen3-moe-30b-a3b: 7.4 GB
-    of weights, 4.8 GB of them experts), one mixed iteration (ragged
-    prefill rows, a pad row, decode slots two of them inactive) through
-    the kernels and through the plain versions, with pages in the model
-    dtype or int8 pages: the final hidden states within
-    ``PARITY_HIDDEN``, the written pages within 1e-4 (int8: one int8
-    step, and the scales within one bf16 ulp), equal sampled ids. With
-    MoE layers, then the same iteration served with
-    ``moe_impl="dropless"`` against the grouped default (hidden states
-    within ``PARITY_HIDDEN``, equal sampled ids), and each layer's grouped
-    MoE against its dropless sweep on one 1024-token row of normed hidden
-    states, within ``MOE_GROUPED_DROPLESS``."""
+def phase_parity(path: str) -> None:
+    """Two full-width layers of ``path``'s arch in f32 (its
+    ``parity_layers``; qwen3-moe-30b-a3b: 7.4 GB of weights, 4.8 GB of
+    them experts; gemma3-4b: a sliding-window and a global layer, with
+    positions up to 2000 past the 1024-token window), one mixed iteration
+    (ragged prefill rows, a pad row, decode slots two of them inactive)
+    through the kernels and through the plain versions, with pages in the
+    model dtype or int8 pages: the final hidden states within the path's
+    ``parity_hidden``, the written pages within 1e-4 (int8: one int8
+    step, and the scales within one bf16 ulp), equal sampled ids (with
+    ``near_tie``: equal or a logged near-tie, ``_ids_agree``). With MoE
+    layers, then the same iteration served with ``moe_impl="dropless"``
+    against the grouped default (hidden states within ``parity_hidden``,
+    equal sampled ids), and each layer's grouped MoE against its dropless
+    sweep on one 1024-token row of normed hidden states, within
+    ``MOE_GROUPED_DROPLESS``."""
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
 
+    p = PATHS[path]
+    arch, kv_quant = p.arch, p.kv_quant
     full = _model_config(arch)
-    cfg = dataclasses.replace(full, num_layers=2, layers=full.layers[:2])
+    cfg = dataclasses.replace(full, num_layers=2, layers=tuple(
+        full.layers[i] for i in p.parity_layers))
+    # a sliding-window model's positions reach past its window
+    windowed = any(l.mixer == "swa" for l in cfg.layers)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     params = T.init_params(cfg, gen, "cuda", torch.float32)
     rng = np.random.default_rng(1)
-    bs, n_slots, maxb = 64, 8, 16
+    bs, n_slots, maxb = 64, 8, 32 if windowed else 16
     nb = n_slots * maxb
     cache = T.init_paged_cache(cfg, n_slots, nb, bs, torch.float32, "cuda",
                                kv_quant=kv_quant)
@@ -1108,14 +1317,16 @@ def phase_parity(arch: str = "llama3.2-3b", kv_quant: bool = False) -> None:
     # prefill: rows on slots 0-2 at ragged offsets, one pad row
     pre_slots = np.array([0, 1, 2, n_slots], np.int32)
     pre_reset = np.array([1, 0, 0, 0], bool)
-    pre_start = np.array([0, 200, 513, 0], np.int32)
+    pre_start = np.array([0, 1200, 1700, 0] if windowed
+                         else [0, 200, 513, 0], np.int32)
     pre_len = np.array([256, 256, 90, 0], np.int32)
     pre_tokens = rng.integers(0, cfg.vocab_size, (4, 256)).astype(np.int32)
     pre_bt = np.full((4, maxb), -1, np.int32)
     pre_bt[:3] = perm[:3]
     pre_sample = np.maximum(pre_len - 1, 0).astype(np.int32)
     # decode: slots 3-7, two of them inactive (slot 6 mid-prefill length)
-    dec_start = np.array([0, 0, 0, 700, 31, 1000, 450, 64], np.int32)
+    dec_start = np.array([0, 0, 0, 1700, 31, 2000, 450, 1100] if windowed
+                         else [0, 0, 0, 700, 31, 1000, 450, 64], np.int32)
     dec_active = np.array([0, 0, 0, 1, 1, 1, 0, 1], bool)
     dec_bt = np.full((n_slots, maxb), -1, np.int32)
     dec_bt[dec_active] = perm[dec_active]
@@ -1133,25 +1344,35 @@ def phase_parity(arch: str = "llama3.2-3b", kv_quant: bool = False) -> None:
 
     label = "int8 pages" if kv_quant else "f32 pages"
     decode = "paged_attention_int8" if kv_quant else "paged_attention"
+    # two runs; a sliding-window layer's decode rows go to the prefill
+    # kernel as one-token chunks
+    n_full = sum(l.mixer == "attn" for l in cfg.layers)
+    want_launches = {decode: 2 * n_full, "chunked_prefill_attention":
+                     2 * (2 * cfg.num_layers - n_full)}
     ops.reset_counts()
     hk, ik, ck = run()
     launched = ops.counts()
     with ops.plain_versions():
         hp, ip, cp = run()
     torch.cuda.synchronize()
-    check(launched[decode]["launches"] == 2 * cfg.num_layers
-          and launched[decode]["plain"] == 0,
-          f"parity {label}: the kernel path ran {launched}")
+    check(all(launched[k]["launches"] == n and launched[k]["plain"] == 0
+              for k, n in want_launches.items()),
+          f"parity {label}: the kernel path ran {launched}, not "
+          f"{want_launches}")
     live = np.r_[pre_len > 0, dec_active]
     err = float((hk - hp).abs().max())
-    limit = PARITY_HIDDEN[arch, kv_quant]
+    limit = p.parity_hidden
     check(bool(torch.isfinite(hk).all()),
           f"parity {label}: non-finite hidden state")
     check(err <= limit, f"parity {label}: max |hidden kernel - plain| = "
           f"{err:.3g} > {limit}")
-    check(torch.equal(ik[dev(live)], ip[dev(live)]),
-          f"parity {label}: sampled ids differ: {ik.tolist()} vs "
-          f"{ip.tolist()}")
+    if p.near_tie:
+        _ids_agree(f"parity {arch} {label}", params, cfg, live, ik, ip, hk,
+                   hp)
+    else:
+        check(torch.equal(ik[dev(live)], ip[dev(live)]),
+              f"parity {label}: sampled ids differ: {ik.tolist()} vs "
+              f"{ip.tolist()}")
     # every page but the sink, whose content is whichever invalid write
     # landed last
     pairs = [(x[:-1], y[:-1]) for a, b in zip(ck["layers"], cp["layers"])
@@ -1180,7 +1401,7 @@ def phase_parity(arch: str = "llama3.2-3b", kv_quant: bool = False) -> None:
         page_txt = f"pages {page_err:.3g}"
     print(f"[parity] {arch}, 2-layer full-width f32, {label}: max "
           f"|hidden kernel - plain| {err:.3g}, {page_txt}, sampled ids "
-          f"equal ({ik[dev(live)].tolist()})")
+          f"{ik[dev(live)].tolist()} (plain {ip[dev(live)].tolist()})")
     if cfg.moe is not None:
         del hp, ck, cp
         with torch.inference_mode():
@@ -1200,6 +1421,31 @@ def phase_parity(arch: str = "llama3.2-3b", kv_quant: bool = False) -> None:
               f"{err:.3g}, sampled ids equal")
         del hk, hd, cache
         _grouped_against_dropless(params, cfg, gen)
+
+
+def _ids_agree(what, params, cfg, live, ik, ip, hk, hp) -> None:
+    """Fails unless the kernels' and the plain versions' sampled ids are
+    equal on the live rows, or a differing row is a near-tie: its two
+    ids' logits from the plain run's hidden state within
+    ``NEAR_TIE_LOGIT``, which is logged."""
+    w = params.lm_head if params.lm_head is not None else params.embed.T
+    for r in np.flatnonzero(live):
+        a, b = int(ik[r]), int(ip[r])
+        if a == b:
+            continue
+        with torch.inference_mode():
+            lg = (hp[r] @ w)[:cfg.vocab_size]
+            top = torch.topk(lg, 2)
+        gap = abs(float(lg[a] - lg[b]))
+        print(f"[parity] {what}: row {r} sampled {a} with the kernels, "
+              f"{b} with the plain versions; their logits differ by "
+              f"{gap:.3g} (top-2 {top.indices.tolist()} at "
+              f"{[round(v, 6) for v in top.values.tolist()]}, kernels' "
+              f"hidden state {float((hk[r] - hp[r]).abs().max()):.3g} "
+              f"away)")
+        check(gap <= NEAR_TIE_LOGIT, f"{what}: sampled ids differ at row "
+              f"{r} ({a} vs {b}) and it is not a near-tie ({gap:.3g} > "
+              f"{NEAR_TIE_LOGIT})")
 
 
 def _grouped_against_dropless(params, cfg, gen) -> None:
@@ -1507,6 +1753,98 @@ def phase_hierarchy(kv_quant: bool) -> None:
     _free_device_memory()
 
 
+# ---------------------------------------------------------------- phase 7
+
+def phase_reclaim() -> None:
+    """SWA page reclamation at full width: llama3.2-3b's ``long_500k``
+    variant (every layer sliding, window 8192) in bf16, 2 slots of 9216
+    tokens. A 9000-token prompt (five chunks of up to 2048) sheds its
+    dead leading blocks in the prefill bookkeeping, its decode sheds one
+    more, and a second request admitted after the reclaims is granted a
+    freed page id; both streams must equal, token for token, those of
+    the same engine with reclamation switched off after construction.
+    Every attention read goes through the prefill kernel (decode rows as
+    one-token chunks), none through the decode kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.request import Request
+    from repro_torch.core.scheduler import BatchPlan
+    from repro_torch.engine.torch_backend import TorchEngine
+    from repro_torch.kernels import ops
+    from repro_torch.serving.schemes import CPU_TIERS
+
+    cfg = get_config("llama3.2-3b", "long_500k")
+    W, prompt, chunk = 8192, 9000, 2048
+
+    def drive(reclaim: bool) -> tuple:
+        eng = TorchEngine(cfg, n_slots=2, max_len=9216, quantum=32, seed=0,
+                          dtype=torch.bfloat16, block_size=64,
+                          device="cuda")
+        check(eng._swa_reclaim_window == W, f"reclaim: the gate gives "
+              f"{eng._swa_reclaim_window}, not {W}")
+        if not reclaim:
+            eng._swa_reclaim_window = None
+        r0 = Request(rid=0, arrival=0.0, prompt_len=prompt, decode_len=33,
+                     qos=CPU_TIERS[0])
+        eng.on_admit(r0)
+        granted = set()             # every page id rid 0 has held
+
+        def step(plan):
+            eng.execute(plan, 0.0)
+            granted.update(eng.pool.block_table(0))
+        for start in range(0, prompt, chunk):
+            n = min(chunk, prompt - start)
+            step(BatchPlan(prefill=[(r0, n)]))
+            r0.prefilled = start + n
+        after_prefill = eng.kv_blocks_reclaimed
+        for _ in range(24):
+            step(BatchPlan(decode=[r0]))
+        # reclaimed and not granted again (the pool reuses the last freed
+        # id first)
+        freed = granted - set(eng.pool.block_table(0))
+        r1 = Request(rid=1, arrival=0.0, prompt_len=500, decode_len=8,
+                     qos=CPU_TIERS[0])
+        eng.on_admit(r1)
+        eng.execute(BatchPlan(prefill=[(r1, 500)], decode=[r0]), 0.0)
+        r1.prefilled = 500
+        reused = set(eng.pool.block_table(1)) & freed
+        holes = sum(1 for i in eng.pool.block_table(0) if i < 0)
+        for _ in range(7):
+            eng.execute(BatchPlan(decode=[r0, r1]), 0.0)
+        torch.cuda.synchronize()
+        out = (dict(eng.generated), after_prefill, eng.kv_blocks_reclaimed,
+               reused, holes)
+        del eng
+        _free_device_memory()
+        return out
+
+    ops.reset_counts()
+    got, after_prefill, reclaimed, reused, holes = drive(True)
+    counts, variants = ops.counts(), ops.variants()
+    want, _, none, _, no_holes = drive(False)
+    check(after_prefill > 0 and reclaimed > after_prefill,
+          f"reclaim: {after_prefill} blocks reclaimed by the prefill, "
+          f"{reclaimed} in all: the prefill and the decode must each shed")
+    check(none == 0 and no_holes == 0, f"reclaim: the engine with the "
+          f"gate off reclaimed {none} blocks, {no_holes} holes")
+    check(len(reused) > 0, "reclaim: the request admitted after the "
+          "reclaim holds none of the freed page ids")
+    check(got == want, f"reclaim: the streams differ from the run without "
+          f"reclamation: {got} vs {want}")
+    check(counts["paged_attention"]["launches"] == 0
+          and counts["chunked_prefill_attention"]["launches"] > 0
+          and all(c["plain"] == 0 for c in counts.values())
+          and set(variants["chunked_prefill_attention"])
+          == {(cfg.head_dim, W)},
+          f"reclaim: launches {counts}, variants {variants}")
+    print(f"[reclaim] llama3.2-3b long_500k (window {W}), bf16: "
+          f"{after_prefill} blocks reclaimed by the {prompt}-token "
+          f"prefill, {reclaimed} in all ({holes} -1 holes in rid 0's "
+          f"table); the request admitted after holds {len(reused)} freed "
+          f"page ids; streams equal the run without reclamation "
+          f"({len(got[0])} + {len(got[1])} tokens); prefill-kernel "
+          f"launches {variants['chunked_prefill_attention']}")
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1544,19 +1882,22 @@ def main() -> int:
     # each served path: counts zeroed just before it, read just after;
     # its engine profiled, then freed before the next model is built
     launches = {name: 0 for name in SOURCES}
-    for path, (_, kv_quant, _) in PATHS.items():
+    for path, p in PATHS.items():
         counts, eng = timed(f"serve {path}", phase_serve, path)
         for name in SOURCES:
             launches[name] += counts[name]["launches"]
-        timed(f"profile {path}", phase_profile, eng, prefill=not kv_quant)
+        timed(f"profile {path}", phase_profile, eng, prefill=not p.kv_quant,
+              at=p.profile_at)
         del eng
         _free_device_memory()
-    timed("parity llama3.2-3b", phase_parity)
+    timed("parity llama3.2-3b", phase_parity, "llama3.2-3b")
     timed("parity mamba2-370m", phase_parity_mamba)
-    timed("parity llama3.2-3b int8", phase_parity, kv_quant=True)
+    timed("parity llama3.2-3b int8", phase_parity, "llama3.2-3b int8")
     timed("parity qwen3-moe-30b-a3b", phase_parity, "qwen3-moe-30b-a3b")
+    timed("parity gemma3-4b", phase_parity, "gemma3-4b")
     timed("hierarchy bf16", phase_hierarchy, kv_quant=False)
     timed("hierarchy int8", phase_hierarchy, kv_quant=True)
+    timed("reclaim", phase_reclaim)
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         kernels.append(dict(name=name, route="cuda", source=src,

@@ -41,9 +41,16 @@
 // rounding P to bf16 would miss the one-bf16-ulp limit on small outputs).
 // Ragged C and the key tail past the frontier are zero-filled by cp.async
 // and masked. Three blocks fit an SM (167 registers a thread at D = 128,
-// 68 KB of shared memory). Left for later: wgmma with TMA-fed tiles and warp
-// specialisation, and skipping the P.V products of key steps that a warp's
-// rows cannot see.
+// 68 KB of shared memory). D = 256 (gemma3-4b) has a tile plan of its own
+// (MmaPlan<256>): the fp32 accumulator of 16 rows x 256 columns is 128
+// registers a lane, so the Q tile stays in shared memory and is read at
+// each k-step, key tiles are 32 keys, and two blocks fit an SM (99 KB of
+// shared memory each). The same body serves the decode rows of the
+// sliding-window layers (C = 1 over the gathered view, as the JAX kernel
+// branch routes them): a block then holds one live query row of 64, which
+// is correct and wasteful. Left for later: wgmma with TMA-fed tiles and
+// warp specialisation, skipping the P.V products of key steps that a
+// warp's rows cannot see, and a decode body for windowed C = 1 rows.
 //
 // f32 design (chunked_prefill_kernel): the tensor cores have no fp32
 // path that holds the f32 limit (1e-4) with TF32 off, and f32 is the
@@ -51,6 +58,8 @@
 // version's body: one block per (32 query rows, head, row b), fp32 tiles
 // in shared memory, 32-key tiles (also aligned to absolute key
 // positions), products on the CUDA cores, warp w owning rows 8w .. 8w+7.
+// Its shared memory is (3 x 32 x D + 32 + 32 x 32) x 4 bytes, 100 KB at
+// D = 256, above the default 48 KB: allow_smem opts in.
 #include <type_traits>
 
 #include "common.cuh"
@@ -206,13 +215,43 @@ __global__ void __launch_bounds__(kWarps * 32)
 // ---------------------------------------------------------------- bf16
 
 constexpr int kMmaRows = 64;              // query rows per block
-constexpr int kMmaKeys = 64;              // keys per tile
 constexpr int kMmaWarps = 4;              // 16 query rows each
+
+// The tile plan of a head dim. D 64 and 128: 64-key tiles, the warp's Q
+// fragments held in registers (KSTEPS x 4) for the whole key loop, three
+// blocks an SM. D 256: a warp's fp32 accumulator alone is 16 x 256 / 32 =
+// 128 registers a lane and its Q fragments would be 64 more, so the Q
+// tile stays in shared memory (its fragments are read with ldmatrix at
+// each k-step of Q.K^T), the key tiles are 32 keys (the scores take 16
+// registers, not 32), and two blocks fit an SM (2 x 99 KB of shared
+// memory, up to 255 registers a thread).
+template <int D>
+struct MmaPlan {
+  static constexpr int kKeys = 64;        // keys per tile
+  static constexpr bool kQInRegs = true;  // Q fragments in registers
+  static constexpr int kMinBlocks = 3;    // blocks an SM (launch bound)
+};
+template <>
+struct MmaPlan<256> {
+  static constexpr int kKeys = 32;
+  static constexpr bool kQInRegs = false;
+  static constexpr int kMinBlocks = 2;
+};
+
+// Bytes of shared memory a block of the tensor-core body takes: two
+// stages of K and V tiles, and the Q tile, which shares K's stage 1 when
+// its fragments move to registers before the loop.
+template <int D>
+constexpr size_t mma_smem_bytes() {
+  constexpr size_t row = (size_t)(D + 8) * sizeof(__nv_bfloat16);
+  return 4 * MmaPlan<D>::kKeys * row +
+         (MmaPlan<D>::kQInRegs ? 0 : (size_t)kMmaRows * row);
+}
 
 // Thread layout of the m16n8k16 fragments (PTX ISA): lane = 4 * gr + tg;
 // an accumulator holds rows gr and gr + 8, columns 2 tg and 2 tg + 1.
 template <int D>
-__global__ void __launch_bounds__(kMmaWarps * 32, 3)
+__global__ void __launch_bounds__(kMmaWarps * 32, MmaPlan<D>::kMinBlocks)
     chunked_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
                                const __nv_bfloat16* __restrict__ k,
                                const __nv_bfloat16* __restrict__ v,
@@ -220,6 +259,8 @@ __global__ void __launch_bounds__(kMmaWarps * 32, 3)
                                const int* __restrict__ kv_lens,
                                __nv_bfloat16* __restrict__ out, int C, int H,
                                int S, int KV, int window, float scale) {
+  constexpr int kMmaKeys = MmaPlan<D>::kKeys;
+  constexpr bool kQInRegs = MmaPlan<D>::kQInRegs;
   constexpr int ROW = D + 8;              // padded smem row, bf16 elements
   constexpr int TILE = kMmaKeys * ROW;    // one K or V tile
   constexpr int CH = D / 8;               // 16-byte chunks per row
@@ -242,7 +283,9 @@ __global__ void __launch_bounds__(kMmaWarps * 32, 3)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2]
   __nv_bfloat16* Vs = Ks + 2 * TILE;                               // [2]
-  __nv_bfloat16* Qs = Ks + TILE;        // the Q tile shares K's stage 1
+  // the Q tile: in K's stage 1 when its fragments move to registers
+  // before the loop, else after the V stages for the whole loop
+  __nv_bfloat16* Qs = kQInRegs ? Ks + TILE : Vs + 2 * TILE;
 
   const int nq = min(kMmaRows, C - q0);
   const int qoff = q_offsets[b];
@@ -300,18 +343,19 @@ __global__ void __launch_bounds__(kMmaWarps * 32, 3)
   }
   load_kv(kv_begin, 0);
   cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qf[KSTEPS][4];
-  {
-    const uint32_t qb = smem_u32(Qs);
-    const int row = warp * 16 + (lane & 15);
+  // this lane's ldmatrix address of the warp's Q fragment at k-step 0
+  const uint32_t q_addr =
+      smem_u32(Qs) +
+      (uint32_t)((warp * 16 + (lane & 15)) * ROW + (lane >> 4) * 8) * 2;
+  uint32_t qf[kQInRegs ? KSTEPS : 1][4];
+  if constexpr (kQInRegs) {
+    cp_async_wait<0>();
+    __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk)
-      ldmatrix_x4(qb + (uint32_t)(row * ROW + kk * 16 + (lane >> 4) * 8) * 2,
-                  qf[kk]);
+      ldmatrix_x4(q_addr + kk * 16 * 2, qf[kk]);
+    __syncthreads();                      // Q read before stage 1 reloads
   }
-  __syncthreads();                        // Q read before stage 1 reloads
 
   float acc[DB][4];
 #pragma unroll
@@ -341,14 +385,16 @@ __global__ void __launch_bounds__(kMmaWarps * 32, 3)
     const uint32_t kb = smem_u32(Ks + st * TILE);
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
+      const uint32_t* qa = qf[kQInRegs ? kk : 0];
+      if constexpr (!kQInRegs) ldmatrix_x4(q_addr + kk * 16 * 2, qf[0]);
 #pragma unroll
       for (int nb = 0; nb < NB; nb += 2) {
         const int key = nb * 8 + (lane & 7) + ((lane >> 4) << 3);
         const int col = kk * 16 + ((lane >> 3) & 1) * 8;
         uint32_t kf[4];
         ldmatrix_x4(kb + (uint32_t)(key * ROW + col) * 2, kf);
-        mma_bf16(s[nb], qf[kk], kf[0], kf[1]);
-        mma_bf16(s[nb + 1], qf[kk], kf[2], kf[3]);
+        mma_bf16(s[nb], qa, kf[0], kf[1]);
+        mma_bf16(s[nb + 1], qa, kf[2], kf[3]);
       }
     }
 
@@ -458,8 +504,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
         static_cast<const int*>(kv_lens), static_cast<T*>(out), C, H, S, KV,
         window, scale);
   } else {
-    // two stages of K and V tiles; the Q tile shares K's stage 1
-    const size_t smem = (size_t)4 * kMmaKeys * (D + 8) * sizeof(T);
+    const size_t smem = mma_smem_bytes<D>();
     auto kernel = chunked_prefill_mma_kernel<D>;
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
@@ -475,8 +520,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. D: 64 or 128 (the wrapper checks).
-// window <= 0 means no window.
+// dtype: 0 = float32, 1 = bfloat16. D: 64, 128 or 256 (the wrapper
+// checks). window <= 0 means no window.
 extern "C" int chunked_prefill_attention_launch(
     const void* q, const void* k, const void* v, const void* q_offsets,
     const void* kv_lens, void* out, int B, int C, int H, int S, int KV,

@@ -124,17 +124,21 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 }
 
 // Returns launch<T, D>(...) for the wrapper's dtype code (0 = float32,
-// 1 = bfloat16: DTYPES in kernels/build.py) and head dim D of 64 or 128,
-// and cudaErrorInvalidValue for any other pair.
+// 1 = bfloat16: DTYPES in kernels/build.py) and head dim D of 64, 128 or
+// 256 (HEAD_DIMS there), and cudaErrorInvalidValue for any other pair.
 #define DISPATCH_DTYPE_HEAD_DIM(dtype, D, ...)                          \
   do {                                                                  \
     if ((dtype) == 0 && (D) == 64) return launch<float, 64>(__VA_ARGS__); \
     if ((dtype) == 0 && (D) == 128)                                     \
       return launch<float, 128>(__VA_ARGS__);                           \
+    if ((dtype) == 0 && (D) == 256)                                     \
+      return launch<float, 256>(__VA_ARGS__);                           \
     if ((dtype) == 1 && (D) == 64)                                      \
       return launch<__nv_bfloat16, 64>(__VA_ARGS__);                    \
     if ((dtype) == 1 && (D) == 128)                                     \
       return launch<__nv_bfloat16, 128>(__VA_ARGS__);                   \
+    if ((dtype) == 1 && (D) == 256)                                     \
+      return launch<__nv_bfloat16, 256>(__VA_ARGS__);                   \
     return cudaErrorInvalidValue;                                       \
   } while (0)
 

@@ -43,7 +43,11 @@
 // W), 20% of its bound and 2.8x under SDPA over the gathered view; what is
 // left is latency: a 128-token split is four dependent tile loads, and
 // the combine pass is a second launch. Left for later: CUDA graphs
-// around the two launches, a deeper ring or TMA for the tiles.
+// around the two launches, a deeper ring or TMA for the tiles. At D = 256
+// (gemma3-4b's global layers) the same template holds 8 output columns a
+// lane and 66 KB of bf16 tiles (130 KB for f32 pages, past the default
+// 48 KB, so allow_smem opts in); its time equals D = 128's at the same
+// bytes (PERF.md).
 #include "paged_decode.cuh"
 
 namespace {
@@ -62,7 +66,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. D: 64 or 128, H / KV <= 32 (the
+// dtype: 0 = float32, 1 = bfloat16. D: 64, 128 or 256, H / KV <= 32 (the
 // wrapper checks both). ml [2, B, H, n_splits] and acc [B, H, n_splits, D]
 // are the fp32 workspace of the splits (kernels/paged_attention.py::
 // plan_splits).

@@ -50,8 +50,9 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
 }  // namespace
 
 // dtype: of q and the output, 0 = float32, 1 = bfloat16. Pages int8, scales
-// bf16. D: 64 or 128, H / KV <= 32 (the wrapper checks all of these). ml
-// and acc: the splits' fp32 workspace, as in paged_attention.cu.
+// bf16. D: 64, 128 or 256, H / KV <= 32 (the wrapper checks all of
+// these). ml and acc: the splits' fp32 workspace, as in
+// paged_attention.cu.
 extern "C" int paged_attention_int8_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scales, const void* v_scales, const void* block_table,

@@ -59,20 +59,28 @@ __device__ __forceinline__ void int8x4_to_float(uint32_t w, float* dst) {
              8388736.f;                   // 2^23 + 128
 }
 
-// N consecutive elements of T from shared memory (aligned to their size)
-// as floats, in one load.
+// N consecutive elements of T from shared memory as floats, in one load
+// when they fit in 16 bytes (aligned to their size), else in 16-byte
+// loads (16-byte aligned): at D = 256 a lane's 8 output columns of f32
+// pages are 32 bytes.
 template <typename T, int N>
 __device__ __forceinline__ void load_smem(const T* src, float* dst) {
-  using R = typename Raw<N * sizeof(T)>::type;
-  const R raw = *reinterpret_cast<const R*>(src);
-  if constexpr (std::is_same<T, int8_t>::value && N % 4 == 0) {
-    const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw);
+  if constexpr (N * sizeof(T) > 16) {
+    constexpr int HALF = 16 / (int)sizeof(T);
 #pragma unroll
-    for (int i = 0; i < N / 4; ++i) int8x4_to_float(w[i], dst + 4 * i);
+    for (int i = 0; i < N; i += HALF) load_smem<T, HALF>(src + i, dst + i);
   } else {
-    const T* e = reinterpret_cast<const T*>(&raw);
+    using R = typename Raw<N * sizeof(T)>::type;
+    const R raw = *reinterpret_cast<const R*>(src);
+    if constexpr (std::is_same<T, int8_t>::value && N % 4 == 0) {
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw);
 #pragma unroll
-    for (int i = 0; i < N; ++i) dst[i] = to_float(e[i]);
+      for (int i = 0; i < N / 4; ++i) int8x4_to_float(w[i], dst + 4 * i);
+    } else {
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int i = 0; i < N; ++i) dst[i] = to_float(e[i]);
+    }
   }
 }
 

@@ -18,10 +18,13 @@ pages.
 
 Mixture-of-experts layers serve through ``moe_impl``: the grouped GEMM
 (the default, as ``JaxEngine``'s) or the dropless every-expert sweep.
+Sliding-window layers read their window of the pages; when every
+attention layer is sliding-window, the leading blocks that slid out of
+every window return to the pool as they die (SWA page reclamation, as in
+``JaxEngine``), counted in ``kv_blocks_reclaimed``.
 
-Not ported yet (ROADMAP.md queue 1): the dense layout, the
-sliding-window path and its page reclamation, tensor parallelism and
-CUDA graphs.
+Not ported yet (ROADMAP.md queue 1): the dense layout, tensor
+parallelism and CUDA graphs.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ from repro_torch.core.request import Request
 from repro_torch.core.scheduler import BatchPlan
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
-from repro_torch.models.config import MAMBA, ModelConfig
+from repro_torch.models.config import ATTN, MAMBA, SWA, ModelConfig
 from repro_torch.models.mamba2 import MambaState
 from repro_torch.models.transformer import (MOE_IMPLS, Transformer,
                                             fused_serve_forward,
@@ -102,6 +105,18 @@ class TorchEngine:
         self.cache = init_paged_cache(cfg, n_slots, self.pool.num_blocks,
                                       block_size, dtype=dtype,
                                       device=self.device, kv_quant=kv_quant)
+        # SWA page reclamation, as JaxEngine gates it: only when EVERY
+        # attention layer is sliding-window (block tables are shared
+        # across layers, so one full-attention layer pins every page).
+        # Positions r <= len - W are outside every window forever, so
+        # their blocks return to the pool; the freed table entries are -1
+        # holes, which the gather reads as page 0 and the window masks.
+        swa_wins = [l.window for l in cfg.layers
+                    if l.mixer == SWA and l.window]
+        self._swa_reclaim_window = (
+            max(swa_wins) if swa_wins
+            and not any(l.mixer == ATTN for l in cfg.layers) else None)
+        self.kv_blocks_reclaimed = 0
         # paged page-window bucket hits: maxb -> iteration count
         self.gather_bucket_hits: Dict[int, int] = {}
         # device block tables reused while no live row's table changed
@@ -532,6 +547,18 @@ class TorchEngine:
             self.generated[rid].append(tok)
             self.last_token[slot] = tok
             self.slot_len[slot] += 1
+        # ---- SWA page reclamation: the fully dead leading blocks of every
+        # live row (positions r <= len - W) go back to the pool
+        if self._swa_reclaim_window is not None:
+            W = self._swa_reclaim_window
+            live = [(req.rid, slot) for slot, req, _ in pre]
+            live += [(rid, slot) for slot, rid in enumerate(emit_dec)
+                     if rid is not None]
+            for rid, slot in live:
+                dead = (int(self.slot_len[slot]) - W + 1) // self.block_size
+                if dead > 0:
+                    self.kv_blocks_reclaimed += \
+                        self.pool.reclaim_prefix(rid, dead)
         elapsed = time.perf_counter() - t0
         self.iteration_log.append((plan.cost(), elapsed))
         return elapsed

@@ -96,7 +96,7 @@ def load_library(name: str) -> ctypes.CDLL:
 # dtype codes of the kernels' C interface (``DISPATCH_DTYPE_HEAD_DIM`` and
 # each kernel's own dispatch)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 
 def check_inputs(name: str, floats: Sequence[torch.Tensor],

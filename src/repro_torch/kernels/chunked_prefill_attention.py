@@ -8,9 +8,12 @@ static mode (one ``q_offset`` / ``kv_len`` for every row) runs the same
 kernel with the two values broadcast, since the kernel trims each query
 tile's key loop at its own causal frontier either way. In bf16 the
 products run on the tensor cores; f32 keeps a CUDA-core body (see the
-source's note).
+source's note). Sliding-window layers pass ``window``; their decode rows
+come here too, as one-token chunks (C = 1).
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
@@ -19,6 +22,8 @@ from . import build
 NAME = "chunked_prefill_attention"
 
 launches = 0    # kernel launches by this process
+# the (head_dim, window) of each of those launches (window None: causal)
+variants: Counter = Counter()
 
 
 def _check(q, k, v, q_offsets, kv_lens, window):
@@ -55,4 +60,5 @@ def chunked_prefill_attention_cuda(q, k, v, q_offsets, kv_lens, window=None):
                  0 if window is None else window, build.DTYPES[q.dtype],
                  D ** -0.5)
     launches += 1
+    variants[D, window] += 1
     return out

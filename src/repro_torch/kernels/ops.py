@@ -112,13 +112,25 @@ def ssd_scan(x, dt, A, B_, C_, init_state, *, chunk: int):
 
 
 def reset_counts() -> None:
-    """Zero every kernel's launch count and every plain-call count."""
+    """Zero every kernel's launch count and every plain-call count, and
+    forget the attention kernels' variants."""
     for name, mod in _WRAPPERS.items():
         mod.launches = 0
         plain_calls[name] = 0
+    for mod in (_pa, _pa8, _cpa):
+        mod.variants.clear()
 
 
 def counts() -> Dict[str, Dict[str, int]]:
     """``{kernel: {"launches": n, "plain": m}}`` since the last reset."""
     return {name: {"launches": mod.launches, "plain": plain_calls[name]}
             for name, mod in _WRAPPERS.items()}
+
+
+def variants() -> Dict[str, Dict]:
+    """The launches of each attention kernel since the last reset, by
+    variant: ``head_dim`` for decode, ``(head_dim, window)`` for
+    prefill."""
+    return {name: dict(mod.variants) for name, mod in
+            (("paged_attention", _pa), ("paged_attention_int8", _pa8),
+             ("chunked_prefill_attention", _cpa))}

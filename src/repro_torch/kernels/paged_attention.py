@@ -12,6 +12,7 @@ the splits and their fp32 workspace, shared with the int8 wrapper.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import Tuple
 
 import torch
@@ -23,6 +24,7 @@ MAX_GROUP = 32      # query heads per kv-head: one warp each
 SPLIT_TOKENS = 128  # tokens a split covers (at least one page)
 
 launches = 0    # wrapper calls that launched the kernels, by this process
+variants: Counter = Counter()   # the head_dim of each of those calls
 
 
 def plan_splits(n_pages: int, page: int) -> Tuple[int, int]:
@@ -83,4 +85,5 @@ def paged_attention_cuda(q, k_pages, v_pages, block_table, lens):
                  B, H, KV, D, page, n_pages, pages_per_split, n_splits,
                  build.DTYPES[q.dtype], D ** -0.5)
     launches += 1
+    variants[D] += 1
     return out

@@ -11,6 +11,8 @@ note.
 """
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from . import build
@@ -19,14 +21,16 @@ from .paged_attention import MAX_GROUP, plan_splits, workspace
 NAME = "paged_attention_int8"
 
 launches = 0    # wrapper calls that launched the kernels, by this process
+variants: Counter = Counter()   # the head_dim of each of those calls
 
 
 def _check(q, k_pages, v_pages, k_scales, v_scales, block_table, lens):
     """``build.check_inputs`` for q and the index tensors (its one-dtype
     rule cannot take the int8 pages), then this kernel's own rules: pages
     int8, contiguous and 16-byte aligned, and scales bf16 of shape
-    ``[P, page, KV]``; head dim 64 or 128 and at most ``MAX_GROUP`` query
-    heads per kv-head; last, every tensor on q's CUDA device."""
+    ``[P, page, KV]``; a head dim of ``build.HEAD_DIMS`` and at most
+    ``MAX_GROUP`` query heads per kv-head; last, every tensor on q's
+    CUDA device."""
     build.check_inputs(NAME, (q,), (block_table, lens))
     pages, scales = (k_pages, v_pages), (k_scales, v_scales)
     if any(t.dtype != torch.int8 for t in pages):
@@ -79,4 +83,5 @@ def paged_attention_int8_cuda(q, k_pages, v_pages, k_scales, v_scales,
                  pages_per_split, n_splits, build.DTYPES[q.dtype],
                  D ** -0.5)
     launches += 1
+    variants[D] += 1
     return out

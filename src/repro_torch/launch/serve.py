@@ -9,9 +9,10 @@ serve script's ``.reduced(num_layers=2, d_model=256)`` model, for CPU runs.
 ``--arch`` picks the architecture from the port's registry
 (``repro_torch.configs``): ``llama3.2-3b`` (the default),
 ``mamba2-370m``, the MoE decoders ``qwen3-moe-30b-a3b`` and
-``dbrx-132b``, the hybrid ``jamba-v0.1-52b``, ``granite-8b`` or
-``starcoder2-15b``. ``--prefix-cache`` gives the replica the KV
-hierarchy's shared-prefix tier, as in the JAX serve script.
+``dbrx-132b``, the hybrid ``jamba-v0.1-52b``, ``granite-8b``,
+``starcoder2-15b`` or the sliding-window decoder ``gemma3-4b``.
+``--prefix-cache`` gives the replica the KV hierarchy's shared-prefix
+tier, as in the JAX serve script.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --dtype bf16 \
       --n-requests 12 --max-len 2048
@@ -20,6 +21,8 @@ hierarchy's shared-prefix tier, as in the JAX serve script.
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
       --arch qwen3-moe-30b-a3b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \
+      --dtype bf16 --n-requests 12 --max-len 2048
 """
 from __future__ import annotations
 

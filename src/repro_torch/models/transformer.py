@@ -24,9 +24,13 @@ Attention reads, the norms and the SSD scan go through ``kernels.ops``:
 the hand-written CUDA kernels for tensors on the card, the plain PyTorch
 versions on the CPU. Mixture-of-experts FFNs (``models/moe.py``) serve
 through ``moe_forward_grouped`` by default, or ``moe_forward_dropless``
-on request (``moe_impl``), as in the JAX fused serve path. Sliding-window
-and encoder-decoder families and modality frontends are not ported yet
-and raise ``NotImplementedError``.
+on request (``moe_impl``), as in the JAX fused serve path.
+Sliding-window layers (``SWA``) hold pages like full-attention layers and
+read them through ``chunked_prefill_attention`` with their window, in
+prefill and in decode, as the JAX kernel branch does; their block tables
+may hold ``-1`` holes where the engine reclaimed pages that slid out of
+every window. Encoder-decoder families and modality frontends are not
+ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
-from .config import ATTN, DENSE, MAMBA, MOE, NONE, ModelConfig
+from .config import ATTN, DENSE, MAMBA, MOE, NONE, SWA, ModelConfig
 from .layers import apply_rope, rmsnorm, swiglu
 from .mamba2 import (Mamba, MambaState, init_mamba_params, init_mamba_state,
                      mamba_forward, mamba_step)
@@ -51,16 +55,16 @@ MOE_IMPLS = {"grouped": moe_forward_grouped,
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise unless ``cfg`` is a decoder the port can serve: every layer
-    mixes with full attention or Mamba2, and its FFN is dense, MoE or
-    absent."""
+    mixes with full attention, sliding-window attention or Mamba2, and
+    its FFN is dense, MoE or absent."""
     if cfg.is_encdec or cfg.frontend is not None or any(
-            l.mixer not in (ATTN, MAMBA) or l.ffn not in (DENSE, MOE, NONE)
-            for l in cfg.layers):
+            l.mixer not in (ATTN, SWA, MAMBA)
+            or l.ffn not in (DENSE, MOE, NONE) for l in cfg.layers):
         raise NotImplementedError(
             f"{cfg.name}: the port serves decoder-only families of full "
-            f"attention or Mamba2 layers with a dense or MoE FFN or none so "
-            f"far; sliding window, encoder-decoder and modality frontends "
-            f"wait in ROADMAP.md queue 1")
+            f"attention, sliding-window attention or Mamba2 layers with a "
+            f"dense or MoE FFN or none so far; encoder-decoder and "
+            f"modality frontends wait in ROADMAP.md queue 1")
 
 
 # ================================================================ params
@@ -301,15 +305,18 @@ def _paged_view(c, bt):
 
 # ================================================================ layers
 
-def _attn_paged(p: Attention, cfg: ModelConfig, x, cache: PagedAttnCache,
-                bt, start_pos, lens, valid, decode: bool):
+def _attn_paged(p: Attention, cfg: ModelConfig, spec, x,
+                cache: PagedAttnCache, bt, start_pos, lens, valid,
+                decode: bool):
     """Cached attention over the paged pool: write through the block
-    table, then read. Decode rows go to ``paged_attention`` with the
-    block table (no gather); prefill rows to ``chunked_prefill_attention``
-    over the gathered view with per-row offsets, as the JAX kernel branch
-    does. Int8 pages hand their scale pages to the decode kernel's
-    fused-dequant variant (exact fp32 dequantization); prefill reads the
-    view that ``_paged_view`` dequantized in bf16, cast to q's dtype
+    table, then read, as the JAX kernel branch does. Decode rows of a
+    full-attention layer go to ``paged_attention`` with the block table
+    (no gather); prefill rows, and the decode rows of a sliding-window
+    layer (``spec.mixer == SWA``), to ``chunked_prefill_attention`` over
+    the gathered view with per-row offsets and the layer's window. Int8
+    pages hand their scale pages to the decode kernel's fused-dequant
+    variant (exact fp32 dequantization); the other reads take the view
+    that ``_paged_view`` dequantized in bf16, cast to q's dtype
     (lossless), as JAX's prefill kernel reads it in fp32."""
     B, S, _ = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, p.wq)
@@ -321,7 +328,8 @@ def _attn_paged(p: Attention, cfg: ModelConfig, x, cache: PagedAttnCache,
     _paged_write(cache, k, v, start_pos, bt, valid)
     kv_lens = (start_pos + lens).to(torch.int32)
     quant = isinstance(cache, QuantPagedAttnCache)
-    if decode:
+    window = spec.window if spec.mixer == SWA else None
+    if decode and window is None:
         o = ops.paged_attention(
             q[:, 0], cache.k, cache.v, bt, kv_lens,
             k_scales=cache.k_scale if quant else None,
@@ -329,7 +337,7 @@ def _attn_paged(p: Attention, cfg: ModelConfig, x, cache: PagedAttnCache,
     else:
         kview, vview = _paged_view(cache, bt)
         o = ops.chunked_prefill_attention(
-            q, kview.to(q.dtype), vview.to(q.dtype),
+            q, kview.to(q.dtype), vview.to(q.dtype), window=window,
             q_offsets=start_pos.to(torch.int32), kv_lens=kv_lens)
     return torch.einsum("bshk,hkd->bsd", o, p.wo)
 
@@ -400,13 +408,13 @@ def _fused_block(p: Layer, cfg: ModelConfig, spec, x_pre, x_dec,
     else:
         if x_pre.shape[0]:
             h = rmsnorm(x_pre, p.norm1, cfg.norm_eps)
-            x_pre = x_pre + _attn_paged(p.attn, cfg, h, layer_cache,
+            x_pre = x_pre + _attn_paged(p.attn, cfg, spec, h, layer_cache,
                                         pre_bt, pre_start, pre_len,
                                         pre_valid, False)
         if x_dec.shape[0]:
             h = rmsnorm(x_dec, p.norm1, cfg.norm_eps)
             x_dec = x_dec + _attn_paged(
-                p.attn, cfg, h, layer_cache, dec_bt, dec_start,
+                p.attn, cfg, spec, h, layer_cache, dec_bt, dec_start,
                 dec_active.to(dec_start.dtype), dec_active[:, None], True)
     if x_pre.shape[0]:
         x_pre = _apply_ffn(p, cfg, spec, x_pre, moe_impl)

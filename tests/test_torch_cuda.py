@@ -4,7 +4,9 @@ lens not a multiple of the page, fully masked rows, ragged chunks, pad
 rows, windows; decode with one row, with a 4096-token row over 32
 splits and with splits whose pages are all holes; int8 pages with G = 1
 and G = 8, D = 64 and pages that are not a multiple of the 32-token
-tile; prefill chunks of 1, 65 and 1024 tokens; norm rows that are not a
+tile; prefill chunks of 1, 65 and 1024 tokens; head_dim 256 in both
+attention kernels (gemma3-4b: decode in both page types, chunks past
+a 1024-token window, windowed C = 1 rows); norm rows that are not a
 multiple of 16 bytes wide; scan lengths off the chunk grid, read in place
 down to one token, zero-dt tails and d_state 16), the bit-equality of
 the kernels' rows (attention: a row alone against the same row in a
@@ -78,6 +80,8 @@ def _paged(rng, dev, dtype, B, H, KV, D, P, page, pages, lens, holes):
     # splits whose pages are all holes (row 0's pages 4-7, row 1's 8-11)
     (2, 24, 8, 128, 80, 64, 40, (2500, 2000),
      ((0, 4), (0, 5), (0, 6), (0, 7), (1, 8), (1, 9), (1, 10), (1, 11))),
+    # gemma3-4b's head_dim 256 (G 2), a hole mid-table, an empty row
+    (3, 8, 4, 256, 40, 64, 32, (2048, 700, 33), ((0, 3), (2, 0))),
 ])
 def test_paged_attention_kernel_vs_plain(cuda, dt, B, H, KV, D, P, page,
                                          pages, lens, holes):
@@ -106,6 +110,10 @@ def test_paged_attention_kernel_vs_plain(cuda, dt, B, H, KV, D, P, page,
     (2, 1, 24, 8, 128, 256, (0, 200), (1, 1), None),           # C = 1
     (3, 65, 8, 4, 64, 300, (0, 100, 0), (65, 65, 0), 50),      # C = 65
     (1, 1024, 24, 8, 128, 1024, (0,), (1024,), None),           # C = 1024
+    # head_dim 256 (gemma3-4b): ragged chunks past a window, and windowed
+    # decode rows (C = 1) over a 2048-token view
+    (3, 100, 8, 4, 256, 1536, (0, 1300, 0), (100, 77, 0), 1024),
+    (4, 1, 8, 4, 256, 2048, (2047, 1024, 3, 0), (1, 1, 1, 0), 1024),
 ])
 def test_chunked_prefill_kernel_vs_plain(cuda, dt, B, C, H, KV, D, S, offs,
                                          reals, window):
@@ -188,6 +196,8 @@ def _int8_paged(rng, dev, dtype, B, H, KV, D, P, page, pages, lens, holes):
     (1, 24, 8, 128, 70, 64, 64, (4096,), ()),
     (2, 24, 8, 128, 80, 64, 40, (2500, 2000),
      ((0, 4), (0, 5), (0, 6), (0, 7))),
+    # head_dim 256 (gemma3-4b's global layers), a hole mid-table
+    (2, 8, 4, 256, 40, 64, 32, (2048, 500), ((1, 2),)),
 ])
 def test_paged_attention_int8_kernel_vs_plain(cuda, dt, B, H, KV, D, P,
                                               page, pages, lens, holes):

@@ -78,8 +78,8 @@ def test_no_source_imports_ml_dtypes():
 
 def test_the_probe_walks_the_new_modules():
     """The import probe above walks every module of the package, the
-    Mamba2 slice's, the int8 / KV-hierarchy slice's and the MoE slice's
-    among them."""
+    Mamba2 slice's, the int8 / KV-hierarchy slice's, the MoE slice's and
+    the sliding-window slice's among them."""
     import pkgutil
 
     import repro_torch
@@ -98,7 +98,8 @@ def test_the_probe_walks_the_new_modules():
             "repro_torch.configs.jamba_v0_1_52b",
             "repro_torch.configs.granite_8b",
             "repro_torch.configs.starcoder2_15b",
-            "repro_torch.configs.paper_models"} <= names
+            "repro_torch.configs.paper_models",
+            "repro_torch.configs.gemma3_4b"} <= names
 
 
 def test_entry_points_default_to_the_card():
@@ -150,28 +151,51 @@ def test_entry_points_default_to_the_card():
         make_torch_replica("niyama", moe)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--reduced", "--arch", "qwen3-moe-30b-a3b"])
+    gemma = get_config("gemma3-4b").reduced(num_layers=2, d_model=128)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchEngine(gemma)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--reduced", "--arch", "gemma3-4b"])
 
 
 def test_unported_families_raise():
+    """The two families still waiting raise, at ``get_config`` and at
+    the model; the sliding-window families (gemma3-4b, and every layer
+    sliding) construct, and the ``long_500k`` variant gives the JAX
+    registry's layer lists."""
     import dataclasses
 
-    from repro_torch.configs import NOT_PORTED, get_config
+    from repro.configs import get_config as jax_get_config
+    from repro_torch.configs import NOT_PORTED, SWA_500K_ARCHS, get_config
     from repro_torch.engine.torch_backend import TorchEngine
-    from repro_torch.models.config import SWA, LayerSpec
-    for arch, waits in (("gemma3-4b", "sliding-window"),
-                        ("internvl2-76b", "vision frontend"),
+    from repro_torch.models.config import (SWA, EncoderConfig, FrontendStub,
+                                           LayerSpec)
+    for arch, waits in (("internvl2-76b", "vision frontend"),
                         ("whisper-medium", "encoder-decoder")):
         with pytest.raises(NotImplementedError, match=waits):
             get_config(arch)
-    assert set(NOT_PORTED) == {"gemma3-4b", "internvl2-76b",
-                               "whisper-medium"}
+    base = get_config("llama3.2-3b").reduced(num_layers=2, d_model=128)
+    for extra in (dict(encoder=EncoderConfig(num_layers=1)),
+                  dict(frontend=FrontendStub(kind="vision", num_tokens=8))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TorchEngine(dataclasses.replace(base, **extra), device="cpu")
+    assert set(NOT_PORTED) == {"internvl2-76b", "whisper-medium"}
     for arch in ("qwen3-moe-30b-a3b", "dbrx-132b", "jamba-v0.1-52b",
-                 "granite-8b", "starcoder2-15b"):
+                 "granite-8b", "starcoder2-15b", "gemma3-4b"):
         assert get_config(arch).name == arch
     with pytest.raises(KeyError):
         get_config("no-such-model")
+    gemma = TorchEngine(get_config("gemma3-4b").reduced(
+        num_layers=2, d_model=128), device="cpu")
+    assert {l.mixer for l in gemma.cfg.layers} == {"attn", SWA}
+    assert gemma._swa_reclaim_window is None
     swa = dataclasses.replace(
         get_config("llama3.2-3b").reduced(num_layers=2, d_model=128),
         layers=(LayerSpec(SWA, "dense", 64),) * 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchEngine(swa, device="cpu")
+    assert TorchEngine(swa, device="cpu")._swa_reclaim_window == 64
+    for arch in sorted(SWA_500K_ARCHS - set(NOT_PORTED)):
+        got = get_config(arch, "long_500k")
+        want = jax_get_config(arch, "long_500k")
+        assert [dataclasses.asdict(l) for l in got.layers] == \
+            [dataclasses.asdict(l) for l in want.layers]
+        assert {l.window for l in got.layers if l.mixer == SWA} == {8192}
