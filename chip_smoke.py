@@ -69,7 +69,18 @@ Phases, each of which fails the run if it fails:
 7. reclaim: full-width llama3.2-3b in its ``long_500k`` variant (every
    layer sliding, window 8192) sheds the dead blocks of a 9000-token
    prompt and of its decode, hands a freed page to a request admitted
-   after, and streams what the same engine streams with reclamation off.
+   after, and streams what the same engine streams with reclamation off;
+8. fleet: two full-width llama3.2-3b engines (bf16) on worker threads
+   in one ``make_async_torch_fleet``: under a virtual clock, one live
+   move of a decoding request and one relegation-offload transfer
+   mid-prefill, every stream against one ``make_torch_replica``'s (a
+   logged near-tie passes); on the wall clock, 12 requests of the JAX
+   fleet driver's mix streamed through ``AsyncServer`` (each once, with
+   all its tokens), then the same mix through a fleet of one engine, the
+   streams held to each other; both engines served prefill and decode
+   rows, the decode, prefill and norm kernels launched, no plain version
+   ran; wall tok/s, stream TTFT and TBT, migrations and bytes moved of
+   both, and each engine's wall ms per iteration.
 
 Prints each phase's seconds and peak device memory
 (``torch.cuda.max_memory_allocated``), the card's name and power limit,
@@ -1608,7 +1619,7 @@ def _streams_agree(what: str, eng, got: dict, want: dict) -> None:
         ids, vals, logits = _top2(eng, hist)
         la, lb = float(logits[a[i]]), float(logits[b[i]])
         ulp = 2.0 ** (np.floor(np.log2(max(abs(la), abs(lb), 1e-30))) - 7)
-        print(f"[hierarchy] {what}: rid {rid} diverges at token {i}: "
+        print(f"[streams] {what}: rid {rid} diverges at token {i}: "
               f"{a[i]} vs {b[i]}, their logits {la:.5f} / {lb:.5f} "
               f"(top-2 {ids} at {vals[0]:.5f} / {vals[1]:.5f}, gap "
               f"{vals[0] - vals[1]:.5f})")
@@ -1845,6 +1856,314 @@ def phase_reclaim() -> None:
           f"launches {variants['chunked_prefill_attention']}")
 
 
+# ---------------------------------------------------------------- phase 8
+
+class _FixedClock:
+    """A backend shim that reports a constant iteration time (0.05 s), as
+    the CPU tests' does (tests/test_torch_engine.py): the schedulers then
+    decide on virtual time alone, so a fleet and a single replica plan the
+    same way on every run. Records each plan: ((rid, chunk), ...),
+    (decode rids)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.plans = []
+
+    def execute(self, plan, now):
+        self.plans.append((tuple((r.rid, c) for r, c in plan.prefill),
+                           tuple(r.rid for r in plan.decode)))
+        self.inner.execute(plan, now)
+        return 0.05
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+# each fleet engine: 4 slots of 2048 tokens in 64-token pages, seed 0
+FLEET_KW = dict(n_slots=4, max_len=2048, block_size=64, seed=0)
+
+
+def _fleet_counts(what: str) -> dict:
+    """The kernel counts since the last ``ops.reset_counts()``; fails if a
+    plain version ran, if a kernel off the path launched, or if a kernel
+    of the path never launched."""
+    from repro_torch.kernels import ops
+    counts = ops.counts()
+    for name, c in counts.items():
+        check(c["plain"] == 0,
+              f"fleet {what}: the plain {name} ran {c['plain']} times")
+        check(name in ATTENTION_PATH or c["launches"] == 0,
+              f"fleet {what}: {name}, not on this path, launched "
+              f"{c['launches']} times")
+        check(name not in ATTENTION_PATH or c["launches"] > 0,
+              f"fleet {what}: {name} was never launched")
+    return counts
+
+
+def _fleet_requests():
+    """The deterministic part's requests: five arriving together, prompts
+    of 200-800 tokens; rid 0 decodes 40 tokens (the live move's subject),
+    the others 8; and rid 100, a 1500-token prompt that the offload
+    transfer relegates after 1024 prefilled tokens."""
+    from repro_torch.core.request import Request
+    from repro_torch.serving.schemes import CPU_TIERS
+    reqs = [Request(rid=i, arrival=0.0, prompt_len=200 + 150 * i,
+                    decode_len=40 if i == 0 else 8, qos=CPU_TIERS[0],
+                    app_id="Q1") for i in range(5)]
+    return reqs, Request(rid=100, arrival=0.0, prompt_len=1500,
+                         decode_len=8, qos=CPU_TIERS[0], app_id="Q1")
+
+
+def _warm(engines) -> None:
+    """Build the kernels and run one iteration of each engine on this
+    thread, before the workers start. (A helper, so that no loop variable
+    of the caller keeps an engine alive past its ``del``: an engine and
+    its pool form a cycle, freed only by the collector.)"""
+    for eng in engines:
+        eng.warm()
+    torch.cuda.synchronize()
+
+
+def _served_both_kinds(what: str, engines) -> None:
+    """Fails unless every engine served prefill rows and decode rows (each
+    plan on the card launches the kernels of its rows, or raises)."""
+    for eng in engines:
+        buckets = eng.buckets_seen
+        check(any(P > 0 for P, _, _, _ in buckets)
+              and any(nd > 0 for _, _, nd, _ in buckets),
+              f"fleet {what}: an engine served buckets {buckets}")
+
+
+def _streams_of(engines) -> dict:
+    """Every engine's streams, rid -> tokens; fails if a rid streamed on
+    two engines (a moved request's stream travels with its payload)."""
+    got = {}
+    for eng in engines:
+        for rid, toks in eng.generated.items():
+            check(rid not in got, f"fleet: rid {rid} streamed twice")
+            got[rid] = list(toks)
+    return got
+
+
+def _fleet_deterministic(cfg) -> dict:
+    """Two engines under a virtual clock with the fixed-clock shim: one
+    live move of decoding rid 0 to the other engine and one
+    relegation-offload transfer mid-prefill (rid 100), then the same
+    requests through one ``make_torch_replica``; every stream must agree
+    (``_streams_agree``). Returns the summary and the fleet run's kernel
+    counts (zeroed after the warm-up, read before the reference runs)."""
+    from repro_torch.core.predictor import H100
+    from repro_torch.core.request import Phase
+    from repro_torch.core.scheduler import BatchPlan
+    from repro_torch.kernels import ops
+    from repro_torch.serving.asyncfleet import VirtualClock
+    from repro_torch.serving.asyncfleet.transfer import payload_nbytes
+    from repro_torch.serving.schemes import (make_async_torch_fleet,
+                                             make_torch_replica)
+
+    fleet = make_async_torch_fleet(cfg, 2, dtype=torch.bfloat16, hw=H100,
+                                   backend_wrap=_FixedClock,
+                                   clock=VirtualClock(), **FLEET_KW)
+    engines = [fleet.engine_of(rep) for rep in fleet.replicas]
+    _warm(engines)
+    reqs, off = _fleet_requests()
+    ops.reset_counts()
+    fleet.submit(reqs)
+    moved, src, t = False, None, 0.0
+    # step the barriers until rid 0 decodes with a few tokens out, then
+    # move it (refused while the destination lacks room: step on)
+    while not moved and reqs[0].phase is not Phase.FINISHED and t < 60.0:
+        t += fleet.tick
+        fleet.run(until=t)
+        src = next((i for i, rep in enumerate(fleet.replicas)
+                    if any(r.rid == 0 and r.decoded >= 3
+                           for r in rep.decode_queue)), None)
+        if src is not None:
+            snaps = [fleet._snapshot(i) for i in range(2)]
+            moved = fleet._force_live_move(0, 1 - src, fleet._t, snaps)
+    check(moved, f"fleet: the live move of rid 0 never landed (t {t:.2f})")
+    at_move = reqs[0].decoded
+    live_bytes = fleet.report.kv_moved_bytes
+    fleet.run(until=t + 120.0)
+    check(all(r.phase is Phase.FINISHED for r in reqs),
+          f"fleet: {[r.phase.name for r in reqs]} after the live move")
+    check(any(e.kind == "live" and e.rid == 0
+              for e in fleet.report.events),
+          f"fleet: no live move of rid 0 in {fleet.report.events}")
+
+    # the offload transfer: rid 100 relegated mid-prefill on replica 0
+    # (its 1024 prefilled tokens parked in the engine's swap store) lands
+    # on replica 1's engine through the runtime's hooks and resumes there
+    srep, drep = fleet.replicas
+    se = engines[0]
+    off.arrival = srep.now
+    srep.kv.attach(off)
+    se.on_admit(off)
+    se.execute(BatchPlan(prefill=[(off, 1024)]), srep.now)
+    off.prefilled = 1024
+    off.phase = Phase.RELEGATED
+    off.was_relegated = True
+    off.relegated_at = srep.now
+    off.prefilled = srep.kv.on_relegate(off.rid, 1024)
+    srep.relegated_queue.append(off)
+    se.on_release(off)
+    srep.state_version += 1
+    check(off.prefilled == 1024 and fleet._transfer_ok(srep, drep, off),
+          f"fleet: the offload transfer is refused (prefilled "
+          f"{off.prefilled})")
+    tokens = fleet._detach_swapped(srep, off)
+    check(tokens == 1024 and off.rid not in se._swap_store,
+          f"fleet: the offload detach gave {tokens} tokens")
+    off_bytes = payload_nbytes(fleet._wire[off.rid])
+    off.phase = Phase.QUEUED
+    check(fleet._receive_swapped(drep, off, drep.now, tokens)
+          and off.prefilled == 1024,
+          "fleet: the offload payload did not land with its 1024 tokens")
+    drep.run(until=drep.now + 120.0)
+    check(off.phase is Phase.FINISHED and
+          len(engines[1].generated[off.rid]) == off.decode_len,
+          "fleet: the offloaded request did not finish on replica 1")
+    torch.cuda.synchronize()
+    counts = _fleet_counts("deterministic")
+    _served_both_kinds("deterministic", engines)
+    got = _streams_of(engines)
+    plans = [len(e.plans) for e in engines]
+    fleet.close()
+    del fleet, engines, se, srep, drep
+    _free_device_memory()
+
+    one = make_torch_replica("niyama", cfg, dtype=torch.bfloat16, hw=H100,
+                             device="cuda", backend_wrap=_FixedClock,
+                             **FLEET_KW)
+    reqs, off = _fleet_requests()
+    ops.reset_counts()
+    one.submit_all(reqs + [off])
+    one.run()
+    torch.cuda.synchronize()
+    _fleet_counts("deterministic reference")
+    check(len(one.finished) == 6, f"fleet: the single replica finished "
+          f"{len(one.finished)}/6")
+    want = {rid: list(t) for rid, t in one.backend.generated.items()}
+    _streams_agree("fleet live move + offload", one.backend, got, want)
+    out = dict(plans=plans, at_move=at_move, live_bytes=live_bytes,
+               off_bytes=off_bytes, src=src)
+    del one
+    _free_device_memory()
+    out["gb_held_after"] = torch.cuda.memory_allocated() / 1e9
+    return out, counts
+
+
+def _fleet_wall(cfg, n: int) -> tuple:
+    """``n`` engines behind ``AsyncServer`` on the wall clock (the serve
+    script's ``stream_requests``, arrivals compressed 10x): the JAX fleet
+    driver's 12-request mix. Every request must stream ``decode_len``
+    events once. Returns the stream summary, the streams, the kernel
+    counts of the streamed run (zeroed after the warm-up) and, for the
+    single engine, the engine."""
+    from repro_torch.core.predictor import H100
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving.asyncfleet.server import _pct
+    from repro_torch.serving.schemes import make_async_torch_fleet
+
+    fleet = make_async_torch_fleet(cfg, n, dtype=torch.bfloat16, hw=H100,
+                                   tick=0.1, **FLEET_KW)
+    engines = [fleet.engine_of(rep) for rep in fleet.replicas]
+    _warm(engines)
+    mix = serve.make_requests(np.random.default_rng(0), 12, 2048)
+    ops.reset_counts()
+    try:
+        elapsed, res, wall = serve.stream_requests(fleet, mix)
+    finally:
+        fleet.close()
+    torch.cuda.synchronize()
+    counts = _fleet_counts(f"wall x{n}")
+    fin = sorted(r.rid for r in fleet.finished())
+    check(fin == list(range(12)), f"fleet wall x{n}: finished {fin}")
+    streams = {}
+    for (rid, _, evs), req in zip(res, mix):
+        check(rid == req.rid and [e.index for e in evs]
+              == list(range(req.decode_len)),
+              f"fleet wall x{n}: rid {rid} streamed "
+              f"{[e.index for e in evs]} of {req.decode_len}")
+        check(all(0 <= e.token < cfg.vocab_size for e in evs),
+              f"fleet wall x{n}: rid {rid} streamed an id outside the "
+              f"vocabulary")
+        streams[rid] = [e.token for e in evs]
+    _served_both_kinds(f"wall x{n}", engines)
+    n_tok = sum(len(t) for t in streams.values())
+    ttfts = sorted(evs[0].t - t_sub for _, t_sub, evs in res)
+    tbts = sorted(b.t - a.t for _, _, evs in res
+                  for a, b in zip(evs, evs[1:]))
+    rep = fleet.report
+    iters = [r.iterations for r in fleet.replicas]
+    busy = [r.busy_time for r in fleet.replicas]
+    summary = dict(
+        engines=n, tokens=n_tok, wall_s=elapsed, tok_s=n_tok / elapsed,
+        ttft_p50=_pct(ttfts, 50), ttft_p99=_pct(ttfts, 99),
+        tbt_p50=_pct(tbts, 50), tbt_p99=_pct(tbts, 99),
+        barriers=rep.ticks, migrations=rep.migrations,
+        live=rep.live_migrations, offload_transfers=rep.offload_transfers,
+        mb_moved=rep.kv_moved_bytes / 1e6, iterations=iters,
+        ms_per_iteration=[1e3 * b / max(i, 1) for b, i in zip(busy, iters)],
+        gb_peak_so_far=torch.cuda.max_memory_allocated() / 1e9)
+    keep = engines[0] if n == 1 else None
+    del fleet, engines
+    _free_device_memory()
+    summary["gb_held_after"] = torch.cuda.memory_allocated() / 1e9
+    return summary, streams, counts, keep
+
+
+def phase_fleet() -> dict:
+    """Two full-width llama3.2-3b engines (bf16, 4 slots of 2048 tokens
+    each, 64-token pages, the full KV hierarchy, seed 0) in one
+    ``make_async_torch_fleet`` on the card: the deterministic part
+    (``_fleet_deterministic``: a live move and an offload transfer,
+    streams against one replica's) and the wall part (``_fleet_wall``:
+    12 requests streamed through ``AsyncServer``; then the same mix
+    through a fleet of one engine in the same run, its streams the
+    reference). Both engines must have served prefill and decode rows;
+    the decode, prefill and norm kernels must have launched and no plain
+    version may have run, in each two-engine run and in each reference
+    (``_fleet_counts``). Returns the two two-engine runs' counts added:
+    each zeroed after its engines' warm-up and read right after the run,
+    before its reference."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("llama3.2-3b")
+    held = torch.cuda.memory_allocated() / 1e9
+    det, det_counts = _fleet_deterministic(cfg)
+    det["gb_held_before"] = held
+    print(f"[fleet] deterministic: rid 0 moved live from replica "
+          f"{det['src']} after {det['at_move']} of 40 tokens (cost model "
+          f"{det['live_bytes'] / 1e6:.1f} MB); rid 100 offloaded mid-prefill "
+          f"with a {det['off_bytes'] / 1e6:.2f} MB payload (1024 tokens, "
+          f"payload_nbytes); plans per engine {det['plans']}; streams "
+          f"agree with one make_torch_replica's")
+    two, got, wall_counts, _ = _fleet_wall(cfg, 2)
+    one, want, _, eng = _fleet_wall(cfg, 1)
+    _streams_agree("fleet wall x2 against x1", eng, got, want)
+    del eng
+    _free_device_memory()
+    counts = {name: {k: det_counts[name][k] + wall_counts[name][k]
+                     for k in ("launches", "plain")} for name in det_counts}
+    for s in (two, one):
+        print(f"[fleet] wall x{s['engines']}: {s['tokens']} tokens in "
+              f"{s['wall_s']:.3f} s: {s['tok_s']:.1f} tok/s; stream TTFT "
+              f"p50/p99 {s['ttft_p50'] * 1e3:.1f}/{s['ttft_p99'] * 1e3:.1f} "
+              f"ms, TBT p50/p99 {s['tbt_p50'] * 1e3:.1f}/"
+              f"{s['tbt_p99'] * 1e3:.1f} ms; barriers {s['barriers']}, "
+              f"migrations {s['migrations']} (live {s['live']}, offload "
+              f"transfers {s['offload_transfers']}), {s['mb_moved']:.1f} MB "
+              f"moved; iterations {s['iterations']} at "
+              f"{[round(x, 2) for x in s['ms_per_iteration']]} ms each")
+    print(f"[fleet] two engines against one: {two['tok_s'] / one['tok_s']:.3f}"
+          f"x the tok/s; streams agree; launches of the two-engine runs: "
+          f"deterministic {det_counts}, wall {wall_counts}")
+    print(f"[fleet] summary {json.dumps(dict(deterministic=det, two=two, one=one))}")
+    return counts
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1898,6 +2217,11 @@ def main() -> int:
     timed("hierarchy bf16", phase_hierarchy, kv_quant=False)
     timed("hierarchy int8", phase_hierarchy, kv_quant=True)
     timed("reclaim", phase_reclaim)
+    # the fleet: each two-engine run's counts zeroed just before it and
+    # read just after, before its single-engine reference runs
+    counts = timed("fleet", phase_fleet)
+    for name in SOURCES:
+        launches[name] += counts[name]["launches"]
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         kernels.append(dict(name=name, route="cuda", source=src,

@@ -77,6 +77,11 @@ class TorchEngine:
         self.max_len = max_len
         self.quantum = max(1, quantum)
         self.seed = seed
+        # read by the fleet runtime's transfer check (AsyncFleet.
+        # _compatible), as JaxEngine's: this engine is always paged, and
+        # its weights and pages are in ``dtype``
+        self.paged = True
+        self.dtype = dtype
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)

@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Sequence
 
@@ -27,6 +28,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# engines on worker threads (the async fleet) reach the kernels at once:
+# the first use builds and loads each library under this lock, so two
+# threads never run nvcc into one target or load a library twice
+_build_lock = threading.RLock()
+# guards the wrappers' launch and variant counts and ``ops``' plain-call
+# counts, which those threads update together
+count_lock = threading.Lock()
 # nvcc's output of each build made by this process (-Xptxas -v: the
 # registers, shared memory and spills of every kernel)
 build_logs: Dict[str, str] = {}
@@ -54,6 +62,11 @@ def build(names: Iterable[str] = KERNELS) -> List[str]:
     """Compile every source of ``names`` that has no current library,
     one ``nvcc`` process per source, all started together. Returns the
     names built. Raises with nvcc's output if a build fails."""
+    with _build_lock:
+        return _build(names)
+
+
+def _build(names: Iterable[str]) -> List[str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
@@ -85,11 +98,14 @@ def load_library(name: str) -> ctypes.CDLL:
     """The library of ``csrc/<name>.cu``, built if needed."""
     lib = _libs.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_target(name)))
-        lib.kernel_error_string.argtypes = [ctypes.c_int]
-        lib.kernel_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
+        with _build_lock:
+            lib = _libs.get(name)
+            if lib is None:
+                build([name])
+                lib = ctypes.CDLL(str(_target(name)))
+                lib.kernel_error_string.argtypes = [ctypes.c_int]
+                lib.kernel_error_string.restype = ctypes.c_char_p
+                _libs[name] = lib
     return lib
 
 

@@ -59,6 +59,7 @@ def chunked_prefill_attention_cuda(q, k, v, q_offsets, kv_lens, window=None):
     build.launch(NAME, q, k, v, q_offsets, kv_lens, out, B, C, H, S, KV, D,
                  0 if window is None else window, build.DTYPES[q.dtype],
                  D ** -0.5)
-    launches += 1
-    variants[D, window] += 1
+    with build.count_lock:
+        launches += 1
+        variants[D, window] += 1
     return out

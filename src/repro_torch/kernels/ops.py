@@ -13,6 +13,7 @@ from typing import Dict, Iterator
 
 import torch
 
+from . import build
 from . import chunked_prefill_attention as _cpa
 from . import paged_attention as _pa
 from . import paged_attention_int8 as _pa8
@@ -24,7 +25,8 @@ from . import ssd_scan as _ssd
 _WRAPPERS = {"paged_attention": _pa, "paged_attention_int8": _pa8,
              "chunked_prefill_attention": _cpa, "rmsnorm": _rms,
              "ssd_scan": _ssd}
-# calls of each plain version made through this module
+# calls of each plain version made through this module (updated under
+# ``build.count_lock``, as the wrappers' launch counts are)
 plain_calls: Dict[str, int] = {name: 0 for name in _WRAPPERS}
 _force_plain = False
 
@@ -42,7 +44,8 @@ def plain_versions() -> Iterator[None]:
 
 def _plain(name: str, device: torch.device) -> bool:
     if _force_plain or device.type == "cpu":
-        plain_calls[name] += 1
+        with build.count_lock:
+            plain_calls[name] += 1
         return True
     if device.type == "cuda":
         return False
@@ -114,23 +117,26 @@ def ssd_scan(x, dt, A, B_, C_, init_state, *, chunk: int):
 def reset_counts() -> None:
     """Zero every kernel's launch count and every plain-call count, and
     forget the attention kernels' variants."""
-    for name, mod in _WRAPPERS.items():
-        mod.launches = 0
-        plain_calls[name] = 0
-    for mod in (_pa, _pa8, _cpa):
-        mod.variants.clear()
+    with build.count_lock:
+        for name, mod in _WRAPPERS.items():
+            mod.launches = 0
+            plain_calls[name] = 0
+        for mod in (_pa, _pa8, _cpa):
+            mod.variants.clear()
 
 
 def counts() -> Dict[str, Dict[str, int]]:
     """``{kernel: {"launches": n, "plain": m}}`` since the last reset."""
-    return {name: {"launches": mod.launches, "plain": plain_calls[name]}
-            for name, mod in _WRAPPERS.items()}
+    with build.count_lock:
+        return {name: {"launches": mod.launches, "plain": plain_calls[name]}
+                for name, mod in _WRAPPERS.items()}
 
 
 def variants() -> Dict[str, Dict]:
     """The launches of each attention kernel since the last reset, by
     variant: ``head_dim`` for decode, ``(head_dim, window)`` for
     prefill."""
-    return {name: dict(mod.variants) for name, mod in
-            (("paged_attention", _pa), ("paged_attention_int8", _pa8),
-             ("chunked_prefill_attention", _cpa))}
+    with build.count_lock:
+        return {name: dict(mod.variants) for name, mod in
+                (("paged_attention", _pa), ("paged_attention_int8", _pa8),
+                 ("chunked_prefill_attention", _cpa))}

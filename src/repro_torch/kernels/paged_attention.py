@@ -84,6 +84,7 @@ def paged_attention_cuda(q, k_pages, v_pages, block_table, lens):
     build.launch(NAME, q, k_pages, v_pages, block_table, lens, ml, acc, out,
                  B, H, KV, D, page, n_pages, pages_per_split, n_splits,
                  build.DTYPES[q.dtype], D ** -0.5)
-    launches += 1
-    variants[D] += 1
+    with build.count_lock:
+        launches += 1
+        variants[D] += 1
     return out

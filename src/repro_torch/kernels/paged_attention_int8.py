@@ -82,6 +82,7 @@ def paged_attention_int8_cuda(q, k_pages, v_pages, k_scales, v_scales,
                  lens, ml, acc, out, B, H, KV, D, page, n_pages,
                  pages_per_split, n_splits, build.DTYPES[q.dtype],
                  D ** -0.5)
-    launches += 1
-    variants[D] += 1
+    with build.count_lock:
+        launches += 1
+        variants[D] += 1
     return out

@@ -76,5 +76,6 @@ def rmsnorm_cuda(x, w, eps: float = 1e-5):
     build.launch(NAME, x, w, out, N, D, build.DTYPES[x.dtype], float(eps),
                  int(p.vec), p.warps_per_row, p.units_per_lane,
                  p.rows_per_block)
-    launches += 1
+    with build.count_lock:
+        launches += 1
     return out

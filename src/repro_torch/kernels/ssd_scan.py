@@ -131,5 +131,6 @@ def ssd_scan_cuda(x, dt, A, B_, C_, init_state, chunk: int):
                  nh, hd, ds, chunk, build.Long(x.stride(0)),
                  build.Long(x.stride(1)), build.Long(B_.stride(0)),
                  build.Long(B_.stride(1)), build.DTYPES[x.dtype])
-    launches += 1
+    with build.count_lock:
+        launches += 1
     return y, h

@@ -4,11 +4,14 @@ Figs 7-11 and Table 3."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence
 
 import numpy as np
 
 from repro_torch.core.request import Request
+
+if TYPE_CHECKING:
+    from repro_torch.serving.fleet.telemetry import FleetReport
 
 
 def _pct(xs: Sequence[float], q: float) -> float:
@@ -44,7 +47,7 @@ class MetricsReport:
     # dominant-cause histogram over them
     attributed_frac: float = 0.0
     violation_causes: Dict[str, int] = field(default_factory=dict)
-    fleet: Optional[object] = None   # fleet telemetry (no fleet in the port)
+    fleet: Optional["FleetReport"] = None   # fleet-level telemetry, if any
 
     def row(self) -> Dict[str, float]:
         d = {k: v for k, v in self.__dict__.items()
@@ -65,7 +68,7 @@ class MetricsReport:
 
 def compute_metrics(requests: Sequence[Request], duration: float,
                     long_p90_threshold: Optional[int] = None,
-                    fleet: Optional[object] = None
+                    fleet: Optional["FleetReport"] = None
                     ) -> MetricsReport:
     reqs = list(requests)
     r = MetricsReport(n=len(reqs), duration=duration, fleet=fleet)
