@@ -15,7 +15,11 @@ Phases, each of which fails the run if it fails:
    dense view, for int8 pages a view dequantized beforehand;
    ``F.rms_norm`` with weight ``1 + w``; none for ``ssd_scan``), and the
    least time the card could take; decode also at one row of 1500 and
-   one of 4096 tokens (64 pages, 32 splits) in bf16 and int8, prefill at
+   one of 4096 tokens (64 pages, 32 splits) in bf16 and int8, the dense
+   layout's 256-token pages (8 slots of 2048 positions viewed as pages of
+   a ``[9, 2048, KV, D]`` cache, an iota block table) at H24 KV8 D128
+   and at H16 KV16 D64 in f32 and bf16, each row alone equal to its row
+   of the batch bit for bit, prefill at
    the profile's shape (one row, C = S = 1024, bf16), decode and prefill
    in bf16 at the head layouts of qwen3-moe-30b-a3b (H32 KV4 D64, G 8),
    qwen-7b (H32 KV32 D128, G 1) and starcoder2-15b (H48 KV4 D128, G 12),
@@ -23,7 +27,8 @@ Phases, each of which fails the run if it fails:
    types, -1 holes), prefill with and without its 1024-token window over
    a 2048-token view, windowed decode rows (C = 1) over the view, and
    the same rows over a view whose dead blocks are -1 holes (equal, bit
-   for bit, to the view without holes), the norm at d_model 2560; the
+   for bit, to the view without holes), the norm at d_model 2560 and
+   8192 and over whisper-medium's [1500, 1024] f32 encoder rows; the
    scan at one
    chunk, at a ragged length read in place and at d_state 16 (nh 128);
    and the kernels' invariance bit for bit on the card: each decode row
@@ -32,7 +37,9 @@ Phases, each of which fails the run if it fails:
    int8 pages), each prefill row and each scan row alone against the same
    row in the 4-row batch, norm rows alone against the same rows of
    [8, D] and [1024, D];
-3. serve: full-width llama3.2-3b and full-width mamba2-370m through
+3. serve: full-width llama3.2-3b (paged, then ``--kv-layout dense``: the
+   decode kernel over 256-token pages and the prefill kernel over the
+   slots' rows) and full-width mamba2-370m through
    ``repro_torch.launch.serve.main``, then llama3.2-3b with int8 KV pages
    (``TorchEngine(kv_quant=True)`` in the same replica), full-width
    qwen3-moe-30b-a3b (48 layers, 128 experts, top-8, the grouped MoE),
@@ -80,7 +87,23 @@ Phases, each of which fails the run if it fails:
    streams held to each other; both engines served prefill and decode
    rows, the decode, prefill and norm kernels launched, no plain version
    ran; wall tok/s, stream TTFT and TBT, migrations and bytes moved of
-   both, and each engine's wall ms per iteration.
+   both, and each engine's wall ms per iteration;
+9. reference: full-width llama3.2-3b and mamba2-370m (bf16): the serve
+   script's 12-request mix through the fused paged engine with a
+   recording fixed-clock shim, then the same plans replayed into
+   ``ReferenceTorchEngine`` and (llama) the dense ``TorchEngine``, same
+   weights; streams equal to the paged engine's or diverging at a logged
+   near-tie; the reference run launches the norm kernel (and the scan for
+   mamba2) and nothing else, the dense run the attention kernels and the
+   norm, no plain version;
+10. whisper-medium at full width (24 + 24 layers, bf16) through the
+   reference engine behind the NiyamaScheduler (max_len 512, 8 requests
+   of 16-128 prompt and 8-32 output tokens): tok/s, iterations, the
+   encoder's ms per prefill call, the norm kernel's launches; then 2 + 2
+   full-width layers in f32 with random frames, kernels against plain;
+11. internvl2-76b at full width cut to 4 of its 80 layers (bf16, the
+   vision stub): 6 requests through the fused paged engine and the same
+   plans through the reference engine, streams agreeing.
 
 Prints each phase's seconds and peak device memory
 (``torch.cuda.max_memory_allocated``), the card's name and power limit,
@@ -90,6 +113,7 @@ CUDA device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -150,6 +174,7 @@ class ServedPath:
     arch: str
     kernels: tuple = ATTENTION_PATH     # the kernels it runs (and no other)
     kv_quant: bool = False              # int8 KV pages
+    kv_layout: str = "paged"            # the fused engine's KV layout
     # served by the serve script as a user runs it; otherwise through the
     # replica that ``_replica`` builds
     script: bool = False
@@ -171,6 +196,13 @@ class ServedPath:
 
 
 PATHS = {"llama3.2-3b": ServedPath("llama3.2-3b", script=True),
+         # the dense slot cache: decode rows through the decode kernel over
+         # 256-token pages that are views of the slots' rows, prefill rows
+         # through the prefill kernel over their slots' 2048 positions
+         "llama3.2-3b dense": ServedPath(
+             "llama3.2-3b", script=True, kv_layout="dense",
+             variants=(("paged_attention", (128, 256)),
+                       ("chunked_prefill_attention", (128, None)))),
          "mamba2-370m": ServedPath("mamba2-370m", ("rmsnorm", "ssd_scan"),
                                    script=True),
          # the int8 pages are written from inputs that differ by the
@@ -190,7 +222,7 @@ PATHS = {"llama3.2-3b": ServedPath("llama3.2-3b", script=True),
          "gemma3-4b": ServedPath(
              "gemma3-4b", long_prompts=True,
              variants=(("chunked_prefill_attention", (256, 1024)),
-                       ("paged_attention", 256)),
+                       ("paged_attention", (256, 64))),
              profile_at=(2000, 1000), parity_layers=(0, 5), near_tie=True)}
 
 
@@ -336,6 +368,26 @@ def time_ms(fn, reps: int = 20, warmup: int = 3,
                   f"to queue one call, longer than the {spin_ms} ms spin, "
                   f"{stalls} times")
             continue
+        times.append(e0.elapsed_time(e1))
+    return float(np.median(times))
+
+
+def _call_ms(fn, reps: int = 5) -> float:
+    """Median ms of one call of ``fn`` from an idle device, between CUDA
+    events recorded before and after it: the device's time and the gaps
+    in which it waits for the host to queue the call's launches. For a
+    call of many small launches (the encoder's), where
+    ``time_ms``'s spin cannot cover the host's queueing."""
+    fn()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return float(np.median(times))
 
@@ -490,6 +542,7 @@ def phase_kernels() -> dict:
 
     # ---- paged decode: the engine's decode batch at full width
     _kernels_paged(head, rng, quant=False)
+    _kernels_dense_pages(np.random.default_rng(6))
 
     # ---- chunked prefill: a 4-row bucket of 512-token chunks over a
     # 16-page view, ragged offsets and one pad row
@@ -748,20 +801,92 @@ def _kernels_paged(head: dict, rng, quant: bool) -> None:
                               bound_ms=bms, bound_by=by, max_abs_err=err)
 
 
+# the dense layout's decode: 8 slots of 2048 positions read as 8 pages of
+# 256 tokens each (one page a split), at llama3.2-3b's heads and at D 64,
+# G 1 with 16 kv-heads: (label, H, KV, D)
+DENSE_PAGE = 256
+DENSE_DECODE_CASES = (("B8 H24 KV8 D128 (llama3.2-3b, G=3)", 24, 8, 128),
+                      ("B8 H16 KV16 D64 (G=1)", 16, 16, 64))
+
+
+def _kernels_dense_pages(rng) -> None:
+    """The decode kernel over the dense layout's pages, as
+    ``models/transformer.py::_attn_pallas`` hands them over: each slot's
+    2048-position row of a ``[9, 2048, KV, D]`` cache (8 slots and the
+    sink row) viewed as 8 pages of 256 tokens, an iota block table,
+    ragged lengths and an empty slot, in f32 and bf16 at
+    ``DENSE_DECODE_CASES``: against the plain version within ``TOL``,
+    each row alone equal to its row of the batch bit for bit, with its
+    time, the plain version's, SDPA's over the same rows and the
+    bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     plan_splits)
+
+    B, n_pages, page = 8, 2048 // DENSE_PAGE, DENSE_PAGE
+    lens = [2048, 1500, 1, 700, 256, 257, 1023, 0]
+    check(plan_splits(n_pages, page) == (1, n_pages),
+          f"paged_attention: 256-token pages plan "
+          f"{plan_splits(n_pages, page)}, not one page a split")
+    for layout, H, KV, D in DENSE_DECODE_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            label = f"{_label(dtype)} {layout}, {page}-token pages (dense)"
+            cache_k, cache_v = (torch.from_numpy(rng.standard_normal(
+                (B + 1, n_pages * page, KV, D), np.float32)).to("cuda",
+                                                                dtype)
+                for _ in range(2))
+            q = torch.from_numpy(rng.standard_normal(
+                (B, H, D), np.float32)).to("cuda", dtype)
+            kp = cache_k[:B].view(B * n_pages, page, KV, D)
+            vp = cache_v[:B].view(B * n_pages, page, KV, D)
+            bt = torch.arange(B * n_pages, dtype=torch.int32,
+                              device="cuda").view(B, n_pages)
+            ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            got = paged_attention_cuda(q, kp, vp, bt, ln)
+            want = ref.paged_attention_ref(q, kp, vp, bt, ln)
+            torch.cuda.synchronize()
+            err, worst = _compare("paged_attention", label, dtype, got, want)
+            check(bool((got[7] == 0).all()),
+                  f"paged_attention [{label}]: an empty slot must give 0")
+            for b in range(B):
+                alone = paged_attention_cuda(q[b:b + 1], kp, vp,
+                                             bt[b:b + 1], ln[b:b + 1])
+                check(torch.equal(alone, got[b:b + 1]),
+                      f"paged_attention [{label}]: row {b} alone differs "
+                      f"from the same row in the batch")
+            ms = time_ms(lambda: paged_attention_cuda(q, kp, vp, bt, ln))
+            plain = time_ms(lambda: ref.paged_attention_ref(q, kp, vp, bt,
+                                                            ln))
+            kd, vd, mask = _gathered(kp, vp, bt, ln, H)
+            qd = q[:, :, None, :]
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=mask))
+            bms, by = bound_ms(*_paged_work(q, kp, bt, ln), dtype)
+            print(f"[kernels] paged_attention {label}: {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.4f} ms "
+                  f"({by}), max err {err:.3g} ({worst:.2f} of the limit); "
+                  f"each row alone equals its row of the batch, bit for "
+                  f"bit")
+            del cache_k, cache_v, kp, vp, kd, vd
+
+
 def _label(dtype) -> str:
     return "f32" if dtype == torch.float32 else "bf16"
 
 
-# the d_model of every served path: llama3.2-3b, mamba2-370m,
-# qwen3-moe-30b-a3b, llama3-8b, gemma3-4b
-SERVED_WIDTHS = (3072, 1024, 2048, 4096, 2560)
+# the d_model of every served path: llama3.2-3b, mamba2-370m (and
+# whisper-medium), qwen3-moe-30b-a3b, llama3-8b, gemma3-4b, internvl2-76b
+SERVED_WIDTHS = (3072, 1024, 2048, 4096, 2560, 8192)
 
 
 def _kernels_rmsnorm(head: dict) -> None:
     """The norms of every served path: a decode batch [8, D] and a
     prefill chunk [1024, D] at the widths of llama3.2-3b (3072),
-    mamba2-370m (1024), qwen3-moe-30b-a3b (2048), llama3-8b (4096) and
-    gemma3-4b (2560);
+    mamba2-370m and whisper-medium (1024; whisper's encoder rows are
+    [1500, 1024] in f32), qwen3-moe-30b-a3b (2048), llama3-8b (4096),
+    gemma3-4b (2560) and internvl2-76b (8192);
     then rows whose width is not a multiple of 16 bytes; then at each
     served width rows alone, [1, D], against the same rows in [8, D] and
     in [1024, D], bit for bit."""
@@ -776,7 +901,8 @@ def _kernels_rmsnorm(head: dict) -> None:
                                           (1024, 1024), (8, 2048),
                                           (1024, 2048), (8, 4096),
                                           (1024, 4096), (8, 2560),
-                                          (1024, 2560))
+                                          (1024, 2560), (1500, 1024),
+                                          (8, 8192), (1024, 8192))
              for dtype in (torch.float32, torch.bfloat16)]
     cases += [(torch.bfloat16, (5, 1001)), (torch.float32, (3, 77))]
     for dtype, (N, D) in cases:
@@ -1036,7 +1162,8 @@ def phase_serve(path: str) -> tuple:
     if p.script:
         rep = serve.main(["--arch", arch, "--device", "cuda", "--dtype",
                           "bf16", "--n-requests", "12", "--max-len", "2048",
-                          "--slots", "8", "--seed", "0"])
+                          "--slots", "8", "--seed", "0", "--kv-layout",
+                          p.kv_layout])
     else:
         rep = _replica(arch, "niyama", kv_quant=kv_quant)
         rep.backend.warm()
@@ -1086,7 +1213,8 @@ def phase_serve(path: str) -> tuple:
           f"tok/s; TTFT p99 {m.ttft_p99:.3f} s, TBT p99 "
           f"{m.tbt_p99 * 1e3:.1f} ms; launches {counts}")
     print(f"[serve] {path}: page-window buckets: {eng.gather_bucket_hits}; "
-          f"attention launches by variant {variants}")
+          f"shape buckets {len(eng.buckets_seen)}; attention launches by "
+          f"variant {variants}")
     n_moe = sum(1 for l in eng.cfg.layers if l.ffn == "moe")
     check((reads > 0) == (n_moe > 0),
           f"serve {path}: {reads} host reads of the MoE segment size over "
@@ -1152,22 +1280,25 @@ def phase_profile(eng, prefill: bool = True, at: tuple = (1000, 0)) -> None:
     bt = torch.arange(n * mb, **i32).reshape(n, mb)
     def flags(*shape, value=False):
         return torch.full(shape, value, dtype=torch.bool, device=dev)
+    # block tables (decode, prefill) in the paged layout; the dense one
+    # reads the slots' rows
+    dec_bts, pre_bts = ((z(0, mb), bt), (bt[:1], z(0, mb))) if eng.paged \
+        else ((None, None), (None, None))
     pre_name = "prefill 1 row of 1024 tokens" + (f" at {start}" if start
                                                  else "")
     plans = {
         f"decode 8 rows at {ctx} tokens": (
             z(0, 1), z(0), z(0), z(0), flags(0), z(0), tokens(n),
-            torch.full((n,), ctx, **i32), flags(n, value=True), z(0, mb),
-            bt),
+            torch.full((n,), ctx, **i32), flags(n, value=True), *dec_bts),
         pre_name: (
             tokens(1, 1024), z(1), torch.full((1,), start, **i32),
             torch.full((1,), 1024, **i32), flags(1, value=start == 0),
-            torch.full((1,), 1023, **i32), z(0), z(0), flags(0), bt[:1],
-            z(0, mb)),
+            torch.full((1,), 1023, **i32), z(0), z(0), flags(0), *pre_bts),
     }
     if not prefill:
         del plans[pre_name]
-    tag = f"{eng.cfg.name}{' int8' if eng.kv_quant else ''}"
+    tag = (f"{eng.cfg.name}{' int8' if eng.kv_quant else ''}"
+           f"{'' if eng.paged else ' dense'}")
     reps = 5
     for name, args in plans.items():
         def step():
@@ -1571,9 +1702,14 @@ def phase_parity_mamba() -> None:
 NEAR_TIE_ULPS = 2
 
 
-def _top2(eng, tokens) -> tuple:
-    """The engine's logits after ``tokens`` (one prefill row through a
-    scratch cache of the engine's kind): the top two ids and logits."""
+def _top2(eng, tokens, chunks=None) -> tuple:
+    """The engine's logits after ``tokens`` through a scratch cache of
+    the engine's kind (one slot): the top two ids and logits. By default
+    the whole history is one prefill row; with ``chunks`` (the prompt's
+    chunk lengths, as the engine served them) the prompt runs as those
+    prefill rows and the rest of ``tokens`` as decode rows, one at a
+    time: a vision stub zeroes each chunk's leading positions, so its
+    logits depend on where the chunks began."""
     from repro_torch.models import transformer as T
 
     cfg, dev, bs = eng.cfg, eng.device, eng.block_size
@@ -1586,14 +1722,26 @@ def _top2(eng, tokens) -> tuple:
 
     def z(*shape):
         return torch.zeros(shape, **i32)
+
+    def one(v):
+        return torch.tensor([v], **i32)
+    yes = torch.ones((1,), dtype=torch.bool, device=dev)
+    no = torch.zeros((0,), dtype=torch.bool, device=dev)
+    bt = torch.arange(nb, **i32)[None]
+    start = 0
     with torch.inference_mode():
-        hid = T._sampled_hidden(
-            eng.params, cfg, cache, torch.tensor([list(tokens)], **i32),
-            z(1), z(1), torch.full((1,), n, **i32),
-            torch.ones((1,), dtype=torch.bool, device=dev),
-            torch.full((1,), n - 1, **i32), z(0), z(0),
-            torch.zeros((0,), dtype=torch.bool, device=dev),
-            torch.arange(nb, **i32)[None], z(0, nb))
+        for c in (chunks or [n]):
+            hid = T._sampled_hidden(
+                eng.params, cfg, cache,
+                torch.tensor([list(tokens[start:start + c])], **i32), z(1),
+                one(start), one(c), yes if start == 0 else ~yes,
+                one(c - 1), z(0), z(0), no, bt, z(0, nb))
+            start += c
+        for t in tokens[start:]:
+            hid = T._sampled_hidden(
+                eng.params, cfg, cache, z(0, 1), z(0), z(0), z(0), no, z(0),
+                one(t), one(start), yes, z(0, nb), bt)
+            start += 1
         w = eng.params.lm_head if eng.params.lm_head is not None \
             else eng.params.embed.T
         logits = (hid @ w)[0, :cfg.vocab_size].float()
@@ -1601,10 +1749,12 @@ def _top2(eng, tokens) -> tuple:
     return top.indices.tolist(), top.values.tolist(), logits
 
 
-def _streams_agree(what: str, eng, got: dict, want: dict) -> None:
+def _streams_agree(what: str, eng, got: dict, want: dict,
+                   chunks=None) -> None:
     """Fails unless the two runs streamed the same tokens for every
     request; at a first divergence it logs the top-2 logit gap there (a
-    fresh forward over the shared history) and lets it pass only as a
+    fresh forward over the shared history, ``_top2``, with the prompt's
+    chunks where ``chunks`` gives them by rid) and lets it pass only as a
     near-tie between the two streams' tokens."""
     check(got.keys() == want.keys(), f"{what}: rids {sorted(got)} vs "
           f"{sorted(want)}")
@@ -1616,7 +1766,8 @@ def _streams_agree(what: str, eng, got: dict, want: dict) -> None:
               f"tokens against {len(b)}")
         i = next(j for j in range(len(a)) if a[j] != b[j])
         hist = list(eng.tokens[rid]) + list(b[:i])
-        ids, vals, logits = _top2(eng, hist)
+        ids, vals, logits = _top2(eng, hist,
+                                  None if chunks is None else chunks[rid])
         la, lb = float(logits[a[i]]), float(logits[b[i]])
         ulp = 2.0 ** (np.floor(np.log2(max(abs(la), abs(lb), 1e-30))) - 7)
         print(f"[streams] {what}: rid {rid} diverges at token {i}: "
@@ -2164,6 +2315,380 @@ def phase_fleet() -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 9
+
+class _Recorder(_FixedClock):
+    """The fixed-clock shim (a constant 0.05 s an iteration, so the
+    scheduler decides on virtual time alone), recording every call the
+    replica makes to the engine, in order: ``("admit", rid)``,
+    ``("release", rid)`` and ``("exec", ((rid, chunk, prefilled), ...),
+    (decode rids))``, and each request once, so that ``_replay`` can
+    drive another engine through the same plans."""
+
+    def __init__(self, inner):
+        super().__init__(inner)
+        self.events = []
+        self.reqs = {}
+
+    def on_admit(self, req):
+        self.reqs.setdefault(req.rid, req)
+        self.inner.on_admit(req)
+        self.events.append(("admit", req.rid))
+
+    def on_release(self, req):
+        self.inner.on_release(req)
+        self.events.append(("release", req.rid))
+
+    def execute(self, plan, now):
+        rows = tuple((r.rid, c, r.prefilled) for r, c in plan.prefill)
+        for r in [r for r, _ in plan.prefill] + list(plan.decode):
+            self.reqs.setdefault(r.rid, r)
+        out = super().execute(plan, now)
+        self.events.append(("exec", rows,
+                            tuple(r.rid for r in plan.decode)))
+        return out
+
+
+def _replay(eng, rec: _Recorder) -> float:
+    """Drive ``eng`` through ``rec``'s calls, in order, with fresh copies
+    of its requests; returns the wall seconds (device synchronised)."""
+    from repro_torch.core.request import Request
+    from repro_torch.core.scheduler import BatchPlan
+
+    reqs = {rid: Request(rid=rid, arrival=0.0, prompt_len=r.prompt_len,
+                         decode_len=r.decode_len, qos=r.qos,
+                         app_id=r.app_id)
+            for rid, r in rec.reqs.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for kind, *args in rec.events:
+        if kind == "admit":
+            eng.on_admit(reqs[args[0]])
+        elif kind == "release":
+            eng.on_release(reqs[args[0]])
+        else:
+            pre, dec = args
+            for rid, _, start in pre:
+                reqs[rid].prefilled = start
+            for rid in dec:
+                reqs[rid].prefilled = reqs[rid].prompt_len
+            eng.execute(BatchPlan(
+                prefill=[(reqs[rid], c) for rid, c, _ in pre],
+                decode=[reqs[rid] for rid in dec]), 0.0)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _prompt_chunks(rec: _Recorder) -> dict:
+    """rid -> the chunk lengths of its last prefill from position 0, as
+    the recorded plans served them."""
+    chunks = {}
+    for kind, *args in rec.events:
+        if kind == "exec":
+            for rid, c, start in args[0]:
+                if start == 0:
+                    chunks[rid] = []
+                chunks[rid].append(c)
+    return chunks
+
+
+def _path_counts(what: str, kernels: tuple) -> dict:
+    """The kernel counts since the last reset; fails unless every kernel
+    of ``kernels`` launched and no other did, and no plain version ran."""
+    from repro_torch.kernels import ops
+    counts = ops.counts()
+    for name, c in counts.items():
+        check(c["plain"] == 0,
+              f"{what}: the plain {name} ran {c['plain']} times")
+        check((c["launches"] > 0) == (name in kernels),
+              f"{what}: {name} launched {c['launches']} times; this path's "
+              f"kernels are {kernels}")
+    return counts
+
+
+def _add_counts(total: dict, counts: dict) -> None:
+    for name in total:
+        total[name] += counts[name]["launches"]
+
+
+def _recorded_fused_run(cfg, reqs, kw) -> tuple:
+    """``reqs`` through a full-width fused paged replica (the factory's,
+    the H100 spec, 64-token pages, quantum 32) wrapped in ``_Recorder``;
+    returns the recorder (its engine: ``.inner``), its streams, its wall
+    seconds and its kernel counts (zeroed after the warm-up)."""
+    from repro_torch.core.predictor import H100
+    from repro_torch.kernels import ops
+    from repro_torch.serving.schemes import make_torch_replica
+
+    rep = make_torch_replica("niyama", cfg, hw=H100, block_size=64,
+                             quantum=32, backend_wrap=_Recorder, **kw)
+    rec = rep.backend
+    rec.inner.warm()
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    rep.submit_all(reqs)
+    t0 = time.perf_counter()
+    rep.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(len(rep.finished) == len(reqs), f"{cfg.name}: {len(rep.finished)}"
+          f"/{len(reqs)} requests finished")
+    counts = ops.counts()
+    want = {rid: list(t) for rid, t in rec.inner.generated.items()}
+    for r in reqs:
+        check(len(want[r.rid]) == r.decode_len,
+              f"{cfg.name}: rid {r.rid} streamed {len(want[r.rid])} of "
+              f"{r.decode_len} tokens")
+    return rec, want, secs, counts
+
+
+def phase_reference(arch: str) -> dict:
+    """Full-width ``arch`` in bf16 (8 slots of 2048 tokens, seed 0): the
+    serve script's 12-request mix through the fused paged engine behind
+    the NiyamaScheduler (``_recorded_fused_run``), then the same plans
+    replayed into ``ReferenceTorchEngine`` and, for a model with
+    attention layers, into the dense ``TorchEngine``, each built from the
+    same seed (its weights checked equal). Every stream must agree with
+    the paged engine's: equal, or a logged near-tie (``_streams_agree``).
+    In each replay (counts zeroed just before it): the reference engine
+    launches the norm kernel (and the scan for Mamba2) and no attention
+    kernel, the dense engine the kernels of its path; no plain version
+    runs. Returns the launches of the replays."""
+    from repro_torch.engine.torch_backend import (ReferenceTorchEngine,
+                                                  TorchEngine)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    cfg = _model_config(arch)
+    kw = dict(n_slots=8, max_len=2048, seed=0, dtype=torch.bfloat16,
+              device="cuda")
+    reqs = serve.make_requests(np.random.default_rng(0), 12, 2048)
+    rec, want, fused_s, _ = _recorded_fused_run(cfg, reqs, kw)
+    fused = rec.inner
+    n_tok = sum(len(t) for t in want.values())
+    mamba = any(l.mixer == "mamba" for l in cfg.layers)
+    runs = [("reference", lambda: ReferenceTorchEngine(cfg, quantum=1, **kw),
+             ("rmsnorm", "ssd_scan") if mamba else ("rmsnorm",))]
+    if not mamba:
+        runs.append(("dense", lambda: TorchEngine(cfg, kv_layout="dense",
+                                                  quantum=32, **kw),
+                     ATTENTION_PATH))
+    launches = {name: 0 for name in SOURCES}
+    n_exec = sum(1 for e in rec.events if e[0] == "exec")
+    print(f"[reference] {arch}: the fused paged engine served {len(reqs)} "
+          f"requests in {n_exec} iterations, {n_tok} output tokens in "
+          f"{fused_s:.2f} s ({n_tok / fused_s:.1f} tok/s)")
+    for label, build_engine, kernels in runs:
+        eng = build_engine()
+        check(torch.equal(eng.params.embed, fused.params.embed)
+              and torch.equal(eng.params.final_norm,
+                              fused.params.final_norm),
+              f"reference {arch} {label}: the weights differ from the "
+              f"fused engine's")
+        eng.warm()
+        ops.reset_counts()
+        secs = _replay(eng, rec)
+        counts = _path_counts(f"reference {arch} {label}", kernels)
+        _add_counts(launches, counts)
+        got = {rid: list(t) for rid, t in eng.generated.items()}
+        _streams_agree(f"{arch} {label} against fused paged", fused, got,
+                       want)
+        print(f"[reference] {arch} {label}: the same {n_exec} plans in "
+              f"{secs:.2f} s ({n_tok / secs:.1f} tok/s); streams agree with "
+              f"the fused paged engine's; launches {counts}")
+        del eng
+        _free_device_memory()
+    del rec, fused
+    _free_device_memory()
+    return launches
+
+
+# whisper-medium's serve run: requests of 16-128 prompt and 8-32 output
+# tokens under max_len 512
+WHISPER_REQUESTS = 8
+
+
+def phase_whisper() -> dict:
+    """Full-width whisper-medium (24 encoder and 24 decoder layers,
+    d_model 1024, 16 heads of 64, vocab 51865 padded to 51968; bf16,
+    seed 0) through ``ReferenceTorchEngine`` behind the NiyamaScheduler
+    (``make_torch_replica(engine="reference")``, 8 slots, max_len 512,
+    the H100 spec): ``WHISPER_REQUESTS`` requests, every one finished with
+    all its tokens inside the vocabulary; the norm kernel launched (counts
+    zeroed just before the run), no other kernel, no plain version. The
+    encoder reruns on every prefill call, as in JAX: its time is measured
+    alone with CUDA events. Then ``_whisper_parity``. Returns the run's
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.predictor import H100
+    from repro_torch.core.request import Request
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.schemes import CPU_TIERS, make_torch_replica
+
+    cfg = get_config("whisper-medium")
+    rep = make_torch_replica("niyama", cfg, engine="reference", n_slots=8,
+                             max_len=512, hw=H100, device="cuda",
+                             dtype=torch.bfloat16, seed=0)
+    eng = rep.backend
+    eng.warm()
+    rng = np.random.default_rng(0)
+    reqs = []
+    arrivals = np.sort(rng.uniform(0, WHISPER_REQUESTS,
+                                   WHISPER_REQUESTS))
+    for i, t in enumerate(arrivals):
+        q = CPU_TIERS[i % 3]
+        reqs.append(Request(rid=i, arrival=float(t),
+                            prompt_len=int(rng.integers(16, 129)),
+                            decode_len=int(rng.integers(8, 33)), qos=q,
+                            app_id=q.name, important=bool(i % 5)))
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    rep.submit_all(reqs)
+    t0 = time.perf_counter()
+    rep.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _path_counts("whisper-medium", ("rmsnorm",))
+    check(len(rep.finished) == len(reqs),
+          f"whisper-medium: {len(rep.finished)}/{len(reqs)} finished")
+    for r in reqs:
+        toks = eng.generated[r.rid]
+        check(len(toks) == r.decode_len
+              and all(0 <= t < cfg.vocab_size for t in toks),
+              f"whisper-medium: rid {r.rid} streamed {toks}")
+    n_tok = sum(len(eng.generated[r.rid]) for r in reqs)
+    n_prompt = sum(r.prompt_len for r in reqs)
+    calls = sum(len(c.prefill_items) for c, _ in eng.iteration_log)
+    frames = eng._extras(1)["frames"]
+    with torch.inference_mode():
+        enc_ms = _call_ms(lambda: T._encoder_forward(eng.params, cfg,
+                                                     frames))
+    print(f"[whisper] whisper-medium, {cfg.param_count() / 1e9:.3f}e9 "
+          f"parameters ({cfg.encoder.num_layers} encoder + "
+          f"{cfg.num_layers} decoder layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size} padded to {cfg.vocab_padded}), bf16, reference "
+          f"engine: {len(reqs)} requests, {n_prompt} prompt + {n_tok} output "
+          f"tokens in {rep.iterations} iterations, {wall:.2f} s wall: "
+          f"{n_tok / wall:.1f} output tok/s; {calls} prefill calls, the "
+          f"encoder {enc_ms:.3f} ms a call (fp32 frames; CUDA events from "
+          f"an idle device, host queueing included), "
+          f"{calls * enc_ms / 1e3 / wall:.1%} of the wall time; rmsnorm "
+          f"launches {counts['rmsnorm']['launches']}")
+    del rep, eng, frames
+    _free_device_memory()
+    _whisper_parity()
+    return {name: c["launches"] for name, c in counts.items()}
+
+
+def _whisper_parity() -> None:
+    """Whisper-medium at full width cut to 2 encoder and 2 decoder
+    layers, f32 (TF32 off): one prefill of 64 tokens carrying random
+    (non-zero) frames, so that the encoder and the cross caches carry
+    data, through the norm kernel and through the plain versions: logits
+    within 1e-4 (the norm in f32 differs by a few ulps, carried through
+    four layers) and the same argmax at every position, or a logged
+    near-tie (a plain top-2 gap under ``NEAR_TIE_LOGIT``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import EncoderConfig
+
+    full = get_config("whisper-medium")
+    cfg = dataclasses.replace(full, num_layers=2, layers=full.layers[:2],
+                              encoder=EncoderConfig(2, 1500))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    params = T.init_params(cfg, gen, "cuda", torch.float32)
+    frames = torch.randn((1, 1500, cfg.d_model), generator=gen,
+                         device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (1, 64), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    outs = []
+    for plain in (False, True):
+        cache = T.init_cache(cfg, 1, 128, dtype=torch.float32, chunk=128,
+                             device="cuda")
+        with ops.plain_versions() if plain else contextlib.nullcontext():
+            lg, _ = T.prefill(params, cfg, cache, toks,
+                              torch.zeros((1,), dtype=torch.int32,
+                                          device="cuda"),
+                              batch_extras={"frames": frames})
+        outs.append(lg[0, :, :cfg.vocab_size].float())
+    got, want = outs
+    err = float((got - want).abs().max())
+    top = torch.topk(want, 2, dim=-1).values
+    gap = top[:, 0] - top[:, 1]
+    flips = (got.argmax(-1) != want.argmax(-1)).nonzero().flatten().tolist()
+    check(err <= 1e-4 and all(float(gap[i]) < NEAR_TIE_LOGIT for i in flips),
+          f"whisper parity: |logits kernel - plain| {err:.3g}, argmax "
+          f"differs at {flips} (plain top-2 gaps "
+          f"{[float(gap[i]) for i in flips]})")
+    print(f"[whisper] parity, 2 + 2 layers at full width, f32, random "
+          f"frames: max |logits kernel - plain| {err:.3g}; argmax equal at "
+          f"{64 - len(flips)} of 64 positions"
+          + (f", near-ties at {flips}" if flips else ""))
+
+
+# internvl2-76b at full width, cut to its first 4 of 80 layers so that one
+# card holds it (70.6e9 parameters, 141 GB in bf16, in full)
+INTERNVL_LAYERS = 4
+
+
+def phase_internvl2() -> dict:
+    """internvl2-76b at full width (d_model 8192, 64 / 8 heads of 128,
+    d_ff 28672, vocab 128256) cut to ``INTERNVL_LAYERS`` layers, bf16,
+    seed 0, with the vision stub (each prefill chunk's leading 256
+    positions carry zero patch embeddings): 6 requests of the serve
+    script's mix through the fused paged engine (``_recorded_fused_run``;
+    the attention kernels and the norm launched, counts zeroed after the
+    warm-up), then the same plans replayed into ``ReferenceTorchEngine``
+    (the norm kernel alone); the streams must agree (``_streams_agree``).
+    Returns both runs' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine.torch_backend import ReferenceTorchEngine
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    full = get_config("internvl2-76b")
+    cfg = dataclasses.replace(full, num_layers=INTERNVL_LAYERS,
+                              layers=full.layers[:INTERNVL_LAYERS])
+    cut = (f"{INTERNVL_LAYERS} of {full.num_layers} layers, "
+           f"{cfg.param_count() / 1e9:.2f}e9 of "
+           f"{full.param_count() / 1e9:.1f}e9 parameters")
+    kw = dict(n_slots=8, max_len=2048, seed=0, dtype=torch.bfloat16,
+              device="cuda")
+    reqs = serve.make_requests(np.random.default_rng(1), 6, 2048)
+    rec, want, fused_s, counts = _recorded_fused_run(cfg, reqs, kw)
+    fused = rec.inner
+    for name, c in counts.items():
+        check(c["plain"] == 0 and (c["launches"] > 0) ==
+              (name in ATTENTION_PATH),
+              f"internvl2-76b fused: {name} {c}")
+    launches = {name: 0 for name in SOURCES}
+    _add_counts(launches, counts)
+    n_tok = sum(len(t) for t in want.values())
+    ref = ReferenceTorchEngine(cfg, quantum=1, **kw)
+    check(torch.equal(ref.params.embed, fused.params.embed),
+          "internvl2-76b: the reference engine's weights differ")
+    ref.warm()
+    ops.reset_counts()
+    secs = _replay(ref, rec)
+    rcounts = _path_counts("internvl2-76b reference", ("rmsnorm",))
+    _add_counts(launches, rcounts)
+    got = {rid: list(t) for rid, t in ref.generated.items()}
+    _streams_agree("internvl2-76b reference against fused paged", fused,
+                   got, want, chunks=_prompt_chunks(rec))
+    print(f"[internvl2] internvl2-76b at full width, {cut}, bf16, vision "
+          f"stub of {cfg.frontend.num_tokens} patches: {len(reqs)} requests, "
+          f"{n_tok} output tokens; fused paged {fused_s:.2f} s "
+          f"({n_tok / fused_s:.1f} tok/s), reference {secs:.2f} s "
+          f"({n_tok / secs:.1f} tok/s) on the same plans; streams agree; "
+          f"launches fused {counts}, reference {rcounts}")
+    del ref, rec, fused
+    _free_device_memory()
+    return launches
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2176,10 +2701,11 @@ def main() -> int:
               f"from a checkout of the repository", file=sys.stderr)
         return 2
     # the card's name and power limit, as nvidia-smi prints them
-    print(subprocess.run(
+    card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0])
+        check=True).stdout.strip().splitlines()[0]
+    print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     # f32 comparisons run in full f32: no TF32 in matmuls or convolutions
@@ -2187,14 +2713,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
 
+    phases = []
+
     def timed(name, fn, *args, **kw):
         """Run one phase; print its seconds and its peak device memory."""
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         out = fn(*args, **kw)
         peak = torch.cuda.max_memory_allocated() / 1e9
-        print(f"[time] {name}: {time.perf_counter() - t:.1f} s, peak "
-              f"device memory {peak:.2f} GB allocated")
+        secs = time.perf_counter() - t
+        phases.append(f"{name} {secs:.1f} s / {peak:.2f} GB")
+        print(f"[time] {name}: {secs:.1f} s, peak device memory "
+              f"{peak:.2f} GB allocated")
         return out
     timed("build", phase_build)
     head = timed("kernels", phase_kernels)
@@ -2222,6 +2752,17 @@ def main() -> int:
     counts = timed("fleet", phase_fleet)
     for name in SOURCES:
         launches[name] += counts[name]["launches"]
+    # the reference engine, whisper-medium and internvl2-76b: each run's
+    # counts zeroed just before it and read just after
+    for name, fn, *args in (("reference llama3.2-3b", phase_reference,
+                             "llama3.2-3b"),
+                            ("reference mamba2-370m", phase_reference,
+                             "mamba2-370m"),
+                            ("whisper-medium", phase_whisper),
+                            (f"internvl2-76b ({INTERNVL_LAYERS} of 80 "
+                             f"layers)", phase_internvl2)):
+        for kernel, n in timed(name, fn, *args).items():
+            launches[kernel] += n
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         kernels.append(dict(name=name, route="cuda", source=src,
@@ -2230,7 +2771,8 @@ def main() -> int:
         print(f"[kernels] {name}: ported (cuda, {src}), agrees with its "
               f"plain version in f32 and bf16, launched {launches[name]} "
               f"times while serving")
-    print(f"[done] {time.perf_counter() - t0:.1f} s")
+    print(f"[done] {time.perf_counter() - t0:.1f} s on {card}; each phase's "
+          f"seconds and peak device memory: {'; '.join(phases)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -44,9 +44,11 @@ def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
 
 def params_from_numpy(tree) -> Dict[str, torch.Tensor]:
     """The JAX parameter tree (nested dicts and lists of numpy arrays) as
-    the port's ``state_dict``: ``{"layers.3.attn.wq": tensor, ...}``.
-    Load it with ``Transformer.load_state_dict`` or pass it to
-    ``TorchEngine(params=...)``."""
+    the port's ``state_dict``: ``{"layers.3.attn.wq": tensor, ...}``,
+    an encoder-decoder model's ``encoder.layers.0.attn.wq``,
+    ``encoder.final_norm`` and ``layers.3.cross.wq`` included. Load it
+    with ``Transformer.load_state_dict`` or pass it to either engine
+    (``params=...``)."""
     flat: Dict[str, np.ndarray] = {}
     _flatten(tree, "", flat)
     return {k: tensor_from_numpy(v) for k, v in flat.items()}

@@ -1,21 +1,25 @@
 """Architecture registry of the port: ``get_config(arch_id, shape)``.
 
-The port serves the dense llama-architecture decoders, the
+The port serves every architecture of the JAX registry
+(``repro.configs``): the dense llama-architecture decoders, the
 sliding-window decoder gemma3-4b, pure Mamba2, the mixture-of-experts
-decoders and the attention + Mamba2 + MoE hybrid. As in the JAX registry
-(``repro.configs``), the ``long_500k`` shape turns every full-attention
-layer of the ``SWA_500K_ARCHS`` into a sliding-window layer (the
-``swa_500k`` variant). The two architectures of the JAX registry left in
-``NOT_PORTED`` wait for their model code. The paper's own models
-(``paper_models``: ``LLAMA3_8B``, ``QWEN_7B``) are imported as a module,
-not through the registry, as in the JAX package.
+decoders, the attention + Mamba2 + MoE hybrid, the vision-language
+internvl2-76b (its vision frontend a stub) and the encoder-decoder
+whisper-medium (its audio frontend a stub; served by the reference
+engine only, as in JAX). As in the JAX registry, the ``long_500k`` shape
+turns every full-attention layer of the ``SWA_500K_ARCHS`` into a
+sliding-window layer (the ``swa_500k`` variant). ``NOT_PORTED`` is
+empty. The paper's own models (``paper_models``: ``LLAMA3_8B``,
+``QWEN_7B``) are imported as a module, not through the registry, as in
+the JAX package.
 """
 from __future__ import annotations
 
 from repro_torch.models.config import ModelConfig
 
-from . import (dbrx_132b, gemma3_4b, granite_8b, jamba_v0_1_52b,
-               llama3_2_3b, mamba2_370m, qwen3_moe_30b_a3b, starcoder2_15b)
+from . import (dbrx_132b, gemma3_4b, granite_8b, internvl2_76b,
+               jamba_v0_1_52b, llama3_2_3b, mamba2_370m, qwen3_moe_30b_a3b,
+               starcoder2_15b, whisper_medium)
 
 _CONFIGS = {"llama3.2-3b": llama3_2_3b.CONFIG,
             "mamba2-370m": mamba2_370m.CONFIG,
@@ -24,11 +28,13 @@ _CONFIGS = {"llama3.2-3b": llama3_2_3b.CONFIG,
             "jamba-v0.1-52b": jamba_v0_1_52b.CONFIG,
             "granite-8b": granite_8b.CONFIG,
             "starcoder2-15b": starcoder2_15b.CONFIG,
-            "gemma3-4b": gemma3_4b.CONFIG}
+            "gemma3-4b": gemma3_4b.CONFIG,
+            "internvl2-76b": internvl2_76b.CONFIG,
+            "whisper-medium": whisper_medium.CONFIG}
 
-# the JAX registry's other architectures, and what each waits for
-NOT_PORTED = {"internvl2-76b": "the vision frontend",
-              "whisper-medium": "the encoder-decoder path"}
+# the JAX registry's architectures the port does not serve, and what each
+# waits for: none
+NOT_PORTED: dict = {}
 
 # full-attention archs that run long_500k via the swa_500k variant (the
 # JAX registry's set, internvl2-76b included)
@@ -42,10 +48,6 @@ def get_config(arch_id: str, shape: str | None = None) -> ModelConfig:
     """The config of ``arch_id``, with the swa_500k variant applied when
     ``shape`` (an input shape's name) is ``long_500k`` and the arch is
     natively full attention, as the JAX registry resolves it."""
-    if arch_id in NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch_id!r} is not served by the port yet: it waits for "
-            f"{NOT_PORTED[arch_id]} (ROADMAP.md queue 1)")
     if arch_id not in _CONFIGS:
         raise KeyError(f"unknown arch {arch_id!r}; the port serves "
                        f"{list(_CONFIGS)}")

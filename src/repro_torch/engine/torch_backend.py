@@ -1,30 +1,42 @@
-"""``TorchEngine``: the fused continuous-batching engine on the paged KV
-layout, in PyTorch.
+"""The engines of the port: ``TorchEngine`` (fused continuous batching,
+paged or dense KV layout) and ``ReferenceTorchEngine`` (the
+slot-sequential oracle), in PyTorch.
 
-The counterpart of the JAX package's ``engine/jax_backend.py::JaxEngine``
-with ``kv_layout="paged"``, carrying the slot bookkeeping of its
-``_SlotEngineBase``. It speaks the same backend protocol to ``Replica``
-(``on_admit`` / ``on_release`` / ``preflight`` / ``execute``): one
+Counterparts of the JAX package's ``engine/jax_backend.py``, sharing the
+slot bookkeeping of ``_SlotEngineBase`` as there, and speaking the same
+backend protocol to ``Replica`` (``on_admit`` / ``on_release`` /
+``execute``).
+
+``TorchEngine`` is ``JaxEngine`` with ``attn_impl="pallas"``: one
 ``fused_serve_forward`` per BatchPlan, with prefill chunks and the decode
-batch as per-slot rows bucketed to the engine quantum, block tables
-rebuilt from the scheduler's ``KVPool`` grants, Mamba layers' recurrent
-state kept per slot, greedy sampling on the device and one
-device-to-host transfer per iteration. ``kv_quant`` stores int8 pages
-with bf16 scale pages. The pool's runtime hooks (``swap_out`` /
-``swap_in`` / ``drop``) and the wire hooks (``export_swapped`` /
-``import_swapped``) carry the KV hierarchy's swap tier and cross-engine
-transfers on real pages; prefix-cache hits are block tables that share
-pages.
-
-Mixture-of-experts layers serve through ``moe_impl``: the grouped GEMM
-(the default, as ``JaxEngine``'s) or the dropless every-expert sweep.
-Sliding-window layers read their window of the pages; when every
-attention layer is sliding-window, the leading blocks that slid out of
-every window return to the pool as they die (SWA page reclamation, as in
+batch as per-slot rows bucketed to the engine quantum, Mamba layers'
+recurrent state kept per slot, greedy sampling on the device and one
+device-to-host transfer per iteration. Its default KV layout is PAGED
+(``kv_layout="paged"``): pages granted by the scheduler's ``KVPool``,
+block tables rebuilt from its grants, ``kv_quant`` int8 pages with bf16
+scale pages, the pool's runtime hooks (``swap_out`` / ``swap_in`` /
+``drop``) and the wire hooks (``export_swapped`` / ``import_swapped``)
+carrying the KV hierarchy's swap tier and cross-engine transfers on real
+pages, and prefix-cache hits as block tables that share pages.
+``kv_layout="dense"`` keeps the contiguous ``[n_slots, max_len]`` slot
+cache (no pool binding; recompute-only relegation), whose decode reads
+are the decode kernel over 256-token pages of it. Mixture-of-experts
+layers serve through ``moe_impl``: the grouped GEMM (the default, as
+``JaxEngine``'s) or the dropless every-expert sweep. Sliding-window
+layers read their window; when every attention layer is sliding-window,
+the paged layout returns the leading blocks that slid out of every
+window to the pool as they die (SWA page reclamation, as in
 ``JaxEngine``), counted in ``kv_blocks_reclaimed``.
 
-Not ported yet (ROADMAP.md queue 1): the dense layout, tensor
-parallelism and CUDA graphs.
+``ReferenceTorchEngine`` is ``ReferenceJaxEngine``: one ``prefill`` call
+per prefill chunk against its slot, one batched ``decode_step`` over all
+slots whose inactive slots do not advance, a host argmax per request,
+MoE routed dropless, attention as plain torch ops (the norms and the
+SSD scan through ``kernels.ops``, as everywhere). It is the port's
+equivalence oracle, and the one engine that serves encoder-decoder
+models.
+
+Not ported yet (ROADMAP.md queue 1): tensor parallelism and CUDA graphs.
 """
 from __future__ import annotations
 
@@ -43,45 +55,48 @@ from repro_torch.kernels import build
 from repro_torch.models.config import ATTN, MAMBA, SWA, ModelConfig
 from repro_torch.models.mamba2 import MambaState
 from repro_torch.models.transformer import (MOE_IMPLS, Transformer,
-                                            fused_serve_forward,
-                                            init_paged_cache, init_params)
+                                            _check_decoder_only,
+                                            decode_step, fused_serve_forward,
+                                            init_cache, init_paged_cache,
+                                            init_params, prefill)
 
 
-class TorchEngine:
-    """Fused engine over a global page pool: the bound ``KVPool`` grants
-    physical block ids and the engine rebuilds per-slot block tables
-    from ``pool.block_table(rid)`` when a row's grant changed.
+def _slot_slice(cache: Dict, slot: int) -> Dict:
+    """Slot ``slot`` of a dense cache as a one-row cache of views: the
+    offline path writes through them into the engine's cache."""
+    def view(c):
+        return type(c)(*(a[slot:slot + 1] for a in c))
+    sub = {"layers": [view(c) for c in cache["layers"]],
+           "len": cache["len"][slot:slot + 1]}
+    if "cross" in cache:
+        sub["cross"] = [view(c) for c in cache["cross"]]
+    return sub
+
+
+class _SlotEngineBase:
+    """Host-side slot bookkeeping shared by both engines: the weights,
+    slot assignment, synthetic prompt generation (seeded,
+    admission-order independent), generated-token streams, the stub
+    inputs and iteration logging.
 
     ``params``: a ``state_dict`` (for example the JAX engine's weights
     through ``bridge.params_from_numpy``), loaded onto ``device`` in
     ``dtype``; without it the weights are drawn from a generator seeded
-    with ``seed``. ``kv_quant`` keeps int8 KV pages with bf16 scale
-    pages (``QuantPagedAttnCache``). ``moe_impl`` is the MoE layers'
-    FFN, ``"grouped"`` or ``"dropless"`` (``models/moe.py``). ``device``
-    defaults to the card and raises when there is none."""
+    with ``seed``. ``device`` defaults to the card and raises when there
+    is none."""
 
     def __init__(self, cfg: ModelConfig, n_slots: int = 8,
                  max_len: int = 512, quantum: int = 64, seed: int = 0,
-                 dtype=torch.float32, block_size: int = 64,
-                 pool: Optional[KVPool] = None,
+                 dtype=torch.float32,
                  params: Optional[Mapping[str, torch.Tensor]] = None,
-                 device="cuda", kv_quant: bool = False,
-                 moe_impl: str = "grouped"):
-        if moe_impl not in MOE_IMPLS:
-            raise ValueError(f"unknown moe_impl {moe_impl!r}; one of "
-                             f"{list(MOE_IMPLS)}")
+                 device="cuda"):
         self.device = resolve_device(device)
-        self.moe_impl = moe_impl
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len
         self.quantum = max(1, quantum)
-        self.seed = seed
-        # read by the fleet runtime's transfer check (AsyncFleet.
-        # _compatible), as JaxEngine's: this engine is always paged, and
-        # its weights and pages are in ``dtype``
-        self.paged = True
         self.dtype = dtype
+        self.seed = seed
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
@@ -93,33 +108,163 @@ class TorchEngine:
         self.free_slots = list(range(n_slots))
         self.tokens: Dict[int, np.ndarray] = {}   # rid -> prompt tokens
         self.generated: Dict[int, List[int]] = {}
+        # (plan.cost(), wall seconds) of every executed plan
+        self.iteration_log: List[tuple] = []
+        self._extras_cache: Dict[int, dict] = {}
 
-        if pool is not None:
-            block_size = pool.block_size
-        if max_len % block_size:
-            raise ValueError(f"max_len ({max_len}) must be a multiple of "
-                             f"block_size ({block_size})")
-        self.block_size = block_size
-        self.max_blocks = max_len // block_size
-        self._pool_owned = pool is None
-        self.pool = pool if pool is not None else KVPool(
-            num_blocks=n_slots * self.max_blocks, block_size=block_size,
-            max_seqs=n_slots)
-        self.pool.bind_runtime(self)
+    def _gen_tokens(self, req: Request) -> np.ndarray:
+        """Synthetic prompt tokens, seeded per rid exactly as the JAX
+        engines seed them, so every engine serves the same prompts.
+        Requests sharing a ``prefix_id`` share their first
+        ``prefix_len`` tokens."""
+        vocab = self.cfg.vocab_size
+        toks = np.random.default_rng((self.seed, 1, req.rid)).integers(
+            0, vocab, size=req.prompt_len).astype(np.int32)
+        if req.prefix_id is not None and req.prefix_len > 0:
+            n = min(req.prefix_len, req.prompt_len)
+            toks[:n] = np.random.default_rng(
+                (self.seed, 2, req.prefix_id)).integers(
+                0, vocab, size=n).astype(np.int32)
+        return toks
+
+    # ------------------------------------------------ backend protocol
+    def on_admit(self, req: Request) -> None:
+        if req.rid in self.slot_of:
+            return
+        if not self.free_slots:
+            raise EngineBackpressure(
+                f"engine slots exhausted admitting rid {req.rid}: all "
+                f"{self.n_slots} slots are busy. The scheduler's KV pool "
+                f"must mirror slot availability — give it max_seqs == "
+                f"n_slots ({self.n_slots}) (paged layout), or size it "
+                f"with num_blocks == n_slots and block_size == max_len "
+                f"({self.max_len}) (dense layout), so admission control "
+                f"cannot admit more concurrent requests than the engine "
+                f"has decode rows.",
+                kind="slots", n_slots=self.n_slots, rid=req.rid)
+        slot = self.free_slots.pop()
+        self.slot_of[req.rid] = slot
+        if req.rid not in self.tokens:
+            self.tokens[req.rid] = self._gen_tokens(req)
+            self.generated[req.rid] = []
+        self._reset_slot(slot)
+
+    def on_release(self, req: Request) -> None:
+        slot = self.slot_of.pop(req.rid, None)
+        if slot is not None:
+            self.free_slots.append(slot)
+            self._release_slot(slot)
+
+    def _reset_slot(self, slot: int) -> None: ...
+
+    def _release_slot(self, slot: int) -> None: ...
+
+    def _lbucket(self, lmax: int) -> int:
+        """Chunk-length bucket: the smallest quantum * 2^k >= lmax."""
+        if lmax <= 0:
+            return 1
+        n = -(-lmax // self.quantum)
+        p = 1
+        while p < n:
+            p *= 2
+        return self.quantum * p
+
+    def _extras(self, batch_size: int) -> dict:
+        """The stubs' inputs, constant zeros in fp32 on the engine's
+        device, as JAX builds them: ``frontend_embeds`` [B, num_tokens,
+        d] for a vision frontend and ``frames`` [B, num_positions, d]
+        for an encoder; built once per batch size."""
+        ex = self._extras_cache.get(batch_size)
+        if ex is None:
+            ex = {}
+            if self.cfg.frontend is not None \
+                    and self.cfg.frontend.kind == "vision":
+                ex["frontend_embeds"] = torch.zeros(
+                    (batch_size, self.cfg.frontend.num_tokens,
+                     self.cfg.d_model), device=self.device)
+            if self.cfg.encoder is not None:
+                ex["frames"] = torch.zeros(
+                    (batch_size, self.cfg.encoder.num_positions,
+                     self.cfg.d_model), device=self.device) * 0.01
+            self._extras_cache[batch_size] = ex
+        return ex
+
+
+class TorchEngine(_SlotEngineBase):
+    """Fused engine: ``execute`` runs ONE ``fused_serve_forward`` per
+    BatchPlan. ``kv_layout="paged"`` (default): attention KV lives in a
+    global page pool; the bound ``KVPool`` grants physical block ids and
+    the engine rebuilds per-slot block tables from
+    ``pool.block_table(rid)`` when a row's grant changed.
+    ``kv_layout="dense"``: the contiguous slot cache (``init_cache``; no
+    pool binding, ``block_size = max_len``).
+
+    ``kv_quant`` keeps int8 KV pages with bf16 scale pages
+    (``QuantPagedAttnCache``; paged layout only, as in JAX).
+    ``moe_impl`` is the MoE layers' FFN, ``"grouped"`` or ``"dropless"``
+    (``models/moe.py``). Refuses encoder-decoder models, as ``JaxEngine``
+    does. ``params`` and ``device``: see ``_SlotEngineBase``."""
+
+    def __init__(self, cfg: ModelConfig, n_slots: int = 8,
+                 max_len: int = 512, quantum: int = 64, seed: int = 0,
+                 dtype=torch.float32, kv_layout: str = "paged",
+                 block_size: int = 64, pool: Optional[KVPool] = None,
+                 params: Optional[Mapping[str, torch.Tensor]] = None,
+                 device="cuda", kv_quant: bool = False,
+                 moe_impl: str = "grouped"):
+        _check_decoder_only(cfg)
+        if kv_layout not in ("paged", "dense"):
+            raise ValueError(f"unknown kv_layout {kv_layout!r}")
+        if moe_impl not in MOE_IMPLS:
+            raise ValueError(f"unknown moe_impl {moe_impl!r}; one of "
+                             f"{list(MOE_IMPLS)}")
+        # read by the fleet runtime's transfer check (AsyncFleet.
+        # _compatible), as JaxEngine's: the layout, and the dtype of the
+        # weights and pages
+        self.paged = kv_layout == "paged"
+        if kv_quant and not self.paged:
+            raise ValueError(
+                "kv_quant rides the paged layout (int8 scale pages share "
+                "the block tables); use init_cache(kv_quant=True) for the "
+                "dense offline path")
+        super().__init__(cfg, n_slots, max_len, quantum, seed, dtype,
+                         params, device)
+        self.moe_impl = moe_impl
         self.kv_quant = kv_quant
-        self.cache = init_paged_cache(cfg, n_slots, self.pool.num_blocks,
-                                      block_size, dtype=dtype,
-                                      device=self.device, kv_quant=kv_quant)
-        # SWA page reclamation, as JaxEngine gates it: only when EVERY
-        # attention layer is sliding-window (block tables are shared
-        # across layers, so one full-attention layer pins every page).
+        if self.paged:
+            if pool is not None:
+                block_size = pool.block_size
+            if max_len % block_size:
+                raise ValueError(f"max_len ({max_len}) must be a multiple "
+                                 f"of block_size ({block_size})")
+            self.block_size = block_size
+            self.max_blocks = max_len // block_size
+            self._pool_owned = pool is None
+            self.pool = pool if pool is not None else KVPool(
+                num_blocks=n_slots * self.max_blocks, block_size=block_size,
+                max_seqs=n_slots)
+            self.pool.bind_runtime(self)
+            self.cache = init_paged_cache(
+                cfg, n_slots, self.pool.num_blocks, block_size, dtype=dtype,
+                device=self.device, kv_quant=kv_quant)
+        else:
+            self.block_size = max_len
+            self.max_blocks = 1
+            self.pool = None
+            cache = init_cache(cfg, n_slots, max_len, dtype=dtype,
+                               chunk=max_len, device=self.device)
+            cache.pop("len")        # lengths are host-side bookkeeping
+            self.cache = cache
+        # SWA page reclamation, as JaxEngine gates it: paged, and EVERY
+        # attention layer sliding-window (block tables are shared across
+        # layers, so one full-attention layer pins every page).
         # Positions r <= len - W are outside every window forever, so
         # their blocks return to the pool; the freed table entries are -1
         # holes, which the gather reads as page 0 and the window masks.
         swa_wins = [l.window for l in cfg.layers
                     if l.mixer == SWA and l.window]
         self._swa_reclaim_window = (
-            max(swa_wins) if swa_wins
+            max(swa_wins) if self.paged and swa_wins
             and not any(l.mixer == ATTN for l in cfg.layers) else None)
         self.kv_blocks_reclaimed = 0
         # paged page-window bucket hits: maxb -> iteration count
@@ -137,16 +282,14 @@ class TorchEngine:
         # real prefill work dispatched (prefix-cache hits shrink these)
         self.prefill_rows = 0
         self.prefill_tokens = 0
-        # (plan.cost(), wall seconds) of every executed plan, as JaxEngine
-        # keeps it
-        self.iteration_log: List[tuple] = []
-        # the (P, L, nd, maxb) shape buckets that execute has served
+        # the (P, L, nd[, maxb]) shape buckets that execute has served
         self._buckets: set = set()
 
     @property
     def buckets_seen(self) -> tuple:
         """Distinct shape buckets served by ``execute``: (prefill rows,
-        chunk length, decode rows, page-window width)."""
+        chunk length, decode rows), and the page-window width for the
+        paged layout."""
         return tuple(sorted(self._buckets))
 
     @property
@@ -155,19 +298,6 @@ class TorchEngine:
         per-block quantity, so a family with Mamba layers cannot skip
         prefill through shared pages (as in the JAX engine)."""
         return not any(l.mixer == MAMBA for l in self.cfg.layers)
-
-    def _gen_tokens(self, req: Request) -> np.ndarray:
-        """Synthetic prompt tokens, seeded per rid exactly as the JAX
-        engine seeds them, so both engines serve the same prompts."""
-        vocab = self.cfg.vocab_size
-        toks = np.random.default_rng((self.seed, 1, req.rid)).integers(
-            0, vocab, size=req.prompt_len).astype(np.int32)
-        if req.prefix_id is not None and req.prefix_len > 0:
-            n = min(req.prefix_len, req.prompt_len)
-            toks[:n] = np.random.default_rng(
-                (self.seed, 2, req.prefix_id)).integers(
-                0, vocab, size=n).astype(np.int32)
-        return toks
 
     # ------------------------------------------------ pool runtime hooks
     # (called by the pool or the hierarchy, so that accounting moves carry
@@ -225,24 +355,13 @@ class TorchEngine:
         self.tokens[rid] = payload["prompt"]
         self.generated[rid] = payload["generated"]
 
-    # ------------------------------------------------ backend protocol
+    # ------------------------------------------------ admission
     def on_admit(self, req: Request) -> None:
-        if req.rid in self.slot_of:
+        fresh = req.rid not in self.slot_of
+        super().on_admit(req)
+        if not (fresh and self.paged):
             return
-        if not self.free_slots:
-            raise EngineBackpressure(
-                f"engine slots exhausted admitting rid {req.rid}: all "
-                f"{self.n_slots} slots are busy. Give the scheduler's KV "
-                f"pool max_seqs == n_slots ({self.n_slots}) so admission "
-                f"control cannot admit more concurrent requests than the "
-                f"engine has decode rows.",
-                kind="slots", n_slots=self.n_slots, rid=req.rid)
-        slot = self.free_slots.pop()
-        self.slot_of[req.rid] = slot
-        if req.rid not in self.tokens:
-            self.tokens[req.rid] = self._gen_tokens(req)
-            self.generated[req.rid] = []
-        self.slot_len[slot] = 0
+        slot = self.slot_of[req.rid]
         st = self._swap_store.pop(req.rid, None)
         if st is not None:
             # swap-resume: the pages are back (swap_in); restore the slot's
@@ -263,24 +382,18 @@ class TorchEngine:
             if resident and req.prefilled == resident:
                 self.slot_len[slot] = resident
 
+    # release/admit are host operations: no device work per request
+    def _reset_slot(self, slot: int) -> None:
+        self.slot_len[slot] = 0
+
+    def _release_slot(self, slot: int) -> None:
+        self.slot_len[slot] = 0
+
     def on_release(self, req: Request) -> None:
-        slot = self.slot_of.pop(req.rid, None)
-        if slot is not None:
-            self.free_slots.append(slot)
-            self.slot_len[slot] = 0
-        if self._pool_owned:
+        super().on_release(req)
+        if self.paged and self._pool_owned:
             # standalone (replica-less) use: the engine owns the pool
             self.pool.release(req.rid)
-
-    def _lbucket(self, lmax: int) -> int:
-        """Chunk-length bucket: the smallest quantum * 2^k >= lmax."""
-        if lmax <= 0:
-            return 1
-        n = -(-lmax // self.quantum)
-        p = 1
-        while p < n:
-            p *= 2
-        return self.quantum * p
 
     def _block_row(self, out_row: np.ndarray, rid: int) -> None:
         ids = self.pool.block_table(rid)
@@ -290,6 +403,8 @@ class TorchEngine:
     def _maxb_ladder(self) -> list:
         """Page-window rungs: every width up to 4, then powers of two,
         then ``max_blocks``."""
+        if not self.paged:
+            return [self.max_blocks]
         rungs = set(range(1, min(4, self.max_blocks) + 1))
         m = 8
         while m < self.max_blocks:
@@ -314,7 +429,7 @@ class TorchEngine:
         does nothing), then takes a slot."""
         if req.rid in self.slot_of:
             return
-        if self.pool.swapped_tokens(req.rid) > 0:
+        if self.paged and self.pool.swapped_tokens(req.rid) > 0:
             self.pool.swap_in(req.rid)
         self.on_admit(req)
 
@@ -348,40 +463,43 @@ class TorchEngine:
         in its order, and raise a deferrable ``EngineBackpressure`` before
         any state changes when the plan overshoots capacity
         (``n_prefill_fit`` prefill items fit; ``None``: not even the
-        decode batch does)."""
+        decode batch does). The dense layout counts slots only."""
+        paged = self.paged
         slots = len(self.free_slots)
-        blocks = self.pool.free
+        blocks = self.pool.free if paged else 0
         for req in plan.decode:
             if req.rid not in self.slot_of:
                 slots -= 1
-            blocks -= self._blocks_needed(
-                req.rid, self._tokens_cached(req.rid) + 1)
+            if paged:
+                blocks -= self._blocks_needed(
+                    req.rid, self._tokens_cached(req.rid) + 1)
+        num_blocks = self.pool.num_blocks if paged else None
         if slots < 0 or blocks < 0:
             raise EngineBackpressure(
                 f"engine cannot hold the decode batch: {len(plan.decode)} "
                 f"decodes need more than the free {len(self.free_slots)} "
-                f"slots / {self.pool.free} blocks — decode growth is never "
-                f"deferrable; size the pool for the worst-case decode "
-                f"footprint",
+                f"slots / {self.pool.free if paged else 0} blocks — "
+                f"decode growth is never deferrable; size the pool for "
+                f"the worst-case decode footprint",
                 kind="slots" if slots < 0 else "kv", n_prefill_fit=None,
-                n_slots=self.n_slots, num_blocks=self.pool.num_blocks,
+                n_slots=self.n_slots, num_blocks=num_blocks,
                 block_size=self.block_size)
         fit = 0
         for req, chunk in plan.prefill:
             take = min(chunk, req.prompt_len - req.prefilled)
             need_slot = 1 if req.rid not in self.slot_of else 0
-            need_blocks = self._blocks_needed(req.rid, req.prefilled + take)
+            need_blocks = self._blocks_needed(
+                req.rid, req.prefilled + take) if paged else 0
             if slots - need_slot < 0 or blocks - need_blocks < 0:
                 raise EngineBackpressure(
                     f"engine backpressure: prefill item {fit} (rid "
                     f"{req.rid}) does not fit — {slots} slots / {blocks} "
                     f"blocks left of n_slots={self.n_slots}, num_blocks="
-                    f"{self.pool.num_blocks}; defer the prefill tail and "
-                    f"retry",
+                    f"{num_blocks}; defer the prefill tail and retry",
                     kind="slots" if slots - need_slot < 0 else "kv",
                     n_prefill_fit=fit, n_slots=self.n_slots,
-                    num_blocks=self.pool.num_blocks,
-                    block_size=self.block_size, rid=req.rid)
+                    num_blocks=num_blocks, block_size=self.block_size,
+                    rid=req.rid)
             slots -= need_slot
             blocks -= need_blocks
             fit += 1
@@ -402,21 +520,23 @@ class TorchEngine:
     def warm(self) -> None:
         """Build and load the kernels (on the card), and launch each once
         with a state-safe iteration: one pad prefill row on the sink row
-        of the Mamba state and an inactive decode batch, with empty block
-        tables, so every page write goes to the sink page and no live
-        slot's state moves. Both sub-batches run every layer's FFN, the
-        MoE ones through ``moe_impl``."""
+        and an inactive decode batch, with empty block tables in the
+        paged layout, so every write goes to the sink page or row and no
+        live slot's state moves. Both sub-batches run every layer's FFN,
+        the MoE ones through ``moe_impl``."""
         if self.device.type == "cuda":
             build.build()
         n = self.n_slots
         q = self.quantum
         z1 = np.zeros((1,), np.int32)
+        bts = (None, None)
+        if self.paged:
+            bts = (self._dev(np.full((1, 1), -1, np.int32)),
+                   self._dev(np.full((n, 1), -1, np.int32)))
         self._step(np.zeros((1, q), np.int32), np.full((1,), n, np.int32),
                    z1, z1, np.zeros((1,), bool), z1,
                    self.last_token.copy(), self.slot_len.copy(),
-                   np.zeros((n,), bool),
-                   self._dev(np.full((1, 1), -1, np.int32)),
-                   self._dev(np.full((n, 1), -1, np.int32)))
+                   np.zeros((n,), bool), *bts)
 
     def execute(self, plan: BatchPlan, now: float) -> float:
         t0 = time.perf_counter()
@@ -432,12 +552,15 @@ class TorchEngine:
                 raise RuntimeError(
                     f"rid {req.rid} resumes prefill at {req.prefilled} but "
                     f"slot {slot} holds {self.slot_len[slot]} tokens — a "
-                    f"state-preserving resume needs the KV hierarchy")
+                    f"state-preserving resume needs the paged engine with "
+                    f"a KV hierarchy (the dense layout is flat-KVPool "
+                    f"recompute semantics only)")
             if req.prefilled + len(toks) > self.max_len:
                 raise RuntimeError(
                     f"rid {req.rid} prefill would exceed max_len "
                     f"{self.max_len}; size prompts+decodes to the cache")
-            if not self.pool.grow(req.rid, req.prefilled + len(toks)):
+            if self.paged and not self.pool.grow(
+                    req.rid, req.prefilled + len(toks)):
                 raise EngineBackpressure(
                     f"KV pool exhausted growing rid {req.rid} to "
                     f"{req.prefilled + len(toks)} tokens — the scheduler "
@@ -475,13 +598,14 @@ class TorchEngine:
         dec_active = np.zeros((nd,), bool)
         emit_dec: List[Optional[int]] = [None] * nd
         for req in plan.decode:
-            self._ensure_resident(req)   # mid-decode swap-resume
+            self._ensure_resident(req)   # mid-decode swap-resume (paged)
             slot = self.slot_of[req.rid]
             if self.slot_len[slot] + 1 > self.max_len:
                 raise RuntimeError(
                     f"rid {req.rid} decode would exceed max_len "
                     f"{self.max_len}; size prompts+decodes to the cache")
-            if not self.pool.grow(req.rid, int(self.slot_len[slot]) + 1):
+            if self.paged and not self.pool.grow(
+                    req.rid, int(self.slot_len[slot]) + 1):
                 raise EngineBackpressure(
                     f"KV pool exhausted on decode growth of rid "
                     f"{req.rid}: admission control bounds prefill, not "
@@ -493,46 +617,17 @@ class TorchEngine:
             dec_active[slot] = True
             emit_dec[slot] = req.rid
 
-        # ---- block tables, sliced to the page-window bucket covering the
-        # longest live row; rebuilt only when a row's grant changed
-        need = 1
-        for _, req, toks in pre:
-            need = max(need, blocks_for(req.prefilled + len(toks),
-                                        self.block_size))
-        for slot, rid in enumerate(emit_dec):
-            if rid is not None:
-                need = max(need, blocks_for(int(self.slot_len[slot]) + 1,
-                                            self.block_size))
-        maxb = self._maxb_bucket(need)
-        self.gather_bucket_hits[maxb] = \
-            self.gather_bucket_hits.get(maxb, 0) + 1
-        ver = self.pool.table_version
-        pre_key = (P, maxb, tuple((req.rid, ver(req.rid))
-                                  for _, req, _ in pre))
-        if pre_key != self._pre_bt_key:
-            pre_bt = np.full((P, maxb), -1, np.int32)
-            for i, (_, req, _) in enumerate(pre):
-                self._block_row(pre_bt[i], req.rid)
-            self._pre_bt_dev = self._dev(pre_bt)
-            self._pre_bt_key = pre_key
-        dec_key = (nd, maxb, tuple((rid, ver(rid)) if rid is not None
-                                   else None for rid in emit_dec))
-        if dec_key != self._dec_bt_key:
-            dec_bt = np.full((nd, maxb), -1, np.int32)
-            for slot, rid in enumerate(emit_dec):
-                if rid is not None:
-                    self._block_row(dec_bt[slot], rid)
-            self._dec_bt_dev = self._dev(dec_bt)
-            self._dec_bt_key = dec_key
-
+        bts = (None, None)
+        if self.paged:
+            bts = self._block_tables(pre, P, nd, emit_dec)
         # ---- ONE forward; the cache's pages and state written in place
         sampled = self._step(pre_tokens, pre_slots, pre_start, pre_len,
                              pre_reset, pre_sample,
                              self.last_token[:nd].copy(),
-                             self.slot_len[:nd].copy(), dec_active,
-                             self._pre_bt_dev, self._dec_bt_dev)
+                             self.slot_len[:nd].copy(), dec_active, *bts)
         out = sampled.cpu().numpy()   # the ONE device->host transfer
-        self._buckets.add((P, L, nd, maxb))
+        self._buckets.add((P, L, nd, bts[0].shape[1]) if self.paged
+                          else (P, L, nd))
         self.prefill_rows += len(pre)
         self.prefill_tokens += sum(len(t) for _, _, t in pre)
 
@@ -567,3 +662,167 @@ class TorchEngine:
         elapsed = time.perf_counter() - t0
         self.iteration_log.append((plan.cost(), elapsed))
         return elapsed
+
+    def _block_tables(self, pre, P: int, nd: int, emit_dec) -> tuple:
+        """The paged layout's block tables of an iteration, on the
+        device, sliced to the page-window bucket covering the longest
+        live row; rebuilt only when a row's grant changed."""
+        need = 1
+        for _, req, toks in pre:
+            need = max(need, blocks_for(req.prefilled + len(toks),
+                                        self.block_size))
+        for slot, rid in enumerate(emit_dec):
+            if rid is not None:
+                need = max(need, blocks_for(int(self.slot_len[slot]) + 1,
+                                            self.block_size))
+        maxb = self._maxb_bucket(need)
+        self.gather_bucket_hits[maxb] = \
+            self.gather_bucket_hits.get(maxb, 0) + 1
+        ver = self.pool.table_version
+        pre_key = (P, maxb, tuple((req.rid, ver(req.rid))
+                                  for _, req, _ in pre))
+        if pre_key != self._pre_bt_key:
+            pre_bt = np.full((P, maxb), -1, np.int32)
+            for i, (_, req, _) in enumerate(pre):
+                self._block_row(pre_bt[i], req.rid)
+            self._pre_bt_dev = self._dev(pre_bt)
+            self._pre_bt_key = pre_key
+        dec_key = (nd, maxb, tuple((rid, ver(rid)) if rid is not None
+                                   else None for rid in emit_dec))
+        if dec_key != self._dec_bt_key:
+            dec_bt = np.full((nd, maxb), -1, np.int32)
+            for slot, rid in enumerate(emit_dec):
+                if rid is not None:
+                    self._block_row(dec_bt[slot], rid)
+            self._dec_bt_dev = self._dev(dec_bt)
+            self._dec_bt_key = dec_key
+        return self._pre_bt_dev, self._dec_bt_dev
+
+
+class ReferenceTorchEngine(_SlotEngineBase):
+    """Slot-sequential oracle, as ``ReferenceJaxEngine``: each prefill
+    chunk is one ``prefill`` call against its slot (its rows of the dense
+    cache, written in place), decodes run as one batched ``decode_step``
+    over all slots in which inactive slots neither write nor advance (the
+    in-place form of JAX's post-step select). Chunks are padded to the
+    quantum bucket; the pad tokens land past the true length, which is
+    set back explicitly, and do not advance Mamba state (``seq_lens``).
+    Slower by design: kept as the equivalence reference. ``params`` and
+    ``device``: see ``_SlotEngineBase``."""
+
+    def __init__(self, cfg: ModelConfig, n_slots: int = 8,
+                 max_len: int = 512, quantum: int = 64, seed: int = 0,
+                 dtype=torch.float32,
+                 params: Optional[Mapping[str, torch.Tensor]] = None,
+                 device="cuda"):
+        super().__init__(cfg, n_slots, max_len, quantum, seed, dtype,
+                         params, device)
+        self.cache = init_cache(cfg, n_slots, max_len, dtype=dtype,
+                                chunk=max_len, device=self.device)
+        self._last_token = np.zeros((n_slots,), np.int32)
+        self._has_mamba = any(l.mixer == MAMBA for l in cfg.layers)
+
+    def _prefill_slot(self, tokens: np.ndarray, slot: int, start: int,
+                      real: int, extras: dict) -> torch.Tensor:
+        """One chunk ([1, S]) through ``prefill`` on slot ``slot``;
+        ``real`` tokens of it are the request's, the rest quantum
+        padding. Returns the logits [1, S, Vp]."""
+        i32 = dict(dtype=torch.int32, device=self.device)
+        logits, _ = prefill(
+            self.params, self.cfg, _slot_slice(self.cache, slot),
+            torch.as_tensor(tokens, **i32)[None],
+            torch.tensor([start], **i32), batch_extras=extras,
+            seq_lens=torch.tensor([real], **i32))
+        return logits
+
+    def _decode_all(self, active: np.ndarray) -> torch.Tensor:
+        """One decode step over every slot from its last token; only the
+        ``active`` slots advance. Returns the logits [n_slots, Vp]."""
+        logits, _ = decode_step(
+            self.params, self.cfg, self.cache,
+            torch.as_tensor(self._last_token, device=self.device)[:, None],
+            active=torch.as_tensor(active, device=self.device))
+        return logits[:, 0]
+
+    def _reset_slot(self, slot: int) -> None:
+        # Mamba recurrences are not masked by cache positions the way
+        # attention KV is: a reused slot must not leak the previous
+        # occupant's state
+        if not self._has_mamba:
+            return
+        for st in self.cache["layers"]:
+            if isinstance(st, MambaState):
+                st.conv[slot] = 0.0
+                st.ssm[slot] = 0.0
+
+    def _release_slot(self, slot: int) -> None:
+        # reset the slot's length so stale cache rows cannot leak
+        self.cache["len"][slot] = 0
+
+    def warm(self) -> int:
+        """Build and load the kernels (on the card), then run one
+        prefill chunk of ``quantum`` tokens through slot 0 (its writes
+        land below length 0 and are overwritten before they become
+        visible; its recurrent state is zeroed again) and one decode step
+        with no slot active. Eager PyTorch compiles nothing per shape, so
+        one call of each is the whole warm-up. Returns the calls made."""
+        if self.device.type == "cuda":
+            build.build()
+        L = self._lbucket(1)
+        self._prefill_slot(np.zeros((L,), np.int32), 0, 0, L,
+                           self._extras(1))
+        self.cache["len"][0] = 0
+        self._reset_slot(0)
+        self._decode_all(np.zeros((self.n_slots,), bool))
+        return 2
+
+    def execute(self, plan: BatchPlan, now: float) -> float:
+        t0 = time.perf_counter()
+        # --- prefill chunks (per request, quantum-bucketed lengths)
+        for req, chunk in plan.prefill:
+            if req.rid not in self.slot_of:
+                self.on_admit(req)
+            slot = self.slot_of[req.rid]
+            toks = self.tokens[req.rid][req.prefilled:req.prefilled + chunk]
+            real = len(toks)
+            pad = self._lbucket(real) - real if self.quantum > 1 else 0
+            if pad:
+                toks = np.concatenate([toks, np.zeros(pad, np.int32)])
+            logits = self._prefill_slot(toks, slot, req.prefilled, real,
+                                        self._extras(1))
+            if pad:
+                # padded tail tokens land in positions the NEXT write
+                # overwrites; track the TRUE length explicitly
+                self.cache["len"][slot] = req.prefilled + real
+            if req.prefilled + chunk >= req.prompt_len:
+                tok = int(torch.argmax(
+                    logits[0, real - 1, :self.cfg.vocab_size]))
+                self._last_token[slot] = tok
+                self.generated[req.rid].append(tok)
+        # --- one batched decode step over all slots, actives advance
+        if plan.decode:
+            active = np.zeros((self.n_slots,), bool)
+            for req in plan.decode:
+                active[self.slot_of[req.rid]] = True
+            logits = self._decode_all(active)
+            toks = torch.argmax(logits[:, :self.cfg.vocab_size],
+                                dim=-1).cpu().numpy().astype(np.int32)
+            for req in plan.decode:
+                slot = self.slot_of[req.rid]
+                self._last_token[slot] = toks[slot]
+                self.generated[req.rid].append(int(toks[slot]))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)   # honest wall time
+        elapsed = time.perf_counter() - t0
+        self.iteration_log.append((plan.cost(), elapsed))
+        return elapsed
+
+
+ENGINES = {"fused": TorchEngine, "reference": ReferenceTorchEngine}
+
+
+def make_engine(kind: str, cfg: ModelConfig, **kw):
+    """Engine factory for drivers: ``"fused"`` or ``"reference"``."""
+    if kind not in ENGINES:
+        raise KeyError(f"unknown engine {kind!r}; known: {list(ENGINES)}")
+    return ENGINES[kind](cfg, **kw)

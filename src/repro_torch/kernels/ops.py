@@ -134,7 +134,7 @@ def counts() -> Dict[str, Dict[str, int]]:
 
 def variants() -> Dict[str, Dict]:
     """The launches of each attention kernel since the last reset, by
-    variant: ``head_dim`` for decode, ``(head_dim, window)`` for
+    variant: ``(head_dim, page)`` for decode, ``(head_dim, window)`` for
     prefill."""
     with build.count_lock:
         return {name: dict(mod.variants) for name, mod in

@@ -24,7 +24,7 @@ MAX_GROUP = 32      # query heads per kv-head: one warp each
 SPLIT_TOKENS = 128  # tokens a split covers (at least one page)
 
 launches = 0    # wrapper calls that launched the kernels, by this process
-variants: Counter = Counter()   # the head_dim of each of those calls
+variants: Counter = Counter()   # the (head_dim, page) of each of those
 
 
 def plan_splits(n_pages: int, page: int) -> Tuple[int, int]:
@@ -86,5 +86,5 @@ def paged_attention_cuda(q, k_pages, v_pages, block_table, lens):
                  build.DTYPES[q.dtype], D ** -0.5)
     with build.count_lock:
         launches += 1
-        variants[D] += 1
+        variants[D, page] += 1
     return out

@@ -21,7 +21,7 @@ from .paged_attention import MAX_GROUP, plan_splits, workspace
 NAME = "paged_attention_int8"
 
 launches = 0    # wrapper calls that launched the kernels, by this process
-variants: Counter = Counter()   # the head_dim of each of those calls
+variants: Counter = Counter()   # the (head_dim, page) of each of those
 
 
 def _check(q, k_pages, v_pages, k_scales, v_scales, block_table, lens):
@@ -84,5 +84,5 @@ def paged_attention_int8_cuda(q, k_pages, v_pages, k_scales, v_scales,
                  D ** -0.5)
     with build.count_lock:
         launches += 1
-        variants[D] += 1
+        variants[D, page] += 1
     return out

@@ -3,8 +3,9 @@
 The counterpart of the JAX package's ``launch/serve.py``, with its three
 entry points:
 
-  --backend torch   real forward passes through ``TorchEngine`` (the
-                    counterpart of ``--backend jax``; the default)
+  --backend torch   real forward passes through ``TorchEngine`` or
+                    ``ReferenceTorchEngine`` (the counterpart of
+                    ``--backend jax``; the default)
   --backend sim     the calibrated A100 oracle on the paper's datasets
                     (``--dataset``, ``--qps``, ``--duration``; paper-scale
                     studies, no device)
@@ -21,8 +22,14 @@ picks the architecture from the port's registry (``repro_torch.configs``):
 ``llama3.2-3b`` (the default), ``mamba2-370m``, the MoE decoders
 ``qwen3-moe-30b-a3b`` and ``dbrx-132b``, the hybrid ``jamba-v0.1-52b``,
 ``granite-8b``, ``starcoder2-15b`` or the sliding-window decoder
-``gemma3-4b``. ``--prefix-cache`` gives the replica the KV hierarchy's
-shared-prefix tier, as in the JAX serve script.
+``gemma3-4b``, the vision-language ``internvl2-76b`` or the
+encoder-decoder ``whisper-medium``. ``--engine`` picks the fused engine
+(the default) or the slot-sequential reference oracle, the only one
+that serves ``whisper-medium`` (the fused engine refuses it, as JAX's
+does); ``--kv-layout`` picks the fused engine's paged pool (the
+default) or its dense slot cache. ``--prefix-cache`` gives the replica
+the KV hierarchy's shared-prefix tier (paged fused engine only), as in
+the JAX serve script.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --dtype bf16 \
       --n-requests 12 --max-len 2048
@@ -31,6 +38,12 @@ shared-prefix tier, as in the JAX serve script.
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
       --arch qwen3-moe-30b-a3b
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
+      --engine reference
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
+      --kv-layout dense
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
+      --arch whisper-medium --engine reference
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \
       --dtype bf16 --n-requests 12 --max-len 2048
   PYTHONPATH=src python -m repro_torch.launch.serve --backend sim \
@@ -92,6 +105,15 @@ def main(argv=None):
                          "on the card")
     ap.add_argument("--reduced", action="store_true",
                     help="serve .reduced(num_layers=2, d_model=256)")
+    ap.add_argument("--engine", choices=["fused", "reference"],
+                    default="fused",
+                    help="torch backend engine: fused one-forward "
+                         "continuous batching, or the slot-sequential "
+                         "reference oracle")
+    ap.add_argument("--kv-layout", choices=["paged", "dense"],
+                    default="paged",
+                    help="fused-engine KV layout: block-paged pool "
+                         "(default) or the contiguous per-slot cache")
     ap.add_argument("--block-size", type=int, default=64,
                     help="tokens per KV block")
     ap.add_argument("--kv-blocks", type=int, default=None,
@@ -130,7 +152,8 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced(num_layers=2, d_model=256)
     rep = make_torch_replica(
-        args.scheme, cfg, n_slots=args.slots, max_len=args.max_len,
+        args.scheme, cfg, engine=args.engine, kv_layout=args.kv_layout,
+        n_slots=args.slots, max_len=args.max_len,
         block_size=args.block_size, kv_blocks=args.kv_blocks,
         seed=args.seed, hw=H100 if device.type == "cuda" else CPU_HW,
         device=device, dtype=DTYPES[args.dtype],
@@ -146,7 +169,8 @@ def main(argv=None):
     rep.run()
     dur = rep.now
 
-    print(f"\nscheme={args.scheme} device={device} dtype={args.dtype} "
+    print(f"\nscheme={args.scheme} engine={args.engine} "
+          f"kv_layout={args.kv_layout} device={device} dtype={args.dtype} "
           f"arch={cfg.name} layers={cfg.num_layers} d_model={cfg.d_model}")
     _report(rep, dur)
     print(f"  kv pool: {rep.kv.num_blocks} blocks x {rep.kv.block_size} "

@@ -1,36 +1,53 @@
-"""The fused serve forward of the dense decoder and Mamba2 families, in
-PyTorch.
+"""The transformer of every served family, in PyTorch: the offline
+forward, the slot cache and the fused serve forward in both KV layouts.
 
-Counterpart of the serve path of the JAX package's
-``models/transformer.py``: ``init_params``, ``init_paged_cache`` (with
-its int8 ``QuantPagedAttnCache`` and ``_quantize``), ``_paged_write``,
-``_paged_view``, ``_attn_paged``, ``_gather_cache_rows``,
-``_scatter_cache_rows``, ``_apply_ffn``, ``_embed``, ``_fused_block`` and
-``fused_serve_forward`` keep their names, their parameter layouts
-(``wq [d, H, hd]``, ``wo [H, hd, d]``, ``embed [V_pad, d]``,
-``lm_head [d, V_pad]``, the Mamba leaves of ``models/mamba2.py``) and
-their einsums.
+Counterpart of the JAX package's ``models/transformer.py``. These keep
+their names, their parameter layouts (``wq [d, H, hd]``, ``wo [H, hd,
+d]``, ``embed [V_pad, d]``, ``lm_head [d, V_pad]``, ``norm_cross`` and
+``cross`` in the decoder layers of an encoder-decoder model,
+``encoder.layers.*`` and ``encoder.final_norm``, the Mamba leaves of
+``models/mamba2.py``) and their einsums:
 
-Departures, all for memory: the page writes and the Mamba state updates
-happen in place (JAX returns a new cache); the paged cache carries one
-more page than the pool grants, the sink page ``num_blocks``, which takes
-the writes JAX drops as out of bounds; and each Mamba layer's state
-carries one more row than there are slots, the sink row ``n_slots``,
-which takes the scatter of pad prefill rows that JAX drops. Nothing
-reads either sink for a live request: block tables only hold granted
-pages, and pad rows' outputs are discarded.
+- the parameters: ``init_params``;
+- the dense slot cache and the offline path: ``AttnCache``,
+  ``QuantAttnCache``, ``_dequant``, ``_ring_size``, ``init_cache``,
+  ``_write_cache``, ``_attn_cached``, ``_pos_masked_attention`` (and its
+  blocked form), ``_attn_train``, ``_cross_attn``, ``_encoder_forward``,
+  ``_build_cross_caches``, ``_decoder_block``, ``prefill`` and
+  ``decode_step``, which the reference engine runs;
+- the fused serve path: ``init_paged_cache`` (with its int8
+  ``QuantPagedAttnCache`` and ``_quantize``), ``_paged_write``,
+  ``_paged_view``, ``_attn_paged`` (paged layout), ``_attn_pallas``
+  (dense layout), ``_gather_cache_rows``, ``_scatter_cache_rows``,
+  ``_apply_ffn``, ``_embed``, ``_fused_block`` and
+  ``fused_serve_forward``.
 
-Attention reads, the norms and the SSD scan go through ``kernels.ops``:
-the hand-written CUDA kernels for tensors on the card, the plain PyTorch
-versions on the CPU. Mixture-of-experts FFNs (``models/moe.py``) serve
-through ``moe_forward_grouped`` by default, or ``moe_forward_dropless``
-on request (``moe_impl``), as in the JAX fused serve path.
-Sliding-window layers (``SWA``) hold pages like full-attention layers and
-read them through ``chunked_prefill_attention`` with their window, in
-prefill and in decode, as the JAX kernel branch does; their block tables
-may hold ``-1`` holes where the engine reclaimed pages that slid out of
-every window. Encoder-decoder families and modality frontends are not
-ported yet and raise ``NotImplementedError``.
+Departures, all for memory: cache writes and Mamba state updates happen
+in place (JAX returns a new cache); and every cache carries a sink that
+takes the writes JAX drops as out of bounds. The paged cache carries one
+more page than the pool grants (page ``num_blocks``); the dense cache,
+its Mamba states and its cross caches one more row than the batch (row
+``batch``), not a column, so that ``cache.k[:n_slots]`` stays contiguous
+and the decode kernel's 256-token pages are a view of it. Nothing reads
+a sink for a live request: block tables only hold granted pages, pad
+rows' outputs are discarded, and the offline path reads rows
+``[:batch]``.
+
+The fused path's attention reads, every norm and the SSD scan go through
+``kernels.ops``: the hand-written CUDA kernels for tensors on the card,
+the plain PyTorch versions on the CPU. The offline path's attention is
+the JAX package's jnp attention (``models/layers.py``), as torch ops on
+every device. Mixture-of-experts FFNs (``models/moe.py``) serve through
+``moe_forward_grouped`` in the fused engine by default and through
+``moe_forward_dropless`` in the offline path, as in JAX's serve paths;
+the training forward and its capacity dispatch are not ported, so the
+offline path is JAX's with ``serve=True``. Sliding-window layers
+(``SWA``) read their window, through ``chunked_prefill_attention`` in the
+fused path; in the paged layout their block tables may hold ``-1`` holes
+where the engine reclaimed pages that slid out of every window.
+Encoder-decoder models run the offline path only, as in JAX; a vision
+frontend is the stub that zeroes each prefill chunk's leading
+``num_tokens`` embeddings.
 """
 from __future__ import annotations
 
@@ -42,8 +59,10 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
-from .config import ATTN, DENSE, MAMBA, MOE, NONE, SWA, ModelConfig
-from .layers import apply_rope, rmsnorm, swiglu
+from .config import ATTN, DENSE, MAMBA, MOE, NONE, SWA, LayerSpec, ModelConfig
+from .layers import (_gqa_out, _gqa_scores, _softmax_masked, apply_rope,
+                     blocked_attention, rmsnorm, swa_blocked_attention,
+                     swiglu)
 from .mamba2 import (Mamba, MambaState, init_mamba_params, init_mamba_state,
                      mamba_forward, mamba_step)
 from .moe import MoE, moe_forward_dropless, moe_forward_grouped
@@ -53,18 +72,27 @@ MOE_IMPLS = {"grouped": moe_forward_grouped,
              "dropless": moe_forward_dropless}
 
 
+DEFAULT_RING_CHUNK = 4096   # max prefill chunk a ring cache must absorb
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a decoder the port can serve: every layer
-    mixes with full attention, sliding-window attention or Mamba2, and
-    its FFN is dense, MoE or absent."""
-    if cfg.is_encdec or cfg.frontend is not None or any(
-            l.mixer not in (ATTN, SWA, MAMBA)
-            or l.ffn not in (DENSE, MOE, NONE) for l in cfg.layers):
+    """Raise unless every layer of ``cfg`` mixes with full attention,
+    sliding-window attention or Mamba2, and its FFN is dense, MoE or
+    absent: the layer kinds of the JAX package."""
+    if any(l.mixer not in (ATTN, SWA, MAMBA)
+           or l.ffn not in (DENSE, MOE, NONE) for l in cfg.layers):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves decoder-only families of full "
-            f"attention, sliding-window attention or Mamba2 layers with a "
-            f"dense or MoE FFN or none so far; encoder-decoder and "
-            f"modality frontends wait in ROADMAP.md queue 1")
+            f"{cfg.name}: a layer kind outside full attention, "
+            f"sliding-window attention or Mamba2 with a dense or MoE FFN "
+            f"or none")
+
+
+def _check_decoder_only(cfg: ModelConfig) -> None:
+    """The fused serve path covers decoder-only families, as in JAX."""
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: fused serving covers decoder-only families; use "
+            f"ReferenceTorchEngine for encoder-decoder models")
 
 
 # ================================================================ params
@@ -99,9 +127,12 @@ class DenseFFN(nn.Module):
 class Layer(nn.Module):
     """One block, holding what the JAX ``_init_layer`` holds: ``norm1``
     and ``mamba`` or ``attn``; ``norm2`` and ``ffn`` (dense) or ``moe``
-    only where the layer has an FFN."""
+    only where the layer has an FFN; with ``cross`` (the decoder layers
+    of an encoder-decoder model) ``norm_cross`` and the cross-attention
+    ``cross``."""
 
-    def __init__(self, cfg: ModelConfig, spec, device, dtype):
+    def __init__(self, cfg: ModelConfig, spec, device, dtype,
+                 cross: bool = False):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.norm1 = _param(cfg.d_model, **kw)
@@ -115,14 +146,32 @@ class Layer(nn.Module):
         elif spec.ffn != NONE:
             self.norm2 = _param(cfg.d_model, **kw)
             self.ffn = DenseFFN(cfg, **kw)
+        if cross:
+            self.norm_cross = _param(cfg.d_model, **kw)
+            self.cross = Attention(cfg, **kw)
+
+
+class Encoder(nn.Module):
+    """The bidirectional encoder of an encoder-decoder model:
+    ``layers`` (attention and a dense FFN each) and ``final_norm``."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.layers = nn.ModuleList(
+            Layer(cfg, LayerSpec(ATTN, DENSE), **kw)
+            for _ in range(cfg.encoder.num_layers))
+        self.final_norm = _param(cfg.d_model, **kw)
 
 
 class Transformer(nn.Module):
     """The parameters, named as the JAX parameter tree is nested:
     ``embed``, ``final_norm``, ``lm_head``, ``layers.3.attn.wq``,
     ``layers.3.ffn.w_gate``, ``layers.3.moe.router``,
-    ``layers.3.mamba.A_log``, ``layers.3.norm1`` ... The forward pass
-    is ``fused_serve_forward``, a plain function over this container."""
+    ``layers.3.mamba.A_log``, ``layers.3.norm1``, ``layers.3.cross.wq``,
+    ``encoder.layers.0.attn.wq``, ``encoder.final_norm`` ... The forward
+    passes (``prefill``, ``decode_step``, ``fused_serve_forward``) are
+    plain functions over this container."""
 
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
@@ -130,10 +179,12 @@ class Transformer(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.embed = _param(cfg.vocab_padded, cfg.d_model, **kw)
         self.final_norm = _param(cfg.d_model, **kw)
-        self.layers = nn.ModuleList(Layer(cfg, spec, **kw)
-                                    for spec in cfg.layers)
+        self.layers = nn.ModuleList(Layer(cfg, spec, cross=cfg.is_encdec,
+                                          **kw) for spec in cfg.layers)
         self.lm_head = None if cfg.tie_embeddings else \
             _param(cfg.d_model, cfg.vocab_padded, **kw)
+        self.encoder = Encoder(cfg, **kw) if cfg.encoder is not None \
+            else None
 
 
 # std of each attention, FFN and MoE weight's normal draw, as the JAX
@@ -175,6 +226,96 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 # ================================================================ caches
 
+class AttnCache(NamedTuple):
+    """Slot-position KV cache of ``batch`` rows and the sink row:
+    ``k``/``v`` ``[batch + 1, R, KV, hd]``, ``pos`` ``[batch + 1, R]``
+    int32, the global position of the token in each position slot (-1 =
+    empty). Contiguous caches write slot = position, ring caches
+    (sliding-window layers) slot = position % R, as the JAX
+    ``AttnCache``."""
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+
+
+class QuantAttnCache(NamedTuple):
+    """int8 slot-position KV cache, as the JAX ``QuantAttnCache``:
+    ``k``/``v`` int8 ``[batch + 1, R, KV, hd]`` with bf16 scales
+    ``[batch + 1, R, KV]``, one symmetric scale per (token, kv-head), and
+    ``pos`` as in ``AttnCache``."""
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+    pos: torch.Tensor
+
+
+def _dequant(c):
+    """A slot cache's k and v as the attention reads them: int8 pages to
+    bf16 times their bf16 scale, rounded to bf16, as JAX computes it."""
+    if isinstance(c, QuantAttnCache):
+        k = c.k.to(torch.bfloat16) * c.k_scale[..., None]
+        v = c.v.to(torch.bfloat16) * c.v_scale[..., None]
+        return k, v
+    return c.k, c.v
+
+
+def _rows(c, n: int):
+    """The first ``n`` rows of every field of a cache tuple (views): the
+    rows a batch of ``n`` reads, without the sink."""
+    return type(c)(*(a[:n] for a in c))
+
+
+def _ring_size(cfg: ModelConfig, spec, max_len: int, chunk: int) -> int:
+    if spec.mixer == SWA:
+        return min(max_len, spec.window + chunk)
+    return max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, chunk: int = DEFAULT_RING_CHUNK,
+               kv_quant: bool = False, device="cuda") -> Dict:
+    """The zeroed slot cache on ``device``, with the arguments of the JAX
+    ``init_cache``: an ``AttnCache`` (int8 ``QuantAttnCache`` with
+    ``kv_quant``) of ``_ring_size`` positions per attention layer, a
+    ``MambaState`` per Mamba layer, ``len`` ``[batch]`` int32 and, for an
+    encoder-decoder model, ``cross``: one ``AttnCache`` of the encoder's
+    ``num_positions`` per decoder layer, its ``pos`` the positions. Every
+    field has ``batch + 1`` rows: row ``batch`` is the sink. Raises
+    without a card unless ``device="cpu"``."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    kv, hd, n = cfg.num_kv_heads, cfg.head_dim, batch + 1
+
+    def zeros(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    def attn_cache(r):
+        pos = torch.full((n, r), -1, dtype=torch.int32, device=dev)
+        if kv_quant:
+            return QuantAttnCache(
+                zeros((n, r, kv, hd), torch.int8),
+                zeros((n, r, kv, hd), torch.int8),
+                zeros((n, r, kv), torch.bfloat16),
+                zeros((n, r, kv), torch.bfloat16), pos)
+        return AttnCache(zeros((n, r, kv, hd), dtype),
+                         zeros((n, r, kv, hd), dtype), pos)
+    cache: Dict = {"layers": [
+        init_mamba_state(n, cfg, dtype, dev) if spec.mixer == MAMBA
+        else attn_cache(_ring_size(cfg, spec, max_len, chunk))
+        for spec in cfg.layers],
+        "len": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    if cfg.encoder is not None:
+        p = cfg.encoder.num_positions
+        cache["cross"] = [
+            AttnCache(zeros((n, p, kv, hd), dtype),
+                      zeros((n, p, kv, hd), dtype),
+                      torch.arange(p, dtype=torch.int32,
+                                   device=dev).repeat(n, 1))
+            for _ in range(cfg.num_layers)]
+    return cache
+
+
 class PagedAttnCache(NamedTuple):
     """One attention layer's pages: ``[num_blocks + 1, bs, KV, hd]``.
     Page ``num_blocks`` is the sink of invalid writes (see module
@@ -208,8 +349,10 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, num_blocks: int,
     (``num_blocks`` pages and the sink page), Mamba layers keep their
     O(1) recurrent state per slot (``n_slots`` rows and the sink row).
     ``kv_quant`` stores int8 pages with bf16 scale pages beside them.
-    Raises without a card unless ``device="cpu"``."""
+    Raises without a card unless ``device="cpu"``; refuses an
+    encoder-decoder model, as JAX does."""
     check_supported(cfg)
+    _check_decoder_only(cfg)
     dev = resolve_device(device)
     shape = (num_blocks + 1, block_size, cfg.num_kv_heads, cfg.head_dim)
 
@@ -239,6 +382,40 @@ def _quantize(x):
     scale = scale.clamp_min(1e-8)
     q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def _write_cache(c, k_new, v_new, start_pos, valid=None,
+                 rows=None) -> None:
+    """Write S new tokens at global positions start_pos..start_pos+S-1,
+    in place. start_pos: [B]. Ring semantics via modulo slot index.
+
+    ``rows`` ([B], optional) is the cache row of each batch row, by
+    default row ``b`` for batch row ``b``. ``valid`` ([B, S] bool,
+    optional) masks bucketed-serving tail padding: pad tokens must not
+    write at all (a padded decode row would wrap the ring and overwrite
+    live low positions). JAX routes them to slot index R, which its
+    scatter drops; here they go to the sink, the cache's last row."""
+    B, S = k_new.shape[:2]
+    R = c.k.shape[1]
+    dev = k_new.device
+    gpos = start_pos[:, None] + torch.arange(S, device=dev)[None]   # [B, S]
+    slots = gpos % R
+    rows = torch.arange(B, device=dev) if rows is None else rows.long()
+    rows = rows[:, None].expand(B, S)
+    if valid is not None:
+        rows = torch.where(valid, rows, c.k.shape[0] - 1)
+    idx = (rows, slots.long())
+    c.pos.index_put_(idx, gpos.to(torch.int32))
+    if isinstance(c, QuantAttnCache):
+        k8, ks = _quantize(k_new)
+        v8, vs = _quantize(v_new)
+        c.k.index_put_(idx, k8)
+        c.v.index_put_(idx, v8)
+        c.k_scale.index_put_(idx, ks)
+        c.v_scale.index_put_(idx, vs)
+        return
+    c.k.index_put_(idx, k_new.to(c.k.dtype))
+    c.v.index_put_(idx, v_new.to(c.v.dtype))
 
 
 def _paged_write(c: PagedAttnCache, k_new, v_new, start_pos, bt,
@@ -305,6 +482,18 @@ def _paged_view(c, bt):
 
 # ================================================================ layers
 
+def _qkv(p: Attention, cfg: ModelConfig, x, start_pos):
+    """The projections of x ([B, S, d]) at positions ``start_pos[b] +
+    i``, RoPE applied to q and k: (q, k, v, the positions [B, S])."""
+    S = x.shape[1]
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    k = torch.einsum("bsd,dhk->bshk", x, p.wk)
+    v = torch.einsum("bsd,dhk->bshk", x, p.wv)
+    qpos = start_pos[:, None] + torch.arange(S, device=x.device)[None]
+    return (apply_rope(q, qpos, cfg.rope_theta),
+            apply_rope(k, qpos, cfg.rope_theta), v, qpos)
+
+
 def _attn_paged(p: Attention, cfg: ModelConfig, spec, x,
                 cache: PagedAttnCache, bt, start_pos, lens, valid,
                 decode: bool):
@@ -318,13 +507,7 @@ def _attn_paged(p: Attention, cfg: ModelConfig, spec, x,
     variant (exact fp32 dequantization); the other reads take the view
     that ``_paged_view`` dequantized in bf16, cast to q's dtype
     (lossless), as JAX's prefill kernel reads it in fp32."""
-    B, S, _ = x.shape
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk)
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv)
-    qpos = start_pos[:, None] + torch.arange(S, device=x.device)[None]
-    q = apply_rope(q, qpos, cfg.rope_theta)
-    k = apply_rope(k, qpos, cfg.rope_theta)
+    q, k, v, _ = _qkv(p, cfg, x, start_pos)
     _paged_write(cache, k, v, start_pos, bt, valid)
     kv_lens = (start_pos + lens).to(torch.int32)
     quant = isinstance(cache, QuantPagedAttnCache)
@@ -342,21 +525,294 @@ def _attn_paged(p: Attention, cfg: ModelConfig, spec, x,
     return torch.einsum("bshk,hkd->bsd", o, p.wo)
 
 
+def _attn_pallas(p: Attention, cfg: ModelConfig, spec, x, cache: AttnCache,
+                 start_pos, lens, valid, decode: bool, rows=None):
+    """Cached attention over the dense slot cache in the fused step, as
+    the JAX ``_attn_pallas``: the write is ``_write_cache`` (into rows
+    ``rows``, by default the slots ``0..B-1``), the read goes through the
+    kernels. Decode rows of a full-attention layer go to
+    ``paged_attention`` over the slots' rows cut into pages of
+    ``min(R, 256)`` tokens when R is a multiple of that, a view of the
+    cache (each slot's pages in order, so its block table is an iota);
+    every other read to ``chunked_prefill_attention`` in its dynamic mode
+    over R positions, the prefill rows over their slots' rows gathered
+    after the write (pad rows gather the sink row, read with length 0)."""
+    B = x.shape[0]
+    q, k, v, _ = _qkv(p, cfg, x, start_pos)
+    _write_cache(cache, k, v, start_pos, valid=valid, rows=rows)
+    window = spec.window if spec.mixer == SWA else None
+    kv_lens = (start_pos + lens).to(torch.int32)     # valid cache extent
+    R = cache.k.shape[1]
+    if decode and window is None and R % min(R, 256) == 0:
+        page = min(R, 256)
+        n_pages = R // page
+        # a view, never a copy: the slots' rows are contiguous
+        k_pages = cache.k[:B].view(B * n_pages, page, *cache.k.shape[2:])
+        v_pages = cache.v[:B].view(B * n_pages, page, *cache.v.shape[2:])
+        bt = torch.arange(B * n_pages, dtype=torch.int32,
+                          device=x.device).view(B, n_pages)
+        o = ops.paged_attention(q[:, 0], k_pages, v_pages, bt,
+                                kv_lens)[:, None]
+    else:
+        if rows is None:
+            kc, vc = cache.k[:B], cache.v[:B]
+        else:
+            kc, vc = cache.k[rows.long()], cache.v[rows.long()]
+        o = ops.chunked_prefill_attention(
+            q, kc, vc, window=window, q_offsets=start_pos.to(torch.int32),
+            kv_lens=kv_lens)
+    return torch.einsum("bshk,hkd->bsd", o, p.wo)
+
+
 def _apply_ffn(p: Layer, cfg: ModelConfig, spec, x,
-               moe_impl: str = "grouped"):
+               moe_impl: str = "dropless"):
     """The layer's FFN with its residual. A MoE layer serves through
-    ``MOE_IMPLS[moe_impl]``, as the JAX fused serve path routes it."""
+    ``MOE_IMPLS[moe_impl]``: dropless by default, as JAX's ``_apply_ffn``
+    with ``serve=True``; the fused engine passes its own. Dense weights
+    are cast to x's dtype, as in JAX (the encoder runs on fp32 frames)."""
     if spec.ffn == NONE:
         return x
     h = rmsnorm(x, p.norm2, cfg.norm_eps)
     if spec.ffn == MOE:
         return x + MOE_IMPLS[moe_impl](p.moe, h, cfg)
     f = p.ffn
-    return x + swiglu(h, f.w_gate, f.w_up, f.w_down)
+    return x + swiglu(h, f.w_gate.to(x.dtype), f.w_up.to(x.dtype),
+                      f.w_down.to(x.dtype))
 
 
-def _embed(params: Transformer, tokens):
-    return params.embed[tokens.long()]
+def _embed(params: Transformer, cfg: ModelConfig, tokens,
+           frontend_embeds=None):
+    """The token embeddings; with a vision frontend and its stub
+    ``frontend_embeds`` ([B, n, d]), the leading ``n`` positions carry
+    the patch embeddings instead. Where the chunk is shorter than ``n``
+    JAX's ``dynamic_update_slice`` refuses; here its leading positions
+    take the first patches, as the fused path's mask zeroes them."""
+    x = params.embed[tokens.long()]
+    if frontend_embeds is not None and cfg.frontend is not None \
+            and cfg.frontend.kind == "vision":
+        n = min(frontend_embeds.shape[1], x.shape[1])
+        x[:, :n] = frontend_embeds[:, :n].to(x.dtype)
+    return x
+
+
+def _lm_head(params: Transformer, cfg: ModelConfig, x):
+    w = params.lm_head if params.lm_head is not None else params.embed.T
+    return torch.einsum("bsd,dv->bsv", x, w)
+
+
+# ================================================================ offline
+
+def _pos_masked_attention(q, cache, qpos, window):
+    """Attention with explicit slot-position masking (decode: S small),
+    over rows ``[:B]`` of the cache. q: [B, S, H, D]; qpos: [B, S]."""
+    B, S, H, D = q.shape
+    cache = _rows(cache, B)
+    KV = cache.k.shape[2]
+    G = H // KV
+    ck, cv = _dequant(cache)
+    qf = q.reshape(B, S, KV, G, D)
+    s = torch.einsum("bqkgd,brkd->bkgqr", qf.float(),
+                     ck.to(q.dtype).float()) * D ** -0.5
+    kvpos = cache.pos                                       # [B, R]
+    mask = (kvpos[:, None, :] >= 0) & (kvpos[:, None, :] <= qpos[:, :, None])
+    if window is not None:
+        mask = mask & (qpos[:, :, None] - kvpos[:, None, :] < window)
+    pr = _softmax_masked(s, mask[:, None, None])            # [B,1,1,S,R]
+    o = torch.einsum("bkgqr,brkd->bqkgd", pr, cv.float())
+    return o.to(q.dtype).reshape(B, S, H, D)
+
+
+def _pos_masked_attention_blocked(q, cache, qpos, window,
+                                  block_q: int = 512):
+    """Blocked variant for prefill chunks (no [S, R] score matrix of the
+    whole chunk): query stripes of ``block_q`` rows, the last padded with
+    masked rows, as JAX scans them."""
+    B, S, H, D = q.shape
+    bq = min(block_q, S)
+    pad = (-S) % bq
+    if pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad))
+        qpos = torch.nn.functional.pad(qpos, (0, pad), value=-(10 ** 9))
+    o = torch.cat([_pos_masked_attention(q[:, i:i + bq], cache,
+                                         qpos[:, i:i + bq], window)
+                   for i in range(0, S + pad, bq)], dim=1)
+    return o[:, :S]
+
+
+def _attn_cached(p: Attention, cfg: ModelConfig, spec, x, cache, start_pos,
+                 decode: bool, fresh: bool = False, valid=None):
+    """Cached attention over a written cache (prefill chunk or decode).
+    x: [B, S, D]; start_pos: [B]. The new tokens are written first
+    (``_write_cache``, in place), then read.
+
+    fresh=True (from-scratch full-prompt prefill, start_pos == 0):
+    attention runs over the locally computed k/v and the cache is only
+    written, as in JAX."""
+    S = x.shape[1]
+    q, k, v, qpos = _qkv(p, cfg, x, start_pos)
+    _write_cache(cache, k, v, start_pos, valid=valid)
+    window = spec.window if spec.mixer == SWA else None
+    if fresh and not decode:
+        if window is not None:
+            o = swa_blocked_attention(q, k, v, q_offset=0, kv_len=S,
+                                      window=window)
+        else:
+            o = blocked_attention(q, k, v, q_offset=0, kv_len=S)
+    elif decode:
+        o = _pos_masked_attention(q, cache, qpos, window)
+    else:
+        o = _pos_masked_attention_blocked(q, cache, qpos, window)
+    return torch.einsum("bshk,hkd->bsd", o, p.wo)
+
+
+def _attn_train(p: Attention, cfg: ModelConfig, spec, x,
+                causal: bool = True):
+    """Cache-free attention (the encoder's, bidirectional with
+    ``causal=False``). The weights are cast to x's dtype, as in JAX."""
+    B, S, _ = x.shape
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, p.wv.to(x.dtype))
+    pos = torch.arange(S, device=x.device)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    if spec.mixer == SWA and causal:
+        o = swa_blocked_attention(q, k, v, q_offset=0, kv_len=S,
+                                  window=spec.window)
+    else:
+        o = blocked_attention(q, k, v, q_offset=0, kv_len=S, causal=causal)
+    return torch.einsum("bshk,hkd->bsd", o, p.wo.to(x.dtype))
+
+
+def _cross_attn(p: Attention, cfg: ModelConfig, x, cc: AttnCache):
+    """Decoder cross-attention over the cached encoder K/V (non-causal),
+    rows ``[:B]`` of the cross cache."""
+    B, S, _ = x.shape
+    cc = _rows(cc, B)
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    KV = cc.k.shape[2]
+    G = cfg.num_heads // KV
+    qf = q.reshape(B, S, KV, G, cfg.head_dim)
+    s = _gqa_scores(qf, cc.k.to(q.dtype)) * cfg.head_dim ** -0.5
+    mask = (cc.pos >= 0)[:, None, None, None, :].expand(s.shape)
+    pr = _softmax_masked(s, mask)
+    o = _gqa_out(pr, cc.v).to(x.dtype).reshape(B, S, cfg.num_heads,
+                                               cfg.head_dim)
+    return torch.einsum("bshk,hkd->bsd", o, p.wo)
+
+
+def _encoder_forward(params: Transformer, cfg: ModelConfig, frames):
+    """Bidirectional encoder over stub frame embeddings [B, P, D], in
+    the frames' dtype (fp32 from the engines' stub, as in JAX)."""
+    spec = LayerSpec(ATTN, DENSE)
+    x = frames
+    for p in params.encoder.layers:
+        h = rmsnorm(x, p.norm1, cfg.norm_eps)
+        x = x + _attn_train(p.attn, cfg, spec, h, causal=False)
+        x = _apply_ffn(p, cfg, spec, x)
+    return rmsnorm(x, params.encoder.final_norm, cfg.norm_eps)
+
+
+def _build_cross_caches(params: Transformer, cfg: ModelConfig, enc_out,
+                        cache: Dict) -> List[AttnCache]:
+    """Each decoder layer's cross K/V from the encoder output, written
+    in place into rows ``[:B]`` of ``cache["cross"]`` in its dtype."""
+    B = enc_out.shape[0]
+    for li in range(cfg.num_layers):
+        p = params.layers[li].cross
+        old = cache["cross"][li]
+        old.k[:B] = torch.einsum("bpd,dhk->bphk", enc_out,
+                                 p.wk.to(enc_out.dtype))
+        old.v[:B] = torch.einsum("bpd,dhk->bphk", enc_out,
+                                 p.wv.to(enc_out.dtype))
+    return cache["cross"]
+
+
+def _decoder_block(p: Layer, cfg: ModelConfig, spec, x, layer_cache,
+                   start_pos, decode: bool, cross_cache=None,
+                   fresh: bool = False, seq_lens=None, valid=None):
+    """One layer of the offline path over rows ``[:B]`` of its cache,
+    updated in place. ``valid`` ([B, 1], decode only): rows where it is
+    False neither write KV nor advance their Mamba state."""
+    h = rmsnorm(x, p.norm1, cfg.norm_eps)
+    if spec.mixer == MAMBA:
+        st = _rows(layer_cache, x.shape[0])
+        if decode:
+            out, new = mamba_step(p.mamba, h, cfg, st)
+        else:
+            out, new = mamba_forward(p.mamba, h, cfg, st, seq_lens=seq_lens)
+        if valid is not None:
+            new = MambaState(
+                conv=torch.where(valid[:, :, None], new.conv.to(st.conv.dtype),
+                                 st.conv),
+                ssm=torch.where(valid[:, :, None, None], new.ssm, st.ssm))
+        st.conv.copy_(new.conv)
+        st.ssm.copy_(new.ssm)
+        x = x + out
+    else:
+        x = x + _attn_cached(p.attn, cfg, spec, h, layer_cache, start_pos,
+                             decode, fresh=fresh, valid=valid)
+    if cross_cache is not None:
+        hc = rmsnorm(x, p.norm_cross, cfg.norm_eps)
+        x = x + _cross_attn(p.cross, cfg, hc, cross_cache)
+    return _apply_ffn(p, cfg, spec, x)
+
+
+@torch.inference_mode()
+def prefill(params: Transformer, cfg: ModelConfig, cache: Dict, tokens,
+            start_pos, batch_extras=None, fresh: bool = False,
+            seq_lens=None):
+    """Process a prefill chunk. tokens: [B, S]; start_pos: [B] (= current
+    cache lengths); rows ``[:B]`` of ``cache`` are updated in place and
+    ``cache["len"][:B]`` advances by S. ``fresh``: from-scratch
+    full-prompt prefill (start_pos == 0, empty cache). ``seq_lens`` ([B],
+    optional): true row lengths when the tail is bucket padding (pad
+    tokens must not advance Mamba recurrences; attention-side padding is
+    the caller's length bookkeeping). ``batch_extras``: the stubs'
+    ``frontend_embeds`` and, for an encoder-decoder model, ``frames``,
+    which run the encoder and rebuild the cross caches. Returns
+    (logits [B, S, Vp], cache)."""
+    batch_extras = batch_extras or {}
+    x = _embed(params, cfg, tokens, batch_extras.get("frontend_embeds"))
+    if cfg.is_encdec and "frames" in batch_extras:
+        enc_out = _encoder_forward(params, cfg, batch_extras["frames"])
+        _build_cross_caches(params, cfg, enc_out, cache)
+    for li, spec in enumerate(cfg.layers):
+        cc = cache["cross"][li] if cfg.is_encdec else None
+        x = _decoder_block(params.layers[li], cfg, spec, x,
+                           cache["layers"][li], start_pos, decode=False,
+                           cross_cache=cc, fresh=fresh, seq_lens=seq_lens)
+    x = rmsnorm(x, params.final_norm, cfg.norm_eps)
+    logits = _lm_head(params, cfg, x)
+    cache["len"][:tokens.shape[0]] += tokens.shape[1]
+    return logits, cache
+
+
+@torch.inference_mode()
+def decode_step(params: Transformer, cfg: ModelConfig, cache: Dict, token,
+                active=None):
+    """One decode iteration. token: [B, 1] (last sampled token), at
+    positions ``cache["len"][:B]``. ``active`` ([B] bool, optional):
+    rows where it is False compute but neither write KV, nor advance
+    their Mamba state or length (their writes go to the sink), the
+    in-place form of the JAX reference engine's post-step select.
+    Returns (logits [B, 1, Vp], cache)."""
+    B = token.shape[0]
+    start_pos = cache["len"][:B].clone()
+    valid = None if active is None else active[:, None]
+    x = _embed(params, cfg, token)
+    for li, spec in enumerate(cfg.layers):
+        cc = cache["cross"][li] if cfg.is_encdec else None
+        x = _decoder_block(params.layers[li], cfg, spec, x,
+                           cache["layers"][li], start_pos, decode=True,
+                           cross_cache=cc, valid=valid)
+    x = rmsnorm(x, params.final_norm, cfg.norm_eps)
+    logits = _lm_head(params, cfg, x)
+    cache["len"][:B] += 1 if active is None else active.to(torch.int32)
+    return logits, cache
+
+
+# ================================================================ fused
 
 
 def _mamba_block(p: Layer, cfg: ModelConfig, x_pre, x_dec,
@@ -400,11 +856,25 @@ def _fused_block(p: Layer, cfg: ModelConfig, spec, x_pre, x_dec,
     together; a request is in one of them only, so their page writes
     and state updates touch disjoint pages and slots. An absent
     sub-batch (size 0) is skipped, as JAX traces no machinery for it.
-    The layer's cache (pages or Mamba state) is updated in place."""
+    The layer's cache (pages, slot rows or Mamba state) is updated in
+    place: a paged cache through the block tables (``_attn_paged``), a
+    dense one by slot (``_attn_pallas``; the decode sub-batch is the
+    slots ``0..N-1``)."""
     if spec.mixer == MAMBA:
         x_pre, x_dec = _mamba_block(p, cfg, x_pre, x_dec, layer_cache,
                                     pre_slots, pre_len, pre_reset,
                                     dec_active)
+    elif isinstance(layer_cache, AttnCache):
+        if x_pre.shape[0]:
+            h = rmsnorm(x_pre, p.norm1, cfg.norm_eps)
+            x_pre = x_pre + _attn_pallas(p.attn, cfg, spec, h, layer_cache,
+                                         pre_start, pre_len, pre_valid,
+                                         False, rows=pre_slots)
+        if x_dec.shape[0]:
+            h = rmsnorm(x_dec, p.norm1, cfg.norm_eps)
+            x_dec = x_dec + _attn_pallas(
+                p.attn, cfg, spec, h, layer_cache, dec_start,
+                dec_active.to(dec_start.dtype), dec_active[:, None], True)
     else:
         if x_pre.shape[0]:
             h = rmsnorm(x_pre, p.norm1, cfg.norm_eps)
@@ -432,8 +902,12 @@ def _sampled_hidden(params: Transformer, cfg: ModelConfig, cache: Dict,
     ``pre_sample_col`` column) then decode slots. This is what the LM
     head reads."""
     P, L = pre_tokens.shape
-    x_pre = _embed(params, pre_tokens)
-    x_dec = _embed(params, dec_tokens[:, None])
+    x_pre = _embed(params, cfg, pre_tokens)
+    x_dec = _embed(params, cfg, dec_tokens[:, None])
+    if P and cfg.frontend is not None and cfg.frontend.kind == "vision":
+        # the stub frontend, as the reference engine's: the leading
+        # positions of each prefill chunk carry (zero) patch embeddings
+        x_pre[:, :cfg.frontend.num_tokens] = 0.0
     pre_valid = torch.arange(L, device=pre_len.device)[None] \
         < pre_len[:, None]
     for li, spec in enumerate(cfg.layers):
@@ -461,19 +935,21 @@ def fused_serve_forward(params: Transformer, cfg: ModelConfig, cache: Dict,
                         moe_impl: str = "grouped") -> torch.Tensor:
     """ONE fused serve iteration executing a whole BatchPlan, with greedy
     sampling on the device. The arguments are those of the JAX
-    ``fused_serve_forward`` (paged layout):
+    ``fused_serve_forward``:
 
       pre_tokens [P, L] int32; pre_slots [P] int32 (each row's slot,
       ``n_slots`` for pad rows); pre_start / pre_len [P] int32 (pre_len 0
       = pad row); pre_reset [P] bool (a request's first chunk: zero its
       Mamba state); pre_sample_col [P] int32; dec_tokens / dec_start [N]
       int32, dec_active [N] bool; pre_bt [P, maxb] / dec_bt [N, maxb]
-      int32 block tables (-1 = unallocated); moe_impl ``"grouped"`` or
+      int32 block tables (-1 = unallocated) in the paged layout, None in
+      the dense one (``init_cache``); moe_impl ``"grouped"`` or
       ``"dropless"``, the MoE layers' FFN.
 
-    The cache's pages and Mamba state rows are updated in place. Returns
-    the sampled ids, ``[P + N]`` int32 (prefill rows, then decode
-    slots)."""
+    The cache's pages, slot rows and Mamba state rows are updated in
+    place. Returns the sampled ids, ``[P + N]`` int32 (prefill rows, then
+    decode slots). Refuses an encoder-decoder model, as JAX does."""
+    _check_decoder_only(cfg)
     xs = _sampled_hidden(params, cfg, cache, pre_tokens, pre_slots,
                          pre_start, pre_len, pre_reset, pre_sample_col,
                          dec_tokens, dec_start, dec_active, pre_bt, dec_bt,

@@ -9,10 +9,11 @@ the JAX package's ``serving/schemes.py``.
 
 ``make_replica``, ``make_silo``, ``make_fleet`` and ``run_fleet_workload``
 build and drive the simulator's deployments, copied from the JAX package.
-``make_torch_replica`` is the counterpart of ``make_jax_replica`` on its
-paged fused path: the same scheduler and replica code, backed by
-``TorchEngine``, with the KV hierarchy (prefix cache, host-swap tier)
-when a ``KVCacheConfig`` asks for it. ``make_async_torch_fleet`` is the
+``make_torch_replica`` is the counterpart of ``make_jax_replica``: the
+same scheduler and replica code, backed by the fused ``TorchEngine``
+(paged or dense KV layout) or the ``ReferenceTorchEngine``, with the KV
+hierarchy (prefix cache, host-swap tier) when a ``KVCacheConfig`` asks
+for it. ``make_async_torch_fleet`` is the
 counterpart of ``make_async_jax_fleet`` over such replicas.
 """
 from __future__ import annotations
@@ -91,6 +92,7 @@ def make_replica(scheme: str, cfg: ModelConfig, hw: HardwareSpec = A100,
 
 
 def make_torch_replica(scheme: str, cfg: ModelConfig, *,
+                       engine: str = "fused", kv_layout: str = "paged",
                        n_slots: int = 8, max_len: int = 256,
                        block_size: int = 64,
                        kv_blocks: Optional[int] = None, quantum: int = 32,
@@ -99,30 +101,51 @@ def make_torch_replica(scheme: str, cfg: ModelConfig, *,
                        params: Optional[Mapping[str, torch.Tensor]] = None,
                        kv_cfg: Optional[KVCacheConfig] = None,
                        backend_wrap: Optional[Callable] = None) -> Replica:
-    """The scheduler, a block-granular ``KVPool`` (``kv_blocks`` blocks
-    of ``block_size`` tokens, by default enough for every slot at
-    ``max_len``) shared between scheduler accounting and the engine's
-    pages, and a ``TorchEngine`` on ``device``. ``kv_cfg`` makes the
-    pool a ``KVHierarchy`` (prefix cache and host-swap tier, priced at
-    fp32 bytes per block as in the JAX factory) working on the engine's
-    pages. ``params`` goes to the engine (a ``state_dict``);
-    ``backend_wrap`` optionally wraps the engine (e.g. a fixed-clock shim
-    for token-stream comparisons)."""
-    from repro_torch.engine.torch_backend import TorchEngine
+    """The scheduler, a ``KVPool`` and an engine on ``device``, sized and
+    refused as ``make_jax_replica`` does. ``engine``: ``"fused"``
+    (``TorchEngine``) or ``"reference"`` (``ReferenceTorchEngine``, which
+    runs exact-length chunks, ``quantum=1``, and ignores the pool's
+    grants). Paged layout (default): the pool is block-granular
+    (``kv_blocks`` blocks of ``block_size`` tokens, by default enough for
+    every slot at ``max_len``) and shared between scheduler accounting
+    and the fused engine's pages; ``kv_cfg`` makes it a ``KVHierarchy``
+    (prefix cache and host-swap tier, priced at fp32 bytes per block as
+    in the JAX factory), which needs the paged fused engine. Dense
+    layout: one block of ``max_len`` per slot, no hierarchy. ``params``
+    goes to the engine (a ``state_dict``); ``backend_wrap`` optionally
+    wraps the engine (e.g. a fixed-clock shim for token-stream
+    comparisons)."""
+    from repro_torch.engine.torch_backend import make_engine
 
     cost = ModelCostModel(cfg, hw)
-    if kv_blocks is None:
-        kv_blocks = n_slots * ((max_len + block_size - 1) // block_size)
-    if kv_cfg is not None:
-        kv = KVHierarchy(kv_blocks, block_size, cfg=kv_cfg,
-                         bytes_per_block=kv_bytes_per_block(
-                             cfg, block_size, bytes_per=4),
-                         max_seqs=n_slots)
+    if kv_layout == "paged":
+        if kv_blocks is None:
+            kv_blocks = n_slots * ((max_len + block_size - 1) // block_size)
+        if kv_cfg is not None:
+            if engine != "fused":
+                raise ValueError("the KV hierarchy needs the paged fused "
+                                 "engine (reference is slot-sequential)")
+            kv = KVHierarchy(kv_blocks, block_size, cfg=kv_cfg,
+                             bytes_per_block=kv_bytes_per_block(
+                                 cfg, block_size, bytes_per=4),
+                             max_seqs=n_slots)
+        else:
+            kv = KVPool(kv_blocks, block_size, max_seqs=n_slots)
     else:
-        kv = KVPool(kv_blocks, block_size, max_seqs=n_slots)
-    backend = TorchEngine(cfg, n_slots=n_slots, max_len=max_len,
-                          quantum=quantum, seed=seed, dtype=dtype,
-                          pool=kv, params=params, device=device)
+        if kv_cfg is not None:
+            raise ValueError("prefix cache / host swap need kv_layout="
+                             "'paged' (dense slots cannot share pages)")
+        # one block == one engine slot: admission exactly mirrors slots
+        kv = KVPool(num_blocks=n_slots, block_size=max_len)
+    ekw = dict(n_slots=n_slots, max_len=max_len, seed=seed, dtype=dtype,
+               params=params, device=device)
+    if engine == "fused":
+        ekw.update(quantum=quantum, kv_layout=kv_layout)
+        if kv_layout == "paged":
+            ekw.update(pool=kv)
+    else:
+        ekw.update(quantum=1)
+    backend = make_engine(engine, cfg, **ekw)
     if backend_wrap is not None:
         backend = backend_wrap(backend)
     if scheme.startswith("niyama"):

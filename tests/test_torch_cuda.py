@@ -466,3 +466,75 @@ def test_ssd_scan_kernel_refuses_what_it_does_not_take(cuda):
         ops.ssd_scan(x, dt.to(torch.bfloat16), A, B, C, h0, chunk=64)
     with pytest.raises(TypeError, match="dtype"):
         ops.ssd_scan(x.to(torch.bfloat16), dt, A, B, C, h0, chunk=64)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("H,KV,D", [(24, 8, 128), (16, 16, 64)])
+def test_decode_over_dense_256_token_pages(cuda, dt, H, KV, D):
+    """The dense layout's decode read: 8 slots of 2048 positions of a
+    [9, 2048, KV, D] cache (the sink row last) viewed as pages of 256
+    tokens, one page a split, an iota block table. Against the plain
+    version; each row alone equals its row of the batch, bit for bit;
+    an empty slot gives zeros."""
+    from repro_torch.kernels import paged_attention as pa
+    rng = np.random.default_rng(12)
+    B, page, n = 8, 256, 8
+    assert pa.plan_splits(n, page) == (1, n)
+    k = _t(rng.standard_normal((B + 1, n * page, KV, D), np.float32), cuda,
+           DTYPES[dt])
+    v = _t(rng.standard_normal((B + 1, n * page, KV, D), np.float32), cuda,
+           DTYPES[dt])
+    q = _t(rng.standard_normal((B, H, D), np.float32), cuda, DTYPES[dt])
+    kp = k[:B].view(B * n, page, KV, D)
+    vp = v[:B].view(B * n, page, KV, D)
+    bt = torch.arange(B * n, dtype=torch.int32, device=cuda).view(B, n)
+    ln = _t(np.array([2048, 1500, 1, 700, 256, 257, 1023, 0], np.int32),
+            cuda)
+    got = ops.paged_attention(q, kp, vp, bt, ln)
+    want = ref.paged_attention_ref(q, kp, vp, bt, ln)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dt])
+    assert bool((got[7] == 0).all())
+    for b in range(B):
+        assert torch.equal(ops.paged_attention(q[b:b + 1], kp, vp,
+                                               bt[b:b + 1], ln[b:b + 1]),
+                           got[b:b + 1])
+
+
+def test_dense_and_paged_engines_stream_alike_on_the_card(cuda):
+    """The reduced llama (head_dim 64, f32) served by the fused engine in
+    both layouts on the card, through the plans of
+    tests/test_torch_reference.py::drive_plans: the same streams (the
+    decode kernel reads 64-token pages in one and 256-token pages in the
+    other, so the sums differ in order only). Every read went through the
+    kernels: no plain version ran."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.qos import QoSSpec
+    from repro_torch.core.request import Request
+    from repro_torch.core.scheduler import BatchPlan
+    from repro_torch.engine.torch_backend import TorchEngine
+
+    cfg = get_config("llama3.2-3b").reduced(num_layers=2, d_model=256)
+    qos = QoSSpec("q", interactive=True, ttft_slo=1e6, tbt_slo=1e6)
+    streams = {}
+    for layout in ("paged", "dense"):
+        eng = TorchEngine(cfg, n_slots=3, max_len=512, quantum=16, seed=7,
+                          kv_layout=layout, device=cuda)
+        eng.warm()
+        ops.reset_counts()
+        reqs = [Request(rid=i, arrival=0.0, prompt_len=40 + 90 * i,
+                        decode_len=6, qos=qos) for i in range(3)]
+        for r in reqs:
+            eng.on_admit(r)
+        eng.execute(BatchPlan(prefill=[(reqs[0], 40), (reqs[1], 100)]), 0.)
+        reqs[0].prefilled, reqs[1].prefilled = 40, 100
+        eng.execute(BatchPlan(prefill=[(reqs[1], 30), (reqs[2], 220)],
+                              decode=[reqs[0]]), 0.)
+        reqs[1].prefilled, reqs[2].prefilled = 130, 220
+        for _ in range(5):
+            eng.execute(BatchPlan(decode=reqs), 0.)
+        counts = ops.counts()
+        assert all(c["plain"] == 0 for c in counts.values())
+        assert counts["paged_attention"]["launches"] > 0
+        assert counts["chunked_prefill_attention"]["launches"] > 0
+        streams[layout] = {rid: list(t) for rid, t in eng.generated.items()}
+    assert streams["dense"] == streams["paged"]

@@ -102,6 +102,51 @@ def test_the_probe_walks_the_new_modules():
             "repro_torch.configs.gemma3_4b"} <= names
 
 
+def test_the_probe_walks_the_reference_slice():
+    """The probe walks the configs of the encoder-decoder and vision
+    families, and the engine module holds both engines and the
+    factory."""
+    import pkgutil
+
+    import repro_torch
+    from repro_torch.engine import torch_backend
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.configs.whisper_medium",
+            "repro_torch.configs.internvl2_76b"} <= names
+    assert set(torch_backend.ENGINES) == {"fused", "reference"}
+    assert torch_backend.ENGINES["reference"] is \
+        torch_backend.ReferenceTorchEngine
+
+
+def test_reference_entry_points_default_to_the_card():
+    """Without a card and without device="cpu", the reference engine,
+    the dense engine, the slot cache, the replica factory and the serve
+    script with ``--engine reference`` raise."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from repro_torch.configs import get_config
+    from repro_torch.engine.torch_backend import (ReferenceTorchEngine,
+                                                  TorchEngine)
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.serving.schemes import make_torch_replica
+    cfg = get_config("llama3.2-3b").reduced(num_layers=2, d_model=128)
+    whisper = get_config("whisper-medium").reduced(num_layers=2,
+                                                   d_model=128)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ReferenceTorchEngine(whisper)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchEngine(cfg, kv_layout="dense")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_cache(whisper, 2, 64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_torch_replica("niyama", whisper, engine="reference")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--reduced", "--arch", "whisper-medium", "--engine",
+                    "reference"])
+
+
 def test_entry_points_default_to_the_card():
     """Without a card and without device="cpu", the engine, the model
     init, the paged cache (made or bridged), the replica factory and the
@@ -159,10 +204,13 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_families_raise():
-    """The two families still waiting raise, at ``get_config`` and at
-    the model; the sliding-window families (gemma3-4b, and every layer
-    sliding) construct, and the ``long_500k`` variant gives the JAX
-    registry's layer lists."""
+    """No family is left waiting: ``NOT_PORTED`` is empty and
+    ``get_config`` gives the JAX registry's whisper-medium and
+    internvl2-76b field for field. The fused engine refuses an
+    encoder-decoder model, naming the reference engine, as ``JaxEngine``
+    does, and serves a vision frontend; the sliding-window families
+    (gemma3-4b, and every layer sliding) construct, and the
+    ``long_500k`` variant gives the JAX registry's layer lists."""
     import dataclasses
 
     from repro.configs import get_config as jax_get_config
@@ -170,16 +218,17 @@ def test_unported_families_raise():
     from repro_torch.engine.torch_backend import TorchEngine
     from repro_torch.models.config import (SWA, EncoderConfig, FrontendStub,
                                            LayerSpec)
-    for arch, waits in (("internvl2-76b", "vision frontend"),
-                        ("whisper-medium", "encoder-decoder")):
-        with pytest.raises(NotImplementedError, match=waits):
-            get_config(arch)
+    for arch in ("internvl2-76b", "whisper-medium"):
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(jax_get_config(arch))
     base = get_config("llama3.2-3b").reduced(num_layers=2, d_model=128)
-    for extra in (dict(encoder=EncoderConfig(num_layers=1)),
-                  dict(frontend=FrontendStub(kind="vision", num_tokens=8))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TorchEngine(dataclasses.replace(base, **extra), device="cpu")
-    assert set(NOT_PORTED) == {"internvl2-76b", "whisper-medium"}
+    with pytest.raises(NotImplementedError, match="ReferenceTorchEngine"):
+        TorchEngine(dataclasses.replace(
+            base, encoder=EncoderConfig(num_layers=1)), device="cpu")
+    vision = dataclasses.replace(
+        base, frontend=FrontendStub(kind="vision", num_tokens=8))
+    assert TorchEngine(vision, device="cpu").cfg.frontend.num_tokens == 8
+    assert NOT_PORTED == {}
     for arch in ("qwen3-moe-30b-a3b", "dbrx-132b", "jamba-v0.1-52b",
                  "granite-8b", "starcoder2-15b", "gemma3-4b"):
         assert get_config(arch).name == arch
