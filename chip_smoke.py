@@ -87,15 +87,21 @@ Phases, each of which fails the run if it fails:
    streams held to each other; both engines served prefill and decode
    rows, the decode, prefill and norm kernels launched, no plain version
    ran; wall tok/s, stream TTFT and TBT, migrations and bytes moved of
-   both, and each engine's wall ms per iteration;
+   both, and each engine's wall ms per iteration; the two-engine wall
+   run serves ``GET /metrics`` (``AsyncServer(metrics_port=0)``), read
+   from 127.0.0.1 while the streams run and after them, when
+   ``repro_requests_finished_total`` must equal the requests streamed;
 9. reference: full-width llama3.2-3b and mamba2-370m (bf16): the serve
    script's 12-request mix through the fused paged engine with a
    recording fixed-clock shim, then the same plans replayed into
    ``ReferenceTorchEngine`` and (llama) the dense ``TorchEngine``, same
    weights; streams equal to the paged engine's or diverging at a logged
-   near-tie; the reference run launches the norm kernel (and the scan for
-   mamba2) and nothing else, the dense run the attention kernels and the
-   norm, no plain version;
+   near-tie (counted); the reference run launches the norm kernel (and
+   the scan for mamba2) and nothing else, the dense run the attention
+   kernels and the norm, no plain version; then (llama) the same plans
+   through 4 of its 28 layers at full width in f32 (TF32 off) by the
+   fused paged, reference and dense engines, whose streams must be
+   equal with no near-tie allowed;
 10. whisper-medium at full width (24 + 24 layers, bf16) through the
    reference engine behind the NiyamaScheduler (max_len 512, 8 requests
    of 16-128 prompt and 8-32 output tokens): tok/s, iterations, the
@@ -103,7 +109,20 @@ Phases, each of which fails the run if it fails:
    full-width layers in f32 with random frames, kernels against plain;
 11. internvl2-76b at full width cut to 4 of its 80 layers (bf16, the
    vision stub): 6 requests through the fused paged engine and the same
-   plans through the reference engine, streams agreeing.
+   plans through the reference engine, streams agreeing;
+12. obs: the observability plane (``repro_torch.obs``) on full-width
+   llama3.2-3b (bf16, the serve phase's replica and geometry): (a) 6 of
+   the serve phase's requests behind the fixed-clock shim, untraced then
+   traced (a lifecycle recorder installed): equal plan digests
+   (``sim.trace.trace_digest``) and streams, and each run's host wall ms
+   an iteration (the recorder's overhead); (b) the 12 requests through
+   the serve script with ``--trace-out`` and ``--trace-chrome`` on the
+   wall clock (files under ``chiprun_out/``): the events validate, each
+   request's breakdown sums to its end-to-end latency within 1e-9 s, the
+   attribution table and the seconds by cause (``predictor_error``
+   among them) are printed, and the replica's scrape mirrors its
+   iterations and the engine's prefill tokens; every run launches the
+   attention kernels and the norm, no plain version.
 
 Prints each phase's seconds and peak device memory
 (``torch.cuda.max_memory_allocated``), the card's name and power limit,
@@ -1139,9 +1158,41 @@ def _long_prompt_requests(rng, n: int):
     return reqs
 
 
+@contextlib.contextmanager
+def _counts_after_warm():
+    """While open, an engine's ``warm()`` zeroes the kernel counts and the
+    MoE rung tally as it returns, so that a run of the serve script, which
+    warms its engine before it serves, counts the launches of its
+    requests and not those of the warm-up."""
+    from repro_torch.engine.torch_backend import (ReferenceTorchEngine,
+                                                  TorchEngine)
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+
+    saved = {cls: cls.__dict__["warm"]
+             for cls in (TorchEngine, ReferenceTorchEngine)}
+
+    def zeroing(warm):
+        def wrapped(self, *a, **kw):
+            n = warm(self, *a, **kw)
+            ops.reset_counts()
+            moe.rungs.clear()
+            return n
+        return wrapped
+
+    for cls, warm in saved.items():
+        cls.warm = zeroing(warm)
+    try:
+        yield
+    finally:
+        for cls, warm in saved.items():
+            cls.warm = warm
+
+
 def phase_serve(path: str) -> tuple:
     """Serve 12 requests on ``path`` at full width with the counts zeroed
-    just before; returns the counts read just after, and the engine. The
+    just before (after the engine's warm-up); returns the counts read just
+    after, and the engine. The
     paths with ``script`` run the serve script (``repro_torch.launch.serve``)
     as a user does; the others serve the script's request mix through the
     replica that ``_replica`` builds (the int8 path with int8 pages, the
@@ -1159,18 +1210,19 @@ def phase_serve(path: str) -> tuple:
     ops.reset_counts()
     moe.rungs.clear()
     t0 = time.perf_counter()
-    if p.script:
-        rep = serve.main(["--arch", arch, "--device", "cuda", "--dtype",
-                          "bf16", "--n-requests", "12", "--max-len", "2048",
-                          "--slots", "8", "--seed", "0", "--kv-layout",
-                          p.kv_layout])
-    else:
-        rep = _replica(arch, "niyama", kv_quant=kv_quant)
-        rep.backend.warm()
-        rng = np.random.default_rng(0)
-        rep.submit_all(_long_prompt_requests(rng, 12) if p.long_prompts
-                       else serve.make_requests(rng, 12, 2048))
-        rep.run()
+    with _counts_after_warm():
+        if p.script:
+            rep = serve.main(["--arch", arch, "--device", "cuda", "--dtype",
+                              "bf16", "--n-requests", "12", "--max-len",
+                              "2048", "--slots", "8", "--seed", "0",
+                              "--kv-layout", p.kv_layout])
+        else:
+            rep = _replica(arch, "niyama", kv_quant=kv_quant)
+            rep.backend.warm()
+            rng = np.random.default_rng(0)
+            rep.submit_all(_long_prompt_requests(rng, 12) if p.long_prompts
+                           else serve.make_requests(rng, 12, 2048))
+            rep.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.counts()
@@ -1220,10 +1272,9 @@ def phase_serve(path: str) -> tuple:
           f"serve {path}: {reads} host reads of the MoE segment size over "
           f"{n_moe} MoE layers")
     if n_moe:
-        # warm() is one more iteration, with both sub-batches
         print(f"[serve] {path}: {reads} host reads of the largest expert "
-              f"segment over {rep.iterations + 1} iterations (warm() "
-              f"included), {reads / (rep.iterations + 1):.1f} an iteration: "
+              f"segment over {rep.iterations} iterations, "
+              f"{reads / rep.iterations:.1f} an iteration: "
               f"one per MoE layer ({n_moe}) and sub-batch; capacity rungs "
               f"(rows an expert: calls) {rungs}")
     if kv_quant:
@@ -1750,18 +1801,22 @@ def _top2(eng, tokens, chunks=None) -> tuple:
 
 
 def _streams_agree(what: str, eng, got: dict, want: dict,
-                   chunks=None) -> None:
+                   chunks=None, near_tie: bool = True) -> int:
     """Fails unless the two runs streamed the same tokens for every
     request; at a first divergence it logs the top-2 logit gap there (a
     fresh forward over the shared history, ``_top2``, with the prompt's
     chunks where ``chunks`` gives them by rid) and lets it pass only as a
-    near-tie between the two streams' tokens."""
+    near-tie between the two streams' tokens, and only with
+    ``near_tie``. Returns the requests that diverged at a near-tie."""
     check(got.keys() == want.keys(), f"{what}: rids {sorted(got)} vs "
           f"{sorted(want)}")
+    ties = 0
     for rid in sorted(want):
         a, b = got[rid], want[rid]
         if a == b:
             continue
+        check(near_tie, f"{what}: rid {rid} diverged ({a} against {b}) "
+              f"where no near-tie may pass")
         check(len(a) == len(b), f"{what}: rid {rid} streamed {len(a)} "
               f"tokens against {len(b)}")
         i = next(j for j in range(len(a)) if a[j] != b[j])
@@ -1778,6 +1833,8 @@ def _streams_agree(what: str, eng, got: dict, want: dict,
               f"{what}: rid {rid} diverged at token {i} and it is not a "
               f"near-tie (|{la:.5f} - {lb:.5f}| > {NEAR_TIE_ULPS} bf16 "
               f"ulps)")
+        ties += 1
+    return ties
 
 
 def _prefix_requests():
@@ -2204,13 +2261,64 @@ def _fleet_deterministic(cfg) -> dict:
     return out, counts
 
 
+async def _get_metrics(addr) -> str:
+    """``GET /metrics`` from the server at ``addr``; the whole reply."""
+    import asyncio
+    r, w = await asyncio.open_connection(*addr)
+    w.write(b"GET /metrics HTTP/1.1\r\nHost: chip-smoke\r\n\r\n")
+    await w.drain()
+    data = await r.read()
+    w.close()
+    return data.decode()
+
+
+def _metric(text: str, name: str) -> float:
+    """The value of the unlabelled sample ``name`` in a /metrics reply."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    raise PhaseError(f"/metrics: no sample {name} in {text[:2000]!r}")
+
+
+def _stream_scraped(fleet, mix) -> tuple:
+    """The serve script's ``stream_all`` behind an ``AsyncServer`` that
+    serves ``GET /metrics`` (``metrics_port=0``): one GET once the first
+    token has been streamed (while streams are still open), one after the
+    last. Returns what ``serve.stream_requests`` returns and the probe's
+    readings."""
+    import asyncio
+
+    from repro_torch.launch import serve
+    from repro_torch.serving.asyncfleet import AsyncServer
+
+    async def run():
+        async with AsyncServer(fleet, metrics_port=0) as srv:
+            streams = asyncio.ensure_future(
+                serve.stream_all(srv, fleet, mix))
+            while srv.wall_metrics()["n_tokens"] == 0 and not streams.done():
+                await asyncio.sleep(0.005)
+            open_during = not streams.done()
+            during = await _get_metrics(srv.metrics_addr)
+            t0, t1, res = await streams
+            after = await _get_metrics(srv.metrics_addr)
+            probe = dict(addr=srv.metrics_addr, open_during=open_during,
+                         during=during, after=after)
+            return max(t1 - t0, 1e-9), res, srv.wall_metrics(), probe
+
+    return asyncio.run(run())
+
+
 def _fleet_wall(cfg, n: int) -> tuple:
     """``n`` engines behind ``AsyncServer`` on the wall clock (the serve
     script's ``stream_requests``, arrivals compressed 10x): the JAX fleet
     driver's 12-request mix. Every request must stream ``decode_len``
-    events once. Returns the stream summary, the streams, the kernel
-    counts of the streamed run (zeroed after the warm-up) and, for the
-    single engine, the engine."""
+    events once. The two-engine run also serves ``GET /metrics``
+    (``metrics_port=0``), read from 127.0.0.1 once while the streams run
+    and once after them: both replies are Prometheus text, and after the
+    run ``repro_requests_finished_total`` equals the requests streamed.
+    Returns the stream summary, the streams, the kernel counts of the
+    streamed run (zeroed after the warm-up) and, for the single engine,
+    the engine."""
     from repro_torch.core.predictor import H100
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -2223,12 +2331,38 @@ def _fleet_wall(cfg, n: int) -> tuple:
     _warm(engines)
     mix = serve.make_requests(np.random.default_rng(0), 12, 2048)
     ops.reset_counts()
+    scrape = n == 2
     try:
-        elapsed, res, wall = serve.stream_requests(fleet, mix)
+        if scrape:
+            elapsed, res, wall, probe = _stream_scraped(fleet, mix)
+        else:
+            elapsed, res, wall = serve.stream_requests(fleet, mix)
     finally:
         fleet.close()
     torch.cuda.synchronize()
     counts = _fleet_counts(f"wall x{n}")
+    if scrape:
+        during, after = probe["during"], probe["after"]
+        check(probe["addr"][0] == "127.0.0.1" and probe["open_during"],
+              f"fleet wall x{n}: /metrics at {probe['addr']}, read while "
+              f"streams ran: {probe['open_during']}")
+        for what, text in (("during", during), ("after", after)):
+            check(text.startswith("HTTP/1.1 200 OK")
+                  and "version=0.0.4" in text
+                  and "repro_iterations_total" in text,
+                  f"fleet wall x{n}: /metrics {what} the run: "
+                  f"{text[:300]!r}")
+        fin_during = _metric(during, "repro_requests_finished_total")
+        fin_after = _metric(after, "repro_requests_finished_total")
+        check(fin_after == len(res) == len(mix) and fin_during <= fin_after,
+              f"fleet wall x{n}: /metrics counted {fin_during} then "
+              f"{fin_after} finished requests; {len(res)} streamed")
+        print(f"[fleet] wall x{n}: GET /metrics on http://"
+              f"{probe['addr'][0]}:{probe['addr'][1]} answered during the "
+              f"run ({fin_during:.0f} finished, "
+              f"{_metric(during, 'repro_wall_tokens_streamed_total'):.0f} "
+              f"tokens streamed) and after it ({fin_after:.0f} finished = "
+              f"{len(res)} streamed; {len(after.splitlines())} lines)")
     fin = sorted(r.rid for r in fleet.finished())
     check(fin == list(range(12)), f"fleet wall x{n}: finished {fin}")
     streams = {}
@@ -2478,6 +2612,7 @@ def phase_reference(arch: str) -> dict:
     print(f"[reference] {arch}: the fused paged engine served {len(reqs)} "
           f"requests in {n_exec} iterations, {n_tok} output tokens in "
           f"{fused_s:.2f} s ({n_tok / fused_s:.1f} tok/s)")
+    ties = {}
     for label, build_engine, kernels in runs:
         eng = build_engine()
         check(torch.equal(eng.params.embed, fused.params.embed)
@@ -2491,14 +2626,84 @@ def phase_reference(arch: str) -> dict:
         counts = _path_counts(f"reference {arch} {label}", kernels)
         _add_counts(launches, counts)
         got = {rid: list(t) for rid, t in eng.generated.items()}
-        _streams_agree(f"{arch} {label} against fused paged", fused, got,
-                       want)
+        ties[label] = _streams_agree(f"{arch} {label} against fused paged",
+                                     fused, got, want)
         print(f"[reference] {arch} {label}: the same {n_exec} plans in "
               f"{secs:.2f} s ({n_tok / secs:.1f} tok/s); streams agree with "
-              f"the fused paged engine's; launches {counts}")
+              f"the fused paged engine's, {ties[label]} of {len(reqs)} at a "
+              f"logged bf16 near-tie; launches {counts}")
         del eng
         _free_device_memory()
-    del rec, fused
+    del fused
+    _free_device_memory()
+    if not mamba:
+        for name, n in _f32_replay(cfg, rec, ties).items():
+            launches[name] += n
+    del rec
+    _free_device_memory()
+    return launches
+
+
+# the f32 replay's depth: llama3.2-3b at full width, 4 of its 28 layers
+F32_REPLAY_LAYERS = 4
+
+
+def _f32_replay(cfg, rec: _Recorder, bf16_ties: dict) -> dict:
+    """The near-tie check: ``cfg`` cut to ``F32_REPLAY_LAYERS`` layers at
+    full width, f32 weights from seed 0 (TF32 off, as everywhere here),
+    driven through the bf16 run's recorded plans (``rec``) by the fused
+    paged engine, then by ``ReferenceTorchEngine`` and the dense
+    ``TorchEngine``. Their streams must equal the fused paged engine's
+    with no near-tie allowance: in f32 the engines differ by summation
+    order alone (about 1e-6), far below any gap a greedy pick meets at
+    random, so a divergence here is a fault, not a tie. Returns the three
+    replays' launches (each zeroed just before it)."""
+    from repro_torch.engine.torch_backend import (ReferenceTorchEngine,
+                                                  TorchEngine)
+    from repro_torch.kernels import ops
+
+    cut = dataclasses.replace(cfg, num_layers=F32_REPLAY_LAYERS,
+                              layers=cfg.layers[:F32_REPLAY_LAYERS])
+    kw = dict(n_slots=8, max_len=2048, seed=0, dtype=torch.float32,
+              device="cuda")
+    launches = {name: 0 for name in SOURCES}
+    builds = (("fused paged", lambda: TorchEngine(cut, quantum=32,
+                                                  block_size=64, **kw),
+               ATTENTION_PATH),
+              ("reference", lambda: ReferenceTorchEngine(cut, quantum=1,
+                                                         **kw),
+               ("rmsnorm",)),
+              ("dense", lambda: TorchEngine(cut, kv_layout="dense",
+                                            quantum=32, **kw),
+               ATTENTION_PATH))
+    want, first, line = None, None, []
+    for label, build_engine, kernels in builds:
+        eng = build_engine()
+        eng.warm()
+        ops.reset_counts()
+        secs = _replay(eng, rec)
+        _add_counts(launches, _path_counts(
+            f"f32 replay {label}", kernels))
+        got = {rid: list(t) for rid, t in eng.generated.items()}
+        if want is None:
+            want = got
+            first = eng
+        else:
+            _streams_agree(f"f32 {label} against fused paged", first, got,
+                           want, near_tie=False)
+        line.append(f"{label} {secs:.2f} s")
+        if eng is not first:
+            del eng
+            _free_device_memory()
+    n_tok = sum(len(t) for t in want.values())
+    print(f"[reference] f32 replay of {cfg.name} at {F32_REPLAY_LAYERS} of "
+          f"{cfg.num_layers} layers, full width, TF32 off, on the bf16 "
+          f"run's {sum(1 for e in rec.events if e[0] == 'exec')} plans: "
+          f"{len(want)} requests, {n_tok} tokens, 0 divergences of the "
+          f"reference and dense engines from the fused paged engine (no "
+          f"near-tie allowed; {', '.join(line)}); bf16 at full depth: "
+          f"{bf16_ties} requests passed at a near-tie")
+    del first
     _free_device_memory()
     return launches
 
@@ -2689,6 +2894,186 @@ def phase_internvl2() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 12
+
+# (a)'s requests: the first of the serve phase's 12
+OBS_INERT_REQUESTS = 6
+OBS_OUT = ROOT / "chiprun_out"
+
+
+def _obs_replica(traced: bool) -> tuple:
+    """The serve phase's llama3.2-3b replica (``_replica``: bf16, 8 slots
+    of 2048 tokens, 64-token pages, the H100 spec) behind the fixed-clock
+    shim, its scheduler wrapped in the plan recorder
+    (``sim.trace.TraceRecorder``); with ``traced``, also a lifecycle
+    ``TraceRecorder`` (``install_tracer``), which turns on the
+    scheduler's verdict detail (``BatchPlan.trace``)."""
+    from repro_torch.obs import TraceRecorder, install_tracer
+    from repro_torch.sim.trace import TraceRecorder as PlanRecorder
+
+    rep = _replica("llama3.2-3b", "niyama", kv_quant=False)
+    rep.backend = _FixedClock(rep.backend)
+    plans = PlanRecorder(rep.scheduler)
+    rep.scheduler = plans
+    rec = install_tracer(rep, TraceRecorder()) if traced else None
+    return rep, plans, rec
+
+
+def _obs_inertness(launches: dict) -> dict:
+    """(a) ``OBS_INERT_REQUESTS`` of the serve phase's requests through
+    ``_obs_replica``, untraced then traced: the plan digests
+    (``sim.trace.trace_digest``) and the token streams must be equal.
+    Each run's kernel counts are zeroed after its warm-up and read after
+    it (the attention path's kernels, no plain version). Returns each
+    run's host wall ms per iteration."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.obs import validate_events
+    from repro_torch.sim.trace import trace_digest
+
+    out = {}
+    for traced in (False, True):
+        rep, plans, rec = _obs_replica(traced)
+        rep.backend.inner.warm()
+        torch.cuda.synchronize()
+        reqs = serve.make_requests(np.random.default_rng(0), 12,
+                                   2048)[:OBS_INERT_REQUESTS]
+        ops.reset_counts()
+        rep.submit_all(reqs)
+        t0 = time.perf_counter()
+        rep.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        label = "traced" if traced else "untraced"
+        _add_counts(launches, _path_counts(f"obs (a) {label}",
+                                           ATTENTION_PATH))
+        check(len(rep.finished) == len(reqs),
+              f"obs (a) {label}: {len(rep.finished)}/{len(reqs)} finished")
+        if traced:
+            evs = rec.events()
+            check(validate_events(evs) == [] and any(
+                e["kind"] == "iter" and e["sched"] is not None
+                for e in evs), f"obs (a): the traced run recorded "
+                f"{len(evs)} events, {validate_events(evs)[:3]}")
+        out[label] = dict(
+            digest=trace_digest(plans.lines), iterations=rep.iterations,
+            ms_per_iteration=1e3 * wall / max(rep.iterations, 1),
+            streams={rid: list(t) for rid, t in
+                     rep.backend.inner.generated.items()},
+            events=len(rec) if traced else 0)
+        del rep, plans, rec
+        _free_device_memory()
+    a, b = out["untraced"], out["traced"]
+    check(a["digest"] == b["digest"] and a["iterations"] == b["iterations"],
+          f"obs (a): the traced run planned otherwise: {a['digest']} "
+          f"({a['iterations']} iterations) against {b['digest']} "
+          f"({b['iterations']})")
+    check(a["streams"] == b["streams"],
+          "obs (a): the traced run streamed other tokens")
+    print(f"[obs] (a) inertness at full width: {OBS_INERT_REQUESTS} requests, "
+          f"{a['iterations']} iterations under the fixed clock, plan digest "
+          f"{a['digest'][:16]} untraced and traced, streams equal; host wall "
+          f"{a['ms_per_iteration']:.2f} ms an iteration untraced, "
+          f"{b['ms_per_iteration']:.2f} ms traced ({b['events']} events)")
+    return out
+
+
+def _obs_wall(launches: dict) -> dict:
+    """(b) the serve phase's 12 requests through the serve script with
+    ``--trace-out`` and ``--trace-chrome`` on the wall clock: the JSONL
+    must validate, every request's breakdown must sum to its end-to-end
+    latency within 1e-9 s, and the replica's scrape must mirror its
+    iterations and the engine's prefill tokens. Prints the attribution
+    table (the script does) and the per-cause totals."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.obs import (CAUSES, Attribution, MetricsRegistry,
+                                 attribute, scrape_replica, validate_events)
+
+    OBS_OUT.mkdir(exist_ok=True)
+    jsonl, chrome = OBS_OUT / "obs_trace.jsonl", OBS_OUT / "obs_trace.json"
+    ops.reset_counts()
+    with _counts_after_warm():
+        rep = serve.main(["--arch", "llama3.2-3b", "--device", "cuda",
+                          "--dtype", "bf16", "--n-requests", "12",
+                          "--max-len", "2048", "--slots", "8", "--seed", "0",
+                          "--trace-out", str(jsonl), "--trace-chrome",
+                          str(chrome)])
+    torch.cuda.synchronize()
+    _add_counts(launches, _path_counts("obs (b)", ATTENTION_PATH))
+    rec, eng = rep.tracer, rep.backend
+    reqs = rep.all_requests()
+    check(rec is not None and len(rep.finished) == len(reqs) == 12,
+          f"obs (b): {len(rep.finished)}/{len(reqs)} finished, recorder "
+          f"{rec}")
+    evs = [json.loads(line) for line in jsonl.read_text().splitlines()]
+    errs = validate_events(evs)
+    check(errs == [] and len(evs) == len(rec) and rec.dropped == 0,
+          f"obs (b): {len(evs)} JSONL events of {len(rec)}, "
+          f"{rec.dropped} dropped, schema errors {errs[:3]}")
+    check(len(json.loads(chrome.read_text())["traceEvents"]) == len(evs),
+          "obs (b): the Chrome trace lost events")
+    att = Attribution(rec)
+    totals = {c: 0.0 for c in ("service",) + tuple(CAUSES)}
+    e2e = 0.0
+    for r in reqs:
+        ex = att.explain(r.rid)
+        gap = abs(sum(ex["breakdown"].values()) - ex["e2e"])
+        check(ex["finished"] and gap <= 1e-9,
+              f"obs (b): rid {r.rid}'s breakdown misses its end-to-end "
+              f"latency by {gap:.3g} s: {ex}")
+        e2e += ex["e2e"]
+        for c, v in ex["breakdown"].items():
+            totals[c] += v
+    summ = attribute(rec, reqs)
+    iters = [e for e in evs if e["kind"] == "iter"]
+    elapsed = sum(e["elapsed"] for e in iters)
+    predicted = sum(e["predicted"] for e in iters)
+    reg = MetricsRegistry()
+    scrape_replica(reg, rep)
+    it_total = reg.get("repro_iterations_total").value(replica=0)
+    pt_total = reg.get("repro_engine_prefill_tokens_total").value(replica=0)
+    check(it_total == rep.iterations and pt_total == eng.prefill_tokens > 0,
+          f"obs (b): scrape gives {it_total} iterations against "
+          f"{rep.iterations}, {pt_total} prefill tokens against "
+          f"{eng.prefill_tokens}")
+    print(f"[obs] (b) wall run: {len(reqs)} requests, {rep.iterations} "
+          f"iterations, {len(evs)} events ({jsonl.name}, {chrome.name}); "
+          f"every breakdown sums to its end-to-end latency within 1e-9 s; "
+          f"{summ['n_violated']} violated; scrape: repro_iterations_total "
+          f"{it_total:.0f}, repro_engine_prefill_tokens_total "
+          f"{pt_total:.0f} (= the engine's)")
+    print(f"[obs] (b) seconds by cause over the {len(reqs)} requests' "
+          f"{e2e:.4f} s of end-to-end latency: "
+          + ", ".join(f"{c} {v:.4f}" for c, v in totals.items()))
+    n_it = len(iters)
+    print(f"[obs] (b) iterations: measured {elapsed:.4f} s, the H100 cost "
+          f"model predicted {predicted:.4f} s ({1e3 * elapsed / n_it:.2f} "
+          f"against {1e3 * predicted / n_it:.2f} ms an iteration)")
+    out = dict(requests=len(reqs), iterations=rep.iterations,
+               events=len(evs), violated=summ["n_violated"],
+               causes=summ["causes"], e2e_s=e2e, by_cause_s=totals,
+               elapsed_s=elapsed, predicted_s=predicted)
+    del rep, rec, eng
+    _free_device_memory()
+    return out
+
+
+def phase_obs() -> dict:
+    """The observability plane on the serve path: (a) the recorder's
+    inertness on the card (``_obs_inertness``) and (b) a traced wall run
+    through the serve script (``_obs_wall``). Returns the launches of its
+    three runs."""
+    launches = {name: 0 for name in SOURCES}
+    inert = _obs_inertness(launches)
+    for run in inert.values():
+        del run["streams"]
+    wall = _obs_wall(launches)
+    print(f"[obs] summary {json.dumps(dict(inert=inert, wall=wall))}")
+    print(f"[obs] launches {launches}")
+    return launches
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2752,15 +3137,16 @@ def main() -> int:
     counts = timed("fleet", phase_fleet)
     for name in SOURCES:
         launches[name] += counts[name]["launches"]
-    # the reference engine, whisper-medium and internvl2-76b: each run's
-    # counts zeroed just before it and read just after
+    # the reference engine, whisper-medium, internvl2-76b and the obs
+    # phase: each run's counts zeroed just before it and read just after
     for name, fn, *args in (("reference llama3.2-3b", phase_reference,
                              "llama3.2-3b"),
                             ("reference mamba2-370m", phase_reference,
                              "mamba2-370m"),
                             ("whisper-medium", phase_whisper),
                             (f"internvl2-76b ({INTERNVL_LAYERS} of 80 "
-                             f"layers)", phase_internvl2)):
+                             f"layers)", phase_internvl2),
+                            ("obs llama3.2-3b", phase_obs)):
         for kernel, n in timed(name, fn, *args).items():
             launches[kernel] += n
     kernels = []

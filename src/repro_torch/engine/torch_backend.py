@@ -112,6 +112,14 @@ class _SlotEngineBase:
         self.iteration_log: List[tuple] = []
         self._extras_cache: Dict[int, dict] = {}
 
+    @property
+    def jit_compiles(self) -> int:
+        """Programs compiled per shape bucket (``JaxEngine``'s count): 0,
+        since both engines run eagerly and eager PyTorch compiles no
+        program per shape. Once ``warm`` captures a CUDA graph per bucket,
+        this counts the captured graphs (ROADMAP queue 1 item 2)."""
+        return 0
+
     def _gen_tokens(self, req: Request) -> np.ndarray:
         """Synthetic prompt tokens, seeded per rid exactly as the JAX
         engines seed them, so every engine serves the same prompts.
@@ -202,8 +210,10 @@ class TorchEngine(_SlotEngineBase):
     ``kv_quant`` keeps int8 KV pages with bf16 scale pages
     (``QuantPagedAttnCache``; paged layout only, as in JAX).
     ``moe_impl`` is the MoE layers' FFN, ``"grouped"`` or ``"dropless"``
-    (``models/moe.py``). Refuses encoder-decoder models, as ``JaxEngine``
-    does. ``params`` and ``device``: see ``_SlotEngineBase``."""
+    (``models/moe.py``). ``gather_buckets=False`` pins every block table
+    to the full page window (``max_blocks``), as in ``JaxEngine``.
+    Refuses encoder-decoder models, as ``JaxEngine`` does. ``params`` and
+    ``device``: see ``_SlotEngineBase``."""
 
     def __init__(self, cfg: ModelConfig, n_slots: int = 8,
                  max_len: int = 512, quantum: int = 64, seed: int = 0,
@@ -211,7 +221,7 @@ class TorchEngine(_SlotEngineBase):
                  block_size: int = 64, pool: Optional[KVPool] = None,
                  params: Optional[Mapping[str, torch.Tensor]] = None,
                  device="cuda", kv_quant: bool = False,
-                 moe_impl: str = "grouped"):
+                 moe_impl: str = "grouped", gather_buckets: bool = True):
         _check_decoder_only(cfg)
         if kv_layout not in ("paged", "dense"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
@@ -231,6 +241,7 @@ class TorchEngine(_SlotEngineBase):
                          params, device)
         self.moe_impl = moe_impl
         self.kv_quant = kv_quant
+        self.gather_buckets = gather_buckets
         if self.paged:
             if pool is not None:
                 block_size = pool.block_size
@@ -402,8 +413,9 @@ class TorchEngine(_SlotEngineBase):
 
     def _maxb_ladder(self) -> list:
         """Page-window rungs: every width up to 4, then powers of two,
-        then ``max_blocks``."""
-        if not self.paged:
+        then ``max_blocks``; only ``max_blocks`` without
+        ``gather_buckets``."""
+        if not (self.paged and self.gather_buckets):
             return [self.max_blocks]
         rungs = set(range(1, min(4, self.max_blocks) + 1))
         m = 8
@@ -416,7 +428,10 @@ class TorchEngine(_SlotEngineBase):
     def _maxb_bucket(self, need: int) -> int:
         """The smallest ladder rung covering the longest live row. A
         narrower table reads the same result: the columns dropped hold
-        only positions past every row's query."""
+        only positions past every row's query. ``max_blocks`` without
+        ``gather_buckets``."""
+        if not self.gather_buckets:
+            return self.max_blocks
         for m in self._maxb_ladder():
             if m >= need:
                 return m
@@ -517,13 +532,19 @@ class TorchEngine(_SlotEngineBase):
             d(dec_tokens), d(dec_start), d(dec_active), pre_bt, dec_bt,
             self.moe_impl)
 
-    def warm(self) -> None:
+    def warm(self, max_chunk: Optional[int] = None) -> int:
         """Build and load the kernels (on the card), and launch each once
         with a state-safe iteration: one pad prefill row on the sink row
         and an inactive decode batch, with empty block tables in the
         paged layout, so every write goes to the sink page or row and no
         live slot's state moves. Both sub-batches run every layer's FFN,
-        the MoE ones through ``moe_impl``."""
+        the MoE ones through ``moe_impl``. Returns the calls made (1).
+
+        ``max_chunk`` caps the chunk lengths of ``JaxEngine.warm``'s
+        (P, L, nd, maxb) lattice; the eager engine compiles nothing per
+        shape, so it is accepted and unused here. Capturing that lattice
+        as CUDA graphs is left to the CUDA-graphs work (ROADMAP queue 1
+        item 2)."""
         if self.device.type == "cuda":
             build.build()
         n = self.n_slots
@@ -537,6 +558,7 @@ class TorchEngine(_SlotEngineBase):
                    z1, z1, np.zeros((1,), bool), z1,
                    self.last_token.copy(), self.slot_len.copy(),
                    np.zeros((n,), bool), *bts)
+        return 1
 
     def execute(self, plan: BatchPlan, now: float) -> float:
         t0 = time.perf_counter()
@@ -759,13 +781,15 @@ class ReferenceTorchEngine(_SlotEngineBase):
         # reset the slot's length so stale cache rows cannot leak
         self.cache["len"][slot] = 0
 
-    def warm(self) -> int:
+    def warm(self, max_chunk: Optional[int] = None) -> int:
         """Build and load the kernels (on the card), then run one
         prefill chunk of ``quantum`` tokens through slot 0 (its writes
         land below length 0 and are overwritten before they become
         visible; its recurrent state is zeroed again) and one decode step
-        with no slot active. Eager PyTorch compiles nothing per shape, so
-        one call of each is the whole warm-up. Returns the calls made."""
+        with no slot active. Returns the calls made (2). ``max_chunk``
+        caps the chunk shapes ``ReferenceJaxEngine.warm`` compiles; eager
+        PyTorch compiles nothing per shape, so one call of each is the
+        whole warm-up and ``max_chunk`` is accepted and unused."""
         if self.device.type == "cuda":
             build.build()
         L = self._lbucket(1)

@@ -29,7 +29,11 @@ that serves ``whisper-medium`` (the fused engine refuses it, as JAX's
 does); ``--kv-layout`` picks the fused engine's paged pool (the
 default) or its dense slot cache. ``--prefix-cache`` gives the replica
 the KV hierarchy's shared-prefix tier (paged fused engine only), as in
-the JAX serve script.
+the JAX serve script. ``--trace-out`` and ``--trace-chrome`` record the
+request-lifecycle trace (``repro_torch.obs``) on any of the three
+paths, write it as JSONL or Chrome trace events and print the
+SLO-violation attribution table; ``--metrics-port`` serves the fleet's
+live metrics registry on ``GET /metrics`` with ``--fleet``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --dtype bf16 \
       --n-requests 12 --max-len 2048
@@ -52,6 +56,8 @@ the JAX serve script.
       --n-requests 12 --slots 4 --max-len 2048
   PYTHONPATH=src python -m repro_torch.launch.serve --fleet 2 --device cpu \
       --reduced --n-requests 8 --slots 2 --max-len 128
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
+      --trace-out trace.jsonl --trace-chrome trace.json
 """
 from __future__ import annotations
 
@@ -73,6 +79,31 @@ from repro_torch.serving.schemes import (CPU_HW, CPU_TIERS,
                                          make_torch_replica)
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _make_recorder(args):
+    """A TraceRecorder when either trace flag asks for one, else None
+    (the stack's hooks stay inert without it)."""
+    if args.trace_out is None and args.trace_chrome is None:
+        return None
+    from repro_torch.obs import TraceRecorder
+    return TraceRecorder()
+
+
+def _finish_trace(args, rec, requests) -> None:
+    """Export the recorded trace and print the attribution table."""
+    if rec is None:
+        return
+    from repro_torch.obs import attribute, render_attribution_table
+    if args.trace_out:
+        n = rec.export_jsonl(args.trace_out)
+        print(f"  trace: {n} events -> {args.trace_out}"
+              + (f" ({rec.dropped} dropped)" if rec.dropped else ""))
+    if args.trace_chrome:
+        rec.export_chrome(args.trace_chrome)
+        print(f"  chrome trace -> {args.trace_chrome} "
+              f"(open in chrome://tracing or ui.perfetto.dev)")
+    print(render_attribution_table(attribute(rec, list(requests))))
 
 
 def make_requests(rng: np.random.Generator, n: int, max_len: int):
@@ -138,6 +169,18 @@ def main(argv=None):
     ap.add_argument("--tick", type=float, default=0.1,
                     help="async fleet: seconds between soft barriers "
                          "(the global offload/migration decision passes)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="record the request-lifecycle trace and write "
+                         "it as JSONL (docs/observability.md §Span "
+                         "schema); also prints the SLO-violation "
+                         "attribution table at exit")
+    ap.add_argument("--trace-chrome", default=None, metavar="PATH",
+                    help="also export the trace as Chrome trace_event "
+                         "JSON (load in chrome://tracing or perfetto)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="with --fleet: serve the live metrics registry "
+                         "as Prometheus text on GET /metrics at this "
+                         "port (0 picks a free one)")
     args = ap.parse_args(argv)
 
     rng = np.random.default_rng(args.seed)
@@ -145,8 +188,9 @@ def main(argv=None):
         if args.backend != "torch":
             ap.error("--fleet needs --backend torch (real engines)")
         return _serve_fleet(args, rng)
+    rec = _make_recorder(args)
     if args.backend == "sim":
-        return _serve_sim(args, rng)
+        return _serve_sim(args, rng, rec)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -159,6 +203,7 @@ def main(argv=None):
         device=device, dtype=DTYPES[args.dtype],
         kv_cfg=(KVCacheConfig(enable_prefix=True) if args.prefix_cache
                 else None))
+    rep.tracer = rec
     reqs = make_requests(rng, args.n_requests, args.max_len)
     # build and load the kernels and run one iteration at the model's
     # shapes before the clock starts, so no request pays for the set-up
@@ -177,16 +222,18 @@ def main(argv=None):
           f"tokens, util {rep.kv.utilization():.0%} at exit")
     some = {k: v[:8] for k, v in list(rep.backend.generated.items())[:3]}
     print(f"  sample generations (token ids): {some}")
+    _finish_trace(args, rec, rep.all_requests())
     return rep
 
 
-def _serve_sim(args, rng):
+def _serve_sim(args, rng, rec):
     """``--backend sim``: the JAX serve script's simulator path, the full
     configuration priced on the A100 spec, Poisson arrivals of the
     paper's ``--dataset`` at ``--qps`` for ``--duration`` seconds, the
     paper's tiers."""
     cfg = get_config(args.arch)
     rep = make_replica(args.scheme, cfg, A100, seed=args.seed)
+    rep.tracer = rec
     ds = workloads.DATASETS[args.dataset]
     arr = workloads.poisson_arrivals(rng, args.qps, args.duration)
     reqs = workloads.make_requests(ds, arr, rng, tiers=PAPER_TIERS)
@@ -194,6 +241,7 @@ def _serve_sim(args, rng):
     rep.run(until=args.duration * 10)
     print(f"\nscheme={args.scheme} backend=sim arch={cfg.name}")
     _report(rep, args.duration)
+    _finish_trace(args, rec, rep.all_requests())
     return rep
 
 
@@ -212,32 +260,46 @@ def _report(rep, dur: float) -> None:
           f"relegated: {m.relegated_frac:.1%}")
 
 
-def stream_requests(fleet, reqs):
-    """Stream ``reqs`` through an ``AsyncServer`` over the wall-clock
-    ``fleet``: each request is submitted at a tenth of its arrival time
-    (seconds after the start) and its tokens are consumed as they come.
-    Returns the wall seconds from the start to the last token, ``[(rid,
-    submit time, [TokenEvent, ...]), ...]`` in the order of ``reqs``, and
-    the server's ``wall_metrics()``. Starts and stops the fleet."""
+async def stream_all(srv, fleet, reqs):
+    """Stream ``reqs`` through the running ``AsyncServer`` ``srv`` over
+    the wall-clock ``fleet``: each request is submitted at a tenth of its
+    arrival time (seconds after the start) and its tokens are consumed as
+    they come. Returns the start and end times on the fleet's clock and
+    ``[(rid, submit time, [TokenEvent, ...]), ...]`` in the order of
+    ``reqs``."""
+    import asyncio
+
+    t0 = fleet.clock.now()
+
+    async def one(req, delay):
+        await asyncio.sleep(delay)
+        t_sub = fleet.clock.now()
+        evs = [ev async for ev in srv.stream(req, timeout=600.0)]
+        return req.rid, t_sub, evs
+
+    res = await asyncio.gather(*(one(r, 0.1 * r.arrival) for r in reqs))
+    return t0, fleet.clock.now(), res
+
+
+def stream_requests(fleet, reqs, metrics_port=None):
+    """``stream_all`` behind an ``AsyncServer`` of its own, which with
+    ``metrics_port`` also serves ``GET /metrics`` there (0 picks a free
+    port). Returns the wall seconds from the start to the last token, the
+    streams and the server's ``wall_metrics()``. Starts and stops the
+    fleet."""
     import asyncio
 
     from repro_torch.serving.asyncfleet import AsyncServer
 
     async def run():
-        async with AsyncServer(fleet) as srv:
-            t0 = fleet.clock.now()
+        async with AsyncServer(fleet, metrics_port=metrics_port) as srv:
+            if srv.metrics_addr is not None:
+                print(f"metrics: http://{srv.metrics_addr[0]}:"
+                      f"{srv.metrics_addr[1]}/metrics")
+            t0, t1, res = await stream_all(srv, fleet, reqs)
+            return t0, t1, res, srv.wall_metrics()
 
-            async def one(req, delay):
-                await asyncio.sleep(delay)
-                t_sub = fleet.clock.now()
-                evs = [ev async for ev in srv.stream(req, timeout=600.0)]
-                return req.rid, t_sub, evs
-
-            res = await asyncio.gather(
-                *(one(r, 0.1 * r.arrival) for r in reqs))
-            return t0, res, fleet.clock.now(), srv.wall_metrics()
-
-    t0, res, t1, wall = asyncio.run(run())
+    t0, t1, res, wall = asyncio.run(run())
     return max(t1 - t0, 1e-9), res, wall
 
 
@@ -263,9 +325,14 @@ def _serve_fleet(args, rng):
         dtype=DTYPES[args.dtype], tick=args.tick)
     for rep in fleet.replicas:
         fleet.engine_of(rep).warm()
+    rec = _make_recorder(args)
+    if rec is not None:
+        from repro_torch.obs import install_tracer
+        install_tracer(fleet, rec)
     reqs = make_requests(rng, args.n_requests, args.max_len)
     try:
-        elapsed, res, wall = stream_requests(fleet, reqs)
+        elapsed, res, wall = stream_requests(
+            fleet, reqs, metrics_port=args.metrics_port)
     finally:
         fleet.close()
     ttfts = sorted(evs[0].t - t_sub for _, t_sub, evs in res if evs)
@@ -290,6 +357,7 @@ def _serve_fleet(args, rng):
           f"{rep.kv_moved_bytes/1e6:.1f} MB")
     some = {rid: [t for _, t, _ in evs[:8]] for rid, _, evs in res[:3]}
     print(f"  sample streamed token ids: {some}")
+    _finish_trace(args, rec, fleet.all_requests())
     return fleet
 
 

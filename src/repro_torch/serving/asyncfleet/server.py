@@ -6,13 +6,12 @@ as they arrive and consume per-token events (with wall timestamps) as the
 engines produce them. The event loop never touches engine state — it only
 reads the thread-safe stream queues the owning ``EngineWorker`` feeds.
 
-Observability: the server keeps the per-token wall timestamps it
-streams — ``wall_metrics()`` folds them into wall-clock TTFT/TBT
-percentiles (the sim-time metrics pipeline cannot see these). The JAX
-package's Prometheus ``GET /metrics`` endpoint (``metrics_port``) and
-its barrier scrapes into a caller's ``registry`` need its ``obs/``
-package, which the port does not have yet (ROADMAP item 10): a
-``metrics_port`` or a ``registry`` raises ``NotImplementedError``.
+Observability (docs/observability.md): the server keeps the per-token
+wall timestamps it streams — ``wall_metrics()`` folds them into
+wall-clock TTFT/TBT percentiles (the sim-time metrics pipeline cannot
+see these) — and, given a ``metrics_port``, serves the fleet's metrics
+registry as a Prometheus ``GET /metrics`` endpoint over a minimal
+asyncio HTTP listener (zero new dependencies).
 """
 from __future__ import annotations
 
@@ -47,13 +46,17 @@ class AsyncServer:
 
     def __init__(self, fleet: AsyncFleet, poll_s: float = 0.01,
                  registry=None, metrics_port: Optional[int] = None):
-        if metrics_port is not None or registry is not None:
-            raise NotImplementedError(
-                "metrics_port, registry: the /metrics endpoint and the "
-                "barrier scrapes need the obs/ package (registry and scrape "
-                "pass), which the port does not have yet (ROADMAP item 10)")
         self.fleet = fleet
         self.poll_s = poll_s
+        self.metrics_port = metrics_port
+        if registry is None and metrics_port is not None:
+            from repro_torch.obs import MetricsRegistry
+            registry = MetricsRegistry()
+        self.registry = registry
+        if registry is not None and getattr(fleet, "registry", None) is None:
+            fleet.registry = registry   # barrier scrapes feed the endpoint
+        self.metrics_addr: Optional[tuple] = None   # (host, port) once bound
+        self._http_server: Optional[asyncio.AbstractServer] = None
         # per-request wall-time observations (streamed tokens only)
         self._rid_of_queue: Dict[int, int] = {}     # id(queue) -> rid
         self._submit_wall: Dict[int, float] = {}    # rid -> submit time
@@ -61,9 +64,15 @@ class AsyncServer:
 
     async def __aenter__(self) -> "AsyncServer":
         self.fleet.start()
+        if self.metrics_port is not None:
+            await self._start_metrics_server()
         return self
 
     async def __aexit__(self, *exc) -> None:
+        if self._http_server is not None:
+            self._http_server.close()
+            await self._http_server.wait_closed()
+            self._http_server = None
         self.fleet.stop()
 
     def submit(self, req: Request) -> "queue.Queue":
@@ -138,3 +147,55 @@ class AsyncServer:
     def token_walls(self, rid: int) -> List[float]:
         """The wall timestamps streamed for ``rid`` (empty if none)."""
         return list(self._token_walls.get(rid, ()))
+
+    # ------------------------------------------------ /metrics endpoint
+    async def _start_metrics_server(self) -> None:
+        self._http_server = await asyncio.start_server(
+            self._handle_http, host="127.0.0.1", port=self.metrics_port)
+        self.metrics_addr = self._http_server.sockets[0].getsockname()[:2]
+
+    def _render_metrics(self) -> str:
+        # scrape on demand so a request between barriers sees fresh
+        # gauges; set_total keeps the counters monotonic regardless
+        from repro_torch.obs.scrape import scrape_fleet
+        scrape_fleet(self.registry, self.fleet)
+        wm = self.wall_metrics()
+        g = self.registry.gauge("repro_wall_latency_seconds",
+                                "wall-clock latency percentiles over "
+                                "streamed tokens", ("stat",))
+        for k in ("ttft_p50", "ttft_p95", "ttft_p99",
+                  "tbt_p50", "tbt_p95", "tbt_p99", "tbt_mean"):
+            g.set(wm[k], stat=k)
+        self.registry.counter(
+            "repro_wall_tokens_streamed_total",
+            "tokens streamed to subscribers").set_total(wm["n_tokens"])
+        return self.registry.render()
+
+    async def _handle_http(self, reader: asyncio.StreamReader,
+                           writer: asyncio.StreamWriter) -> None:
+        try:
+            line = await asyncio.wait_for(reader.readline(), timeout=5.0)
+            parts = line.decode("latin-1", "replace").split()
+            path = parts[1] if len(parts) >= 2 else "/"
+            # drain headers (keep the read side clean before replying)
+            while True:
+                h = await asyncio.wait_for(reader.readline(), timeout=5.0)
+                if h in (b"\r\n", b"\n", b""):
+                    break
+            if path.startswith("/metrics"):
+                body = self._render_metrics().encode()
+                head = (b"HTTP/1.1 200 OK\r\n"
+                        b"Content-Type: text/plain; version=0.0.4; "
+                        b"charset=utf-8\r\n")
+            else:
+                body = b"repro metrics endpoint: GET /metrics\n"
+                head = (b"HTTP/1.1 404 Not Found\r\n"
+                        b"Content-Type: text/plain\r\n")
+            writer.write(head
+                         + b"Content-Length: %d\r\n" % len(body)
+                         + b"Connection: close\r\n\r\n" + body)
+            await writer.drain()
+        except (asyncio.TimeoutError, ConnectionError):
+            pass
+        finally:
+            writer.close()

@@ -111,12 +111,11 @@ class FleetController:
         self._pending: list = []   # heap of (arrival, seq, req)
         self._seq = 0
         self._t = 0.0              # barrier clock, persists across run()s
-        # observability attach point: stays None unless a caller installs
-        # it, and every use is gated on that — the lockstep loop and
-        # decision passes read nothing from it. The JAX controller's
-        # registry, fed by a scrape pass at barriers, waits for obs/
-        # (ROADMAP item 10)
+        # observability attach points (repro_torch.obs): both stay None
+        # unless a caller installs them, and every use is gated on that —
+        # the lockstep loop and decision passes read nothing from either
         self.tracer = None
+        self.registry = None
         self.report = FleetReport(n_replicas=len(self.replicas))
         self._n_submitted = 0
         # dirty-flagged barrier snapshots: keyed on Replica.state_version,
@@ -523,6 +522,11 @@ class FleetController:
                                 max(s.now - t_end for s in snaps))
         r.peak_host_util = max(r.peak_host_util,
                                max(s.host_util for s in snaps))
+        if self.registry is not None:
+            # lazy import: the serving stack must not depend on
+            # repro_torch.obs unless a registry is actually installed
+            from repro_torch.obs.scrape import scrape_fleet
+            scrape_fleet(self.registry, self)
 
     def _finalize(self) -> None:
         r = self.report

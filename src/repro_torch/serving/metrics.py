@@ -41,10 +41,10 @@ class MetricsReport:
     unfinished_frac: float = 0.0
     goodput: float = 0.0          # requests/s finished within SLO
     throughput_tok: float = 0.0   # output tokens/s
-    # SLO-violation attribution (obs.attribution.annotate_report in the
-    # JAX package):
-    # fraction of violated requests with a dominant cause, and the
-    # dominant-cause histogram over them
+    # SLO-violation attribution
+    # (repro_torch.obs.attribution.annotate_report): fraction of violated
+    # requests with a dominant cause, and the dominant-cause histogram
+    # over them
     attributed_frac: float = 0.0
     violation_causes: Dict[str, int] = field(default_factory=dict)
     fleet: Optional["FleetReport"] = None   # fleet-level telemetry, if any

@@ -386,17 +386,60 @@ def test_fleet_entry_points_default_to_the_card():
 
 
 def test_metrics_port_waits_for_the_obs_slice():
+    """The obs slice is in: ``metrics_port`` makes a registry that the
+    fleet's barriers also feed, a caller's ``registry`` is installed on
+    the fleet, and ``GET /metrics`` answers from the wall fleet while it
+    runs and after its streams end (the twin of
+    tests/test_obs.py::test_metrics_http_endpoint on a live fleet)."""
+    from repro_torch.obs import MetricsRegistry
+
     fleet = make_fleet(LLAMA3_8B, 2, controller_cls=AsyncFleet,
                        clock=WallClock())
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-            AsyncServer(fleet, metrics_port=0)
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-            AsyncServer(fleet, registry=object())
-        assert not hasattr(fleet, "registry")
-        assert AsyncServer(fleet).fleet is fleet
+        assert fleet.registry is None
+        assert AsyncServer(fleet).registry is None and \
+            fleet.registry is None
+        reg = MetricsRegistry()
+        srv = AsyncServer(fleet, registry=reg)
+        assert srv.registry is reg and fleet.registry is reg
+        assert srv.metrics_port is None
+        # a port alone makes the server its own registry; the fleet keeps
+        # the one it has, as in the JAX server
+        own = AsyncServer(fleet, metrics_port=0).registry
+        assert isinstance(own, MetricsRegistry) and own is not reg
+        assert fleet.registry is reg
     finally:
         fleet.close()
+
+    _, tc = _configs()
+    fleet = make_async_torch_fleet(tc, 2, device="cpu", **FLEET)
+    reqs = serve.make_requests(np.random.default_rng(1), 4, 128)
+
+    async def fetch(addr):
+        r, w = await asyncio.open_connection(*addr)
+        w.write(b"GET /metrics HTTP/1.1\r\nHost: t\r\n\r\n")
+        await w.drain()
+        data = await r.read()
+        w.close()
+        return data.decode()
+
+    async def run():
+        async with AsyncServer(fleet, metrics_port=0) as srv:
+            streams = asyncio.ensure_future(
+                serve.stream_all(srv, fleet, reqs))
+            during = await fetch(srv.metrics_addr)
+            _, _, res = await streams
+            return res, during, await fetch(srv.metrics_addr)
+
+    try:
+        res, during, after = asyncio.run(run())
+    finally:
+        fleet.close()
+    assert len(res) == 4
+    for text in (during, after):
+        assert "200 OK" in text and "repro_iterations_total" in text
+    assert "repro_requests_finished_total 4" in after
+    assert fleet.registry.get("repro_wall_latency_seconds") is not None
 
 
 # =====================================================================

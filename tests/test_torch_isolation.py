@@ -1,7 +1,8 @@
 """The port stands alone: importing all of ``repro_torch`` (and
 ``chip_smoke.py``) loads neither JAX nor any module of the JAX package
-``repro``, and no source of either names them in an import. Its entry
-points run on the card unless asked for the CPU.
+``repro``, and no source of either, nor any example twin under
+``examples/torch/``, names them in an import. Its entry points run on the
+card unless asked for the CPU.
 """
 import ast
 import os
@@ -32,6 +33,16 @@ print(len(names), bad)
 """
 
 
+EXAMPLES = ROOT / "examples" / "torch"
+
+
+def _sources() -> list:
+    """Every source of the port: the package, ``chip_smoke.py`` and the
+    example twins."""
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted(EXAMPLES.glob("*.py")))
+
+
 def _forbidden(name: str) -> bool:
     return name == "jax" or name.startswith("jax.") \
         or name == "repro" or name.startswith("repro.")
@@ -48,8 +59,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
 
 
 def test_no_source_imports_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    for path in files:
+    for path in _sources():
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -63,8 +73,7 @@ def test_no_source_imports_jax_or_repro():
 def test_no_source_imports_ml_dtypes():
     """JAX's bf16 arrays cross through ``bridge`` as int16 views: the
     port needs no ``ml_dtypes``, which the card's machine lacks."""
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    for path in files:
+    for path in _sources():
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -100,6 +109,23 @@ def test_the_probe_walks_the_new_modules():
             "repro_torch.configs.starcoder2_15b",
             "repro_torch.configs.paper_models",
             "repro_torch.configs.gemma3_4b"} <= names
+
+
+def test_the_sources_cover_the_obs_slice():
+    """The import probe walks the observability plane's modules, and the
+    source scans read the five example twins."""
+    import pkgutil
+
+    import repro_torch
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.obs", "repro_torch.obs.trace",
+            "repro_torch.obs.registry", "repro_torch.obs.attribution",
+            "repro_torch.obs.scrape"} <= names
+    examples = {p.name for p in _sources() if p.parent == EXAMPLES}
+    assert examples == {"quickstart.py", "capacity_planning.py",
+                        "overload_degradation.py", "fleet_serving.py",
+                        "multi_qos_serving.py"}
 
 
 def test_the_probe_walks_the_reference_slice():
