@@ -15,7 +15,10 @@ Phases, each of which fails the run if it fails:
    dense view, for int8 pages a view dequantized beforehand;
    ``F.rms_norm`` with weight ``1 + w``; none for ``ssd_scan``), and the
    least time the card could take; decode also at one row of 1500 and
-   one of 4096 tokens (64 pages, 32 splits) in bf16 and int8, the dense
+   one of 4096 tokens (64 pages, 32 splits) in bf16 and int8, the norm's
+   backward at [1024, D] for the trained widths (3072, 768, 2048, 2560)
+   in f32 and bf16 against ``rmsnorm_bwd_ref`` (yardstick: the backward
+   of ``F.rms_norm`` through autograd, several calls), the dense
    layout's 256-token pages (8 slots of 2048 positions viewed as pages of
    a ``[9, 2048, KV, D]`` cache, an iota block table) at H24 KV8 D128
    and at H16 KV16 D64 in f32 and bf16, each row alone equal to its row
@@ -122,7 +125,24 @@ Phases, each of which fails the run if it fails:
    attribution table and the seconds by cause (``predictor_error``
    among them) are printed, and the replica's scrape mirrors its
    iterations and the engine's prefill tokens; every run launches the
-   attention kernels and the norm, no plain version.
+   attention kernels and the norm, no plain version;
+13. train: the training path (``repro_torch.engine.steps``, the norm's
+   forward and backward kernels; the kernels phase holds the backward
+   against ``rmsnorm_bwd_ref`` at the trained widths, rows alone and dw
+   from run to run bit for bit): (a) f32 gradient parity, TF32 off, of
+   full-width llama3.2-3b at 4 of 28 layers, batch 2 x 512, kernels
+   against ``ops.plain_versions()``; (b) 3 AdamW steps of full-width,
+   full-depth llama3.2-3b in f32 (3.61 B parameters), remat on, batch
+   2 x 512, through ``make_train_step``: finite losses, moving
+   parameters, seconds a step, tokens/s, peak memory and the norm
+   kernels' launches against the count predicted from the depth; (c)
+   ``repro_torch.launch.train`` for llama3.2-3b, qwen3-moe-30b-a3b and
+   gemma3-4b at ``small_100m``, 200 steps each, the last logged loss
+   below the first; (d) the llama run's checkpoint restored equal to the
+   state in memory, and one step from each equal bit for bit; (e)
+   mamba2-370m's ``forward_train`` with gradients raises, naming the scan
+   kernel's missing backward. The runs of (b) and (c) launch the norm's
+   two kernels and nothing else, and no plain version.
 
 Prints each phase's seconds and peak device memory
 (``torch.cuda.max_memory_allocated``), the card's name and power limit,
@@ -162,6 +182,15 @@ TOL = {torch.float32: dict(atol=1e-4, rtol=0.0, cap=1e-4),
 # relative) plus 1e-6; bf16 by one bf16 ulp, as above.
 RMSNORM_TOL = {torch.float32: dict(atol=1e-6, rtol=2 ** -20, cap=1e-4),
                torch.bfloat16: TOL[torch.bfloat16]}
+# rmsnorm's backward, dx: f32 is the difference of two fp32 terms of up to
+# |u| r each (a few ulps of each, ~1e-6) after row sums taken in other
+# orders (fp64 in the kernel), held to 1e-5 plus 8 ulps; bf16 to one bf16
+# ulp, as above. dw (fp32, both versions): each column a sum of N terms
+# in two orders, within (N - 1) 2^-24 of the sum of their magnitudes
+# each; held to 2^-14 of that sum (N <= 1024) per column
+RMSNORM_BWD_TOL = {torch.float32: dict(atol=1e-5, rtol=2 ** -20, cap=1e-4),
+                   torch.bfloat16: TOL[torch.bfloat16]}
+RMSNORM_DW_REL = 2 ** -14
 # ssd_scan, y and the final state: both versions compute in fp32 in either
 # input dtype, but sum the chunk's cumulative decay in different orders;
 # at |cum| ~ 1e3 one ulp of cum_i - cum_j is ~1e-4, so an element is held
@@ -180,6 +209,10 @@ SOURCES = {
         "src/repro/kernels/chunked_prefill_attention.py:90"),
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:23"),
+    # the gradient of the same function (JAX differentiates the jnp
+    # models/layers.py:26 with XLA's autodiff in training)
+    "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm.py:23"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:70"),
 }
@@ -646,6 +679,7 @@ def phase_kernels() -> dict:
     _kernels_windowed_holes(np.random.default_rng(5))
     _kernels_paged(head, np.random.default_rng(4), quant=True)
     _kernels_rmsnorm(head)
+    _kernels_rmsnorm_bwd(head)
     _kernels_ssd_scan(head)
     return head
 
@@ -965,6 +999,84 @@ def _kernels_rmsnorm(head: dict) -> None:
     torch.cuda.synchronize()
     print(f"[kernels] rmsnorm: rows alone equal the same rows of [8, D] "
           f"and [1024, D], bit for bit, D {SERVED_WIDTHS}, f32 and bf16")
+
+
+# the d_model of the trained paths: llama3.2-3b (3072), small_100m (768),
+# qwen3-moe-30b-a3b (2048) and gemma3-4b (2560)
+TRAIN_WIDTHS = (3072, 768, 2048, 2560)
+RMSNORM_BWD_MAIN = "f32 [1024, 3072]"
+
+
+def _kernels_rmsnorm_bwd(head: dict) -> None:
+    """The norm's backward kernel against ``rmsnorm_bwd_ref`` at
+    [1024, D] for every trained width, f32 and bf16: dx within
+    ``RMSNORM_BWD_TOL``, dw within ``RMSNORM_DW_REL`` of each column's sum
+    of |dy x r|; each row alone gives the same dx bit for bit as in the
+    batch; two runs give the same dw bit for bit. Timed beside the plain
+    version and, as a yardstick of several calls (not a port), the
+    backward of ``F.rms_norm(x, (D,), 1 + w)`` through autograd."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import (bwd_blocks, plan,
+                                             rmsnorm_bwd_cuda)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in TRAIN_WIDTHS:
+            N = 1024
+            label = f"{_label(dtype)} [{N}, {D}]"
+            x = torch.randn((N, D), generator=gen, device="cuda").to(dtype)
+            w = (0.1 * torch.randn(D, generator=gen, device="cuda")).to(dtype)
+            dy = torch.randn((N, D), generator=gen, device="cuda").to(dtype)
+            dx, dw = rmsnorm_bwd_cuda(x, w, dy, 1e-5)
+            want_dx, want_dw = ref.rmsnorm_bwd_ref(x, w, dy, 1e-5)
+            torch.cuda.synchronize()
+            err, worst = _compare("rmsnorm_bwd", label + " dx", dtype, dx,
+                                  want_dx, RMSNORM_BWD_TOL[dtype])
+            xf = x.float()
+            r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-5)
+            mag = (dy.float() * xf * r).abs().sum(0)
+            dw_err = (dw - want_dw).abs()
+            dw_worst = float((dw_err / (RMSNORM_DW_REL * mag + 1e-30)).max())
+            check(dw.dtype == torch.float32 and dw_worst <= 1.0
+                  and bool(torch.isfinite(dw).all()),
+                  f"rmsnorm_bwd [{label}]: dw off by {dw_worst:.3g} times "
+                  f"its limit (max {float(dw_err.max()):.3g})")
+            for row in (0, 1, 517, N - 1):
+                alone, _ = rmsnorm_bwd_cuda(x[row:row + 1], w,
+                                            dy[row:row + 1], 1e-5)
+                check(torch.equal(alone, dx[row:row + 1]),
+                      f"rmsnorm_bwd [{label}]: row {row} alone differs from "
+                      f"the same row in the batch")
+            check(torch.equal(rmsnorm_bwd_cuda(x, w, dy, 1e-5)[1], dw),
+                  f"rmsnorm_bwd [{label}]: two runs give different dw")
+            ms = time_ms(lambda: rmsnorm_bwd_cuda(x, w, dy, 1e-5))
+            plain = time_ms(lambda: ref.rmsnorm_bwd_ref(x, w, dy, 1e-5))
+            xl = x.detach().clone().requires_grad_()
+            w1 = (1.0 + w).detach().requires_grad_()
+            yl = F.rms_norm(xl, (D,), weight=w1, eps=1e-5)
+            lib = time_ms(lambda: torch.autograd.grad(
+                yl, (xl, w1), dy, retain_graph=True))
+            # x and dy read once, dx written once, w read, dw (fp32)
+            # written; about 10 fp32 flops an element
+            bms, by = bound_ms(3 * N * D * x.element_size()
+                               + D * x.element_size() + 4 * D,
+                               10.0 * N * D, torch.float32)
+            p = plan(D, dtype)
+            print(f"[kernels] rmsnorm_bwd {label} {tuple(p)} "
+                  f"{bwd_blocks(N, p)} blocks: {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, F.rms_norm backward (yardstick, several "
+                  f"calls) {lib:.4f} ms, bound {bms:.4f} ms ({by}), dx max "
+                  f"err {err:.3g} ({worst:.2f} of the limit), dw "
+                  f"{float(dw_err.max()):.3g} ({dw_worst:.2f} of the limit)")
+            if label == RMSNORM_BWD_MAIN:
+                head["rmsnorm_bwd"] = dict(ms=ms, plain_ms=plain,
+                                           library_ms=lib, bound_ms=bms,
+                                           bound_by=by, max_abs_err=err)
+    print("[kernels] rmsnorm_bwd: rows alone give the batch's dx and two "
+          "runs the same dw, bit for bit, at every trained width")
 
 
 def _ssd_case(gen, dtype, Bt, S, nh=32, hd=64, ds=128, zero_tail=0):
@@ -3077,6 +3189,280 @@ def phase_obs() -> dict:
 # ---------------------------------------------------------------- main
 
 
+# ---------------------------------------------------------------- train
+
+TRAIN_PATH = ("rmsnorm", "rmsnorm_bwd")
+TRAIN_B, TRAIN_S = 2, 512
+TRAIN_PARITY_LAYERS = 4
+# f32 (TF32 off) gradient parity, kernels against plain versions over 4
+# full-width layers: the two differ only in the norms' last bits (a few
+# ulps forward and backward), which a 4-layer network carries into the
+# loss and the gradients without growing them by orders; a dropped norm
+# gradient would be O(1) of its leaf
+TRAIN_LOSS_REL = 1e-5
+TRAIN_GRAD_REL = 1e-4     # of each leaf's largest magnitude
+TRAIN_STEPS = 3
+TRAIN_SCRIPT_ARCHS = ("llama3.2-3b", "qwen3-moe-30b-a3b", "gemma3-4b")
+# small_100m's task (vocab 32768, 8 x 128 tokens a step, lr 1e-3) lowers
+# the loss only after ~150 optimizer steps, in JAX's training script as
+# in the port's (PERF.md): 40 steps leave it at ln V's level or above
+TRAIN_SCRIPT_STEPS = 200
+
+
+def _loss_and_grads(params, cfg, batch):
+    from repro_torch.engine.steps import cross_entropy
+    from repro_torch.models.transformer import forward_train
+    logits, _ = forward_train(params, cfg, batch, remat=True)
+    loss = cross_entropy(logits, batch["labels"], cfg.vocab_size)
+    grads = torch.autograd.grad(loss, list(params.parameters()))
+    return loss.detach(), grads
+
+
+def _train_parity(cfg) -> None:
+    """One loss and its gradients through the kernels, against the same
+    under ``ops.plain_versions()``: full width, ``TRAIN_PARITY_LAYERS`` of
+    its layers, f32 with TF32 off, a 2 x 512 batch."""
+    from repro_torch.engine.steps import init_train_state
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import synthetic_batch
+
+    cut = dataclasses.replace(cfg, num_layers=TRAIN_PARITY_LAYERS,
+                              layers=cfg.layers[:TRAIN_PARITY_LAYERS])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params, _ = init_train_state(cut, gen, device="cuda")
+    batch = synthetic_batch(np.random.default_rng(0), cut, TRAIN_B, TRAIN_S,
+                            "cuda")
+    ops.reset_counts()
+    loss_k, grads_k = _loss_and_grads(params, cut, batch)
+    torch.cuda.synchronize()
+    counts = _path_counts("train parity, kernel run", TRAIN_PATH)
+    with ops.plain_versions():
+        loss_p, grads_p = _loss_and_grads(params, cut, batch)
+    loss_rel = float((loss_k - loss_p).abs() / loss_p.abs())
+    worst, worst_name = 0.0, ""
+    for (name, _), gk, gp in zip(params.named_parameters(), grads_k,
+                                 grads_p):
+        rel = float((gk - gp).abs().max() / gp.abs().max().clamp_min(1e-30))
+        check(bool(torch.isfinite(gk).all()),
+              f"train parity: {name}'s gradient is not finite")
+        if rel > worst:
+            worst, worst_name = rel, name
+    norm_scale = float(max(g.abs().max() for (n, _), g in zip(
+        params.named_parameters(), grads_k) if "norm" in n))
+    print(f"[train] parity, llama3.2-3b full width, {TRAIN_PARITY_LAYERS} of "
+          f"{cfg.num_layers} layers, f32, batch {TRAIN_B} x {TRAIN_S}: loss "
+          f"{float(loss_k):.6f} kernels against {float(loss_p):.6f} plain, "
+          f"relative {loss_rel:.3g} (limit {TRAIN_LOSS_REL}); largest "
+          f"gradient difference {worst:.3g} of its leaf's largest magnitude "
+          f"({worst_name}; limit {TRAIN_GRAD_REL}); the norm weights' "
+          f"gradients reach {norm_scale:.3g}; launches rmsnorm "
+          f"{counts['rmsnorm']['launches']}, rmsnorm_bwd "
+          f"{counts['rmsnorm_bwd']['launches']}")
+    check(loss_rel <= TRAIN_LOSS_REL and worst <= TRAIN_GRAD_REL
+          and norm_scale > 0,
+          f"train parity: loss {loss_rel:.3g}, gradients {worst:.3g} "
+          f"({worst_name}) of their limits' units")
+    del params, grads_k, grads_p
+    _free_device_memory()
+
+
+def _train_full(cfg) -> dict:
+    """``TRAIN_STEPS`` AdamW steps of full-width, full-depth llama3.2-3b in
+    f32 (the dtype of the JAX training script) through ``make_train_step``,
+    remat on, batch 2 x 512; the counts zeroed just before the steps and
+    read just after."""
+    from repro_torch.engine.steps import init_train_state, make_train_step
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import synthetic_batch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params, opt = init_train_state(cfg, gen, device="cuda")
+    n = sum(p.numel() for p in params.parameters())
+    state_gb = 16 * n / 1e9
+    print(f"[train] llama3.2-3b full: {n / 1e9:.3f} B parameters, "
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}; expected peak: {state_gb:.1f} GB of "
+          f"parameters, gradients and moments (16 bytes a parameter) plus "
+          f"the logits (0.5 GB each of logits and their gradient), remat "
+          f"checkpoints and one layer's activations (~1 GB) and AdamW's "
+          f"temporaries of the largest leaf (~3 x 1.6 GB): ~64 GB")
+    rng = np.random.default_rng(0)
+    batches = [synthetic_batch(rng, cfg, TRAIN_B, TRAIN_S, "cuda")
+               for _ in range(TRAIN_STEPS)]
+    step = make_train_step(cfg)
+    # the leading rows of three leaves, to see the parameters move
+    watch = {k: v.detach()[:8].clone() for k, v in params.named_parameters()
+             if k in ("layers.0.norm1", "layers.27.ffn.w_down", "embed")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    losses, secs = [], []
+    for b in batches:
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(loss)
+    counts = _path_counts("train llama3.2-3b full", TRAIN_PATH)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    moved = {k: float((dict(params.named_parameters())[k].detach()[:8] - v)
+                      .abs().max()) for k, v in watch.items()}
+    tok = TRAIN_B * TRAIN_S
+    print(f"[train] llama3.2-3b full, f32, batch {TRAIN_B} x {TRAIN_S}: "
+          f"losses {[round(x, 4) for x in losses]}, seconds a step "
+          f"{[round(x, 3) for x in secs]} (the first warms up), "
+          f"{tok / float(np.median(secs)):.0f} tokens/s at the median, peak "
+          f"device memory {peak:.2f} GB; largest parameter moves {moved}; "
+          f"launches rmsnorm {counts['rmsnorm']['launches']} (predicted "
+          f"{TRAIN_STEPS * (4 * cfg.num_layers + 1)}), rmsnorm_bwd "
+          f"{counts['rmsnorm_bwd']['launches']} (predicted "
+          f"{TRAIN_STEPS * (2 * cfg.num_layers + 1)})")
+    check(all(np.isfinite(losses)), f"train full: losses {losses}")
+    check(all(v > 0 for v in moved.values()),
+          f"train full: parameters did not move: {moved}")
+    del params, opt, batches, watch
+    _free_device_memory()
+    return counts
+
+
+def _train_script(ck: Path) -> tuple:
+    """``repro_torch.launch.train`` as a user runs it, on the card, for
+    each of ``TRAIN_SCRIPT_ARCHS`` at ``small_100m``: each run's counts
+    zeroed just before it and read just after; its loss trajectory beside
+    ln V, the last logged loss below the first. The llama run writes the
+    checkpoint ``ck``; returns the summed counts and that run's state."""
+    import contextlib as _cl
+    import io
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    total = {name: 0 for name in SOURCES}
+    state = None
+    for arch in TRAIN_SCRIPT_ARCHS:
+        argv = ["--arch", arch, "--steps", str(TRAIN_SCRIPT_STEPS),
+                "--log-every", "20", "--device", "cuda"]
+        if arch == "llama3.2-3b":
+            argv += ["--checkpoint", str(ck)]
+        out = io.StringIO()
+        ops.reset_counts()
+        t = time.perf_counter()
+        with _cl.redirect_stdout(out):
+            params, opt, _ = train.main(argv)
+        secs = time.perf_counter() - t
+        counts = _path_counts(f"train script {arch}", TRAIN_PATH)
+        _add_counts(total, counts)
+        lines = out.getvalue().splitlines()
+        losses = [float(line.split()[3]) for line in lines
+                  if line.startswith("step ")]
+        print(f"[train] python -m repro_torch.launch.train "
+              f"{' '.join(argv)}: {secs:.1f} s")
+        for line in lines:
+            print(f"[train]   {line}")
+        print(f"[train]   losses {losses} against ln V "
+              f"{np.log(train.small_100m(_model_config(arch)).vocab_size):.4f}"
+              f"; launches rmsnorm {counts['rmsnorm']['launches']}, "
+              f"rmsnorm_bwd {counts['rmsnorm_bwd']['launches']}")
+        check(len(losses) >= 2 and all(np.isfinite(losses))
+              and losses[-1] < losses[0],
+              f"train script {arch}: the loss did not fall: {losses}")
+        if arch == "llama3.2-3b":
+            state = (params, opt)
+        else:
+            del params, opt
+    return total, state
+
+
+def _train_checkpoint(ck: Path, state) -> None:
+    """The llama run's checkpoint restored into a fresh state equals the
+    state in memory; one step from each, on the same batch, gives the same
+    loss and parameters bit for bit."""
+    from repro_torch.engine.checkpoint import restore_checkpoint
+    from repro_torch.engine.steps import init_train_state, make_train_step
+    from repro_torch.launch import train
+
+    params, opt = state
+    cfg = train.small_100m(_model_config("llama3.2-3b"))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    fresh, fopt = init_train_state(cfg, gen, device="cuda")
+    t = time.perf_counter()
+    fresh, fopt, step = restore_checkpoint(ck, fresh, fopt)
+    restore_s = time.perf_counter() - t
+    check(step == TRAIN_SCRIPT_STEPS and int(fopt.step) == int(opt.step),
+          f"train checkpoint: step {step}, optimizer step {int(fopt.step)}")
+    for (n, a), b in zip(params.named_parameters(), fresh.parameters()):
+        check(torch.equal(a, b), f"train checkpoint: {n} differs")
+    for k in opt.mu:
+        check(torch.equal(opt.mu[k], fopt.mu[k])
+              and torch.equal(opt.nu[k], fopt.nu[k]),
+              f"train checkpoint: the moments of {k} differ")
+    batch = train.synthetic_batch(np.random.default_rng(99), cfg, 8, 128,
+                                  "cuda")
+    step_fn = make_train_step(cfg, lr=1e-3)
+    _, _, m_mem = step_fn(params, opt, batch)
+    _, _, m_res = step_fn(fresh, fopt, batch)
+    diff = {n: float((a - b).detach().abs().max()) for (n, a), b in
+            zip(params.named_parameters(), fresh.parameters())
+            if not torch.equal(a, b)}
+    print(f"[train] checkpoint {ck.name} ({ck.stat().st_size / 1e9:.2f} GB) "
+          f"restored in {restore_s:.1f} s, equal to the state in memory; "
+          f"one step from each: loss {float(m_mem['loss']):.6f} and "
+          f"{float(m_res['loss']):.6f}, {len(diff)} parameters differ "
+          f"{diff if diff else '(bit for bit)'}")
+    check(float(m_mem["loss"]) == float(m_res["loss"]) and not diff,
+          f"train checkpoint: a step from the restored state differs from "
+          f"one from the state in memory: {diff}")
+
+
+def _train_refuses_scan() -> None:
+    """``forward_train`` of mamba2-370m (full width, one layer) with
+    gradients on the card raises: the scan kernel has no backward yet."""
+    from repro_torch.engine.steps import init_train_state
+    from repro_torch.models.transformer import forward_train
+
+    cfg = _model_config("mamba2-370m")
+    cut = dataclasses.replace(cfg, num_layers=1, layers=cfg.layers[:1])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params, _ = init_train_state(cut, gen, device="cuda")
+    tokens = torch.zeros((1, 256), dtype=torch.int32, device="cuda")
+    try:
+        forward_train(params, cut, {"tokens": tokens})
+    except RuntimeError as e:
+        check("ssd_scan" in str(e) and "no backward" in str(e),
+              f"train mamba2: the wrong error: {e}")
+        print(f"[train] mamba2-370m forward_train with gradients raises: {e}")
+        return
+    raise PhaseError("train mamba2: forward_train with gradients through "
+                     "the scan kernel did not raise")
+
+
+def phase_train() -> dict:
+    """The training path on the card: f32 gradient parity, kernels against
+    plain, at full width; 3 AdamW steps of full-width, full-depth
+    llama3.2-3b; the training script for three families at small_100m;
+    the llama run's checkpoint; mamba2's refusal. Returns the launches of
+    the full run and the training script's runs."""
+    cfg = _model_config("llama3.2-3b")
+    _train_parity(cfg)
+    launches = {name: 0 for name in SOURCES}
+    _add_counts(launches, _train_full(cfg))
+    ck = ROOT / "build" / "train" / "llama3.2-3b-100m.npz"
+    counts, state = _train_script(ck)
+    for name in SOURCES:
+        launches[name] += counts[name]
+    _train_checkpoint(ck, state)
+    ck.unlink()
+    del state
+    _free_device_memory()
+    _train_refuses_scan()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3146,7 +3532,8 @@ def main() -> int:
                             ("whisper-medium", phase_whisper),
                             (f"internvl2-76b ({INTERNVL_LAYERS} of 80 "
                              f"layers)", phase_internvl2),
-                            ("obs llama3.2-3b", phase_obs)):
+                            ("obs llama3.2-3b", phase_obs),
+                            ("train", phase_train)):
         for kernel, n in timed(name, fn, *args).items():
             launches[kernel] += n
     kernels = []
@@ -3156,7 +3543,7 @@ def main() -> int:
                             **head[name]))
         print(f"[kernels] {name}: ported (cuda, {src}), agrees with its "
               f"plain version in f32 and bf16, launched {launches[name]} "
-              f"times while serving")
+              f"times on the served and trained paths")
     print(f"[done] {time.perf_counter() - t0:.1f} s on {card}; each phase's "
           f"seconds and peak device memory: {'; '.join(phases)}")
     print(json.dumps({"kernels": kernels}))

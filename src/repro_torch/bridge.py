@@ -1,5 +1,5 @@
-"""Carry weights, paged caches and swap payloads between the JAX package
-and the port.
+"""Carry weights, optimizer state, paged caches and swap payloads between
+the JAX package and the port.
 
 Everything crosses as numpy arrays, so this module imports neither JAX
 nor the JAX package: a caller turns JAX arrays into numpy first (for
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.engine.optim import AdamWState, named_leaves
 from repro_torch.models.mamba2 import MambaState
 from repro_torch.models.transformer import (PagedAttnCache,
                                             QuantPagedAttnCache)
@@ -23,12 +24,21 @@ from repro_torch.models.transformer import (PagedAttnCache,
 
 def tensor_from_numpy(a) -> torch.Tensor:
     """A numpy array (or anything ``np.asarray`` takes) as a CPU tensor of
-    the same dtype and bits; a ``bfloat16`` array becomes a
-    ``torch.bfloat16`` tensor through its int16 view."""
+    the same dtype and bits; a ``bfloat16`` array, or the 2-byte void
+    array that numpy reads back from an ``.npz`` where JAX saved one,
+    becomes a ``torch.bfloat16`` tensor through its int16 view."""
     a = np.array(a)
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V"
+                                      and a.dtype.itemsize == 2):
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host; bf16 becomes float32, which
+    holds every bf16 value exactly."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
@@ -52,6 +62,66 @@ def params_from_numpy(tree) -> Dict[str, torch.Tensor]:
     flat: Dict[str, np.ndarray] = {}
     _flatten(tree, "", flat)
     return {k: tensor_from_numpy(v) for k, v in flat.items()}
+
+
+def _nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """``{"layers.0.attn.wq": a, ...}`` as the JAX tree: nested dicts,
+    with a list where every key of a level is an index."""
+    tree: Dict[str, Any] = {}
+    for name, a in flat.items():
+        node = tree
+        *path, leaf = name.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = a
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+    return lists(tree)
+
+
+def params_to_numpy(params) -> Dict[str, Any]:
+    """The port's parameters (a ``Transformer`` or its ``state_dict``) as
+    the JAX parameter tree of numpy arrays (bf16 as float32), the inverse
+    of ``params_from_numpy``: ``{"embed": ..., "layers": [{"attn":
+    {"wq": ...}, ...}, ...], ...}``. A JAX caller takes it as it is
+    (``jax.tree.map(jnp.asarray, tree)``)."""
+    return _nest({n: tensor_to_numpy(t)
+                  for n, t in named_leaves(params).items()})
+
+
+def adamw_to_numpy(state: AdamWState) -> Dict[str, Any]:
+    """The port's AdamW state as ``{"step", "mu", "nu"}`` of numpy arrays
+    in the JAX layout (``repro.engine.optim.AdamWState(**d)`` builds
+    JAX's): ``step`` int32 of shape (), the moments as JAX parameter
+    trees."""
+    return {"step": tensor_to_numpy(state.step),
+            "mu": _nest({n: tensor_to_numpy(t) for n, t in state.mu.items()}),
+            "nu": _nest({n: tensor_to_numpy(t) for n, t in state.nu.items()})}
+
+
+def adamw_from_numpy(state, device="cuda") -> AdamWState:
+    """A JAX AdamW state (``AdamWState(step, mu, nu)`` of numpy arrays, or
+    a mapping with those keys) as the port's on ``device``: the moments
+    fp32, keyed as the port's parameters (``layers.0.attn.wq``). Raises
+    without a card unless ``device="cpu"``."""
+    dev = resolve_device(device)
+    get = state.get if isinstance(state, Mapping) else \
+        (lambda k: getattr(state, k))
+
+    def moments(tree):
+        flat: Dict[str, np.ndarray] = {}
+        _flatten(tree, "", flat)
+        return {k: tensor_from_numpy(v).float().to(dev)
+                for k, v in flat.items()}
+    return AdamWState(
+        step=torch.tensor(np.asarray(get("step")), dtype=torch.int32,
+                          device=dev),
+        mu=moments(get("mu")), nu=moments(get("nu")))
 
 
 def _cache_type(entry):

@@ -11,7 +11,9 @@ turns every full-attention layer of the ``SWA_500K_ARCHS`` into a
 sliding-window layer (the ``swa_500k`` variant). ``NOT_PORTED`` is
 empty. The paper's own models (``paper_models``: ``LLAMA3_8B``,
 ``QWEN_7B``) are imported as a module, not through the registry, as in
-the JAX package.
+the JAX package. ``SHAPES`` and ``InputShape`` (``shapes.py``, a copy)
+are the four assigned input shapes that the training script and the
+JAX package's launch tools name.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ from repro_torch.models.config import ModelConfig
 from . import (dbrx_132b, gemma3_4b, granite_8b, internvl2_76b,
                jamba_v0_1_52b, llama3_2_3b, mamba2_370m, qwen3_moe_30b_a3b,
                starcoder2_15b, whisper_medium)
+from .shapes import (DECODE_32K, LONG_500K, PREFILL_32K, SHAPES, TRAIN_4K,
+                     InputShape)
 
 _CONFIGS = {"llama3.2-3b": llama3_2_3b.CONFIG,
             "mamba2-370m": mamba2_370m.CONFIG,
@@ -57,4 +61,6 @@ def get_config(arch_id: str, shape: str | None = None) -> ModelConfig:
     return cfg
 
 
-__all__ = ["get_config", "NOT_PORTED", "SWA_500K_ARCHS"]
+__all__ = ["get_config", "NOT_PORTED", "SWA_500K_ARCHS", "SHAPES",
+           "InputShape", "TRAIN_4K", "PREFILL_32K", "DECODE_32K",
+           "LONG_500K"]

@@ -188,6 +188,241 @@ cudaError_t launch(const void* x, const void* w, void* out, int N, int D,
                               eps, stream);
 }
 
+// ---------------------------------------------------------------- backward
+//
+// The gradient of the norm. No Pallas kernel computes it: the JAX training
+// path differentiates repro/models/layers.py::rmsnorm with XLA's autodiff.
+// For each row n, with r = rsqrt(sum(x[n]^2) / D + eps) recomputed as the
+// forward computes it and u = dy[n] * (1 + w):
+//   dx[n] = r * u - x[n] * (r^3 * sum(u * x[n]) / D)    in x's dtype
+//   dw    = sum over rows of dy[n] * x[n] * r          in fp32
+//
+// Bound: bytes. x and dy are read once and dx written once (3 N D
+// elements), w read and dw written once, at about 10 flops an element.
+//
+// Design: the forward's row plan (wpr warps a row, U units a lane). A row
+// group of wpr warps walks rows group, group + n_groups, ... and keeps its
+// lanes' elements of 1 + w and their dw sums in registers across rows;
+// a row's x and dy stay in registers from their one read to the write of
+// dx. The row's two sums (x^2, and u * x) reduce as the forward's one:
+// a warp butterfly, then the row's warps in warp order through shared
+// memory (double-buffered, one barrier a row), in fp64 for f32 rows and
+// fp32 for bf16 rows. So r is the forward's, and a row's dx depends on D
+// and the dtype alone, never on N or on the group that takes the row.
+// Each group writes its dw sums into its own row of `part` [n_groups, D]
+// (fp32, no atomics), and a second kernel sums part's rows in group
+// order: dw is the same, bit for bit, from run to run at a given N.
+
+// Store n floats (a multiple of 4, 16-byte aligned), 16 bytes at a time.
+template <int n>
+__device__ __forceinline__ void store_floats(const float* v, float* dst) {
+#pragma unroll
+  for (int i = 0; i < n; i += 4)
+    *reinterpret_cast<float4*>(dst + i) =
+        make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+}
+
+template <typename T, bool kVec, int U>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                       const T* __restrict__ dy, T* __restrict__ dx,
+                       float* __restrict__ part, int N, int D, int wpr,
+                       float eps) {
+  constexpr int VEC = kVec ? Vec16<T>::N : 1;
+  constexpr int E = U * VEC;              // elements a lane holds
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int groups = (blockDim.x >> 5) / wpr;   // row groups a block
+  const int g = warp / wpr;
+  const int first = g * wpr;              // the group's first warp
+  const int units = D / VEC;
+  const int stride = 32 * wpr;
+  const int u0 = (warp - first) * 32 + lane;
+  const int n_groups = gridDim.x * groups;
+
+  // this lane's elements of 1 + w, and its dw sums
+  float gw[E], acc[E];
+#pragma unroll
+  for (int q = 0; q < U; ++q) {
+    const int u = u0 + q * stride;
+    if constexpr (kVec) {
+      if (u < units) {
+        load16<T>(w + u * VEC, gw + q * VEC);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) gw[q * VEC + e] = 0.f;
+      }
+    } else {
+      gw[q] = u < units ? to_float(w[u]) : 0.f;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    gw[e] = 1.f + gw[e];
+    acc[e] = 0.f;
+  }
+
+  using Acc = typename std::conditional<sizeof(T) == 4, double, float>::type;
+  __shared__ Acc partial[2][2][kMaxWarps];   // [row parity][sum][warp]
+  int parity = 0;
+  // base is uniform across the block, so every thread takes the same
+  // number of steps and meets the same barriers
+  for (int base = blockIdx.x * groups; base < N; base += n_groups) {
+    const int row = base + g;
+    const bool live = row < N;
+    const size_t off = (size_t)(live ? row : 0) * D;
+    // the row's x and dy units, all loaded before any is used
+    uint4 xr[kVec ? U : 1], dr[kVec ? U : 1];
+    float xs[kVec ? 1 : U], ds[kVec ? 1 : U];
+#pragma unroll
+    for (int q = 0; q < U; ++q) {
+      const int u = u0 + q * stride;
+      const bool in = live && u < units;
+      if constexpr (kVec) {
+        xr[q] = dr[q] = make_uint4(0u, 0u, 0u, 0u);
+        if (in) {
+          xr[q] = __ldg(reinterpret_cast<const uint4*>(x + off + u * VEC));
+          dr[q] = __ldg(reinterpret_cast<const uint4*>(dy + off + u * VEC));
+        }
+      } else {
+        xs[q] = in ? to_float(x[off + u]) : 0.f;
+        ds[q] = in ? to_float(dy[off + u]) : 0.f;
+      }
+    }
+    Acc ss = 0, sux = 0;
+#pragma unroll
+    for (int q = 0; q < U; ++q) {
+      if constexpr (kVec) {
+        float xv[VEC], dv[VEC];
+        unpack16<T>(xr[q], xv);
+        unpack16<T>(dr[q], dv);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          ss = fma((Acc)xv[e], (Acc)xv[e], ss);
+          sux = fma((Acc)(dv[e] * gw[q * VEC + e]), (Acc)xv[e], sux);
+        }
+      } else {
+        ss = fma((Acc)xs[q], (Acc)xs[q], ss);
+        sux = fma((Acc)(ds[q] * gw[q]), (Acc)xs[q], sux);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      sux += __shfl_xor_sync(0xffffffffu, sux, o);
+    }
+    if (wpr > 1) {                        // uniform across the block
+      if (lane == 0) {
+        partial[parity][0][warp] = ss;
+        partial[parity][1][warp] = sux;
+      }
+      __syncthreads();
+      ss = 0;
+      sux = 0;
+      for (int q = 0; q < wpr; ++q) {
+        ss += partial[parity][0][first + q];
+        sux += partial[parity][1][first + q];
+      }
+      parity ^= 1;
+    }
+    if (!live) continue;
+    // r as the forward forms it, then r^3 times the mean of u * x
+    const float inv = rsqrtf((float)ss * (1.f / (float)D) + eps);
+    const float c = inv * inv * inv * ((float)sux * (1.f / (float)D));
+    T* dxr = dx + off;
+#pragma unroll
+    for (int q = 0; q < U; ++q) {
+      const int u = u0 + q * stride;
+      if (u >= units) break;
+      if constexpr (kVec) {
+        float xv[VEC], dv[VEC], o[VEC];
+        unpack16<T>(xr[q], xv);
+        unpack16<T>(dr[q], dv);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          o[e] = inv * (dv[e] * gw[q * VEC + e]) - xv[e] * c;
+          acc[q * VEC + e] = fmaf(dv[e] * xv[e], inv, acc[q * VEC + e]);
+        }
+        store16(o, dxr + u * VEC);
+      } else {
+        store_float(inv * (ds[q] * gw[q]) - xs[q] * c, dxr + u);
+        acc[q] = fmaf(ds[q] * xs[q], inv, acc[q]);
+      }
+    }
+  }
+
+  // the group's dw sums into its row of part (zeros for a group that took
+  // no row)
+  float* pr = part + (size_t)(blockIdx.x * groups + g) * D;
+#pragma unroll
+  for (int q = 0; q < U; ++q) {
+    const int u = u0 + q * stride;
+    if (u >= units) break;
+    if constexpr (kVec) {
+      store_floats<VEC>(acc + q * VEC, pr + u * VEC);
+    } else {
+      pr[u] = acc[q];
+    }
+  }
+}
+
+// dw[j] = sum over g of part[g, j], in group order: one thread a column.
+__global__ void rmsnorm_dw_kernel(const float* __restrict__ part,
+                                  float* __restrict__ dw, int n_groups,
+                                  int D) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= D) return;
+  float s = 0.f;
+#pragma unroll 8
+  for (int g = 0; g < n_groups; ++g) s += part[(size_t)g * D + j];
+  dw[j] = s;
+}
+
+template <typename T, bool kVec>
+cudaError_t launch_bwd_vec(const void* x, const void* w, const void* dy,
+                           void* dx, float* part, float* dw, int N, int D,
+                           int wpr, int upl, int rows_per_block, int blocks,
+                           float eps, cudaStream_t stream) {
+  const int threads = 32 * wpr * rows_per_block;
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  const T* dyt = static_cast<const T*>(dy);
+  T* dxt = static_cast<T*>(dx);
+#define RMS_BWD_CASE(UU)                                                  \
+  case UU:                                                                \
+    rmsnorm_bwd_kernel<T, kVec, UU><<<blocks, threads, 0, stream>>>(      \
+        xt, wt, dyt, dxt, part, N, D, wpr, eps);                          \
+    break
+  switch (upl) {
+    RMS_BWD_CASE(1);
+    RMS_BWD_CASE(2);
+    RMS_BWD_CASE(4);
+    RMS_BWD_CASE(8);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef RMS_BWD_CASE
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rmsnorm_dw_kernel<<<(D + 255) / 256, 256, 0, stream>>>(
+      part, dw, blocks * rows_per_block, D);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx,
+                       float* part, float* dw, int N, int D, int vec, int wpr,
+                       int upl, int rows_per_block, int blocks, float eps,
+                       cudaStream_t stream) {
+  if (wpr < 1 || rows_per_block < 1 || wpr * rows_per_block > kMaxWarps ||
+      blocks < 1)
+    return cudaErrorInvalidValue;
+  if (vec)
+    return launch_bwd_vec<T, true>(x, w, dy, dx, part, dw, N, D, wpr, upl,
+                                   rows_per_block, blocks, eps, stream);
+  return launch_bwd_vec<T, false>(x, w, dy, dx, part, dw, N, D, wpr, upl,
+                                  rows_per_block, blocks, eps, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w and out share it). The pointers
@@ -206,5 +441,27 @@ extern "C" int rmsnorm_launch(const void* x, const void* w, void* out,
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, w, out, N, D, vec, wpr, upl,
                                  rows_per_block, eps, s);
+  return cudaErrorInvalidValue;
+}
+
+// The backward: x, dy and dx [N, D] and w [D] share the dtype code; part
+// is fp32 [blocks * rows_per_block, D] scratch, dw fp32 [D]. vec, wpr, upl
+// (1, 2, 4 or 8 here) and rows_per_block are the forward's plan; blocks
+// (at least 1) comes from the wrapper. Two kernels: the rows, then dw.
+extern "C" int rmsnorm_bwd_launch(const void* x, const void* w,
+                                  const void* dy, void* dx, void* part,
+                                  void* dw, int N, int D, int dtype,
+                                  float eps, int vec, int wpr, int upl,
+                                  int rows_per_block, int blocks,
+                                  void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto pt = static_cast<float*>(part);
+  auto dwt = static_cast<float*>(dw);
+  if (dtype == 0)
+    return launch_bwd<float>(x, w, dy, dx, pt, dwt, N, D, vec, wpr, upl,
+                             rows_per_block, blocks, eps, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(x, w, dy, dx, pt, dwt, N, D, vec, wpr,
+                                     upl, rows_per_block, blocks, eps, s);
   return cudaErrorInvalidValue;
 }

@@ -165,14 +165,15 @@ def _ctype(arg):
     return ctypes.c_float if isinstance(arg, float) else ctypes.c_int
 
 
-def launch(name: str, *args) -> None:
-    """Call ``<name>_launch(*args, stream)`` of ``csrc/<name>.cu`` on the
+def launch(name: str, *args, entry: str = "") -> None:
+    """Call ``<name>_launch(*args, stream)`` of ``csrc/<name>.cu`` (or its
+    function ``entry``, a second entry of the same library) on the
     current stream of the tensors' device. Tensors pass as their data
     pointers, ``Long`` as ``long long``, other Python ints as ``int`` and
     floats as ``float``. Raises with CUDA's error string if the launch
     fails."""
     lib = load_library(name)
-    fn = getattr(lib, f"{name}_launch")
+    fn = getattr(lib, entry or f"{name}_launch")
     if fn.argtypes is None:
         fn.argtypes = [_ctype(a) for a in args] + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -183,4 +184,5 @@ def launch(name: str, *args) -> None:
                     for a in args), stream)
     if code:
         msg = lib.kernel_error_string(code).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
+        raise RuntimeError(f"{entry or name} kernel launch failed: {msg} "
+                           f"({code})")

@@ -5,6 +5,16 @@ a CUDA tensor to the hand-written kernel; there is no fallback from one
 to the other, so a kernel that fails to build or launch raises.
 Inside ``with plain_versions():`` the plain versions run on any device:
 ``chip_smoke.py`` compares the model's kernel path with them on the card.
+
+``rmsnorm`` carries its gradient: where an input requires one (and grad
+mode is on) it runs as a ``torch.autograd.Function`` whose forward and
+backward are the CUDA kernels on the card (``rmsnorm_cuda``,
+``rmsnorm_bwd_cuda``) and the plain versions on the CPU (``rmsnorm_ref``,
+``rmsnorm_bwd_ref``); otherwise it is the plain forward call. The other
+kernels have no backward: on the kernel route they raise where an input
+requires a gradient, rather than hand back a result with no
+``grad_fn``, which would drop the gradient without an error. Their plain
+versions are PyTorch ops and differentiate as such.
 """
 from __future__ import annotations
 
@@ -21,13 +31,16 @@ from . import ref
 from . import rmsnorm as _rms
 from . import ssd_scan as _ssd
 
-# each kernel's wrapper module, which counts its launches
-_WRAPPERS = {"paged_attention": _pa, "paged_attention_int8": _pa8,
-             "chunked_prefill_attention": _cpa, "rmsnorm": _rms,
-             "ssd_scan": _ssd}
+# each kernel's wrapper module and the name of its launch count there
+_COUNTERS = {"paged_attention": (_pa, "launches"),
+             "paged_attention_int8": (_pa8, "launches"),
+             "chunked_prefill_attention": (_cpa, "launches"),
+             "rmsnorm": (_rms, "launches"),
+             "rmsnorm_bwd": (_rms, "bwd_launches"),
+             "ssd_scan": (_ssd, "launches")}
 # calls of each plain version made through this module (updated under
 # ``build.count_lock``, as the wrappers' launch counts are)
-plain_calls: Dict[str, int] = {name: 0 for name in _WRAPPERS}
+plain_calls: Dict[str, int] = {name: 0 for name in _COUNTERS}
 _force_plain = False
 
 
@@ -52,6 +65,18 @@ def _plain(name: str, device: torch.device) -> bool:
     raise ValueError(f"{name}: no implementation for device {device}")
 
 
+def _no_backward(name: str, *tensors) -> None:
+    """On the kernel route of a kernel without a backward: raise where
+    grad mode is on and an input requires a gradient."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward kernel, and an input "
+            f"requires a gradient, which its output would drop; run it "
+            f"under torch.no_grad(), or through its plain version (on the "
+            f"CPU, or inside kernels.ops.plain_versions())")
+
+
 def paged_attention(q, k_pages, v_pages, block_table, lens, *,
                     k_scales=None, v_scales=None):
     """q: [B, H, D]; k_pages/v_pages: [P, page, KV, D] in q's dtype, or
@@ -63,11 +88,13 @@ def paged_attention(q, k_pages, v_pages, block_table, lens, *,
         if _plain("paged_attention_int8", q.device):
             return ref.paged_attention_ref(q, k_pages, v_pages, block_table,
                                            lens, k_scales, v_scales)
+        _no_backward("paged_attention_int8", q, k_scales, v_scales)
         return _pa8.paged_attention_int8_cuda(q, k_pages, v_pages, k_scales,
                                               v_scales, block_table, lens)
     if _plain("paged_attention", q.device):
         return ref.paged_attention_ref(q, k_pages, v_pages, block_table,
                                        lens)
+    _no_backward("paged_attention", q, k_pages, v_pages)
     return _pa.paged_attention_cuda(q, k_pages, v_pages, block_table, lens)
 
 
@@ -89,18 +116,56 @@ def chunked_prefill_attention(q, k, v, *, q_offset: int = 0,
     if _plain("chunked_prefill_attention", q.device):
         return ref.chunked_prefill_attention_ref(q, k, v, q_offsets,
                                                  kv_lens, window=window)
+    _no_backward("chunked_prefill_attention", q, k, v)
     return _cpa.chunked_prefill_attention_cuda(q, k, v, q_offsets, kv_lens,
                                                window=window)
 
 
 def rmsnorm(x, w, eps: float = 1e-5):
-    """x: [..., D]; w: [D]. Returns ``x``'s shape and dtype."""
+    """x: [..., D]; w: [D] in x's dtype. Returns ``x``'s shape and dtype;
+    differentiable in ``x`` and ``w`` (``_RMSNorm``)."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _RMSNorm.apply(x, w, eps)
+    return _rmsnorm(x, w, eps)
+
+
+def _rmsnorm(x, w, eps: float):
     if _plain("rmsnorm", x.device):
         return ref.rmsnorm_ref(x, w, eps)
     shape = x.shape
     out = _rms.rmsnorm_cuda(x.reshape(-1, shape[-1]).contiguous(),
                             w.contiguous(), eps)
     return out.reshape(shape)
+
+
+def rmsnorm_bwd(x, w, dy, eps: float = 1e-5):
+    """The gradient of ``rmsnorm`` at ``x`` for the output gradient
+    ``dy`` (``x``'s shape and dtype): (dx in x's dtype, dw [D] fp32)."""
+    if _plain("rmsnorm_bwd", x.device):
+        return ref.rmsnorm_bwd_ref(x, w, dy, eps)
+    D = x.shape[-1]
+    dx, dw = _rms.rmsnorm_bwd_cuda(x.reshape(-1, D).contiguous(),
+                                   w.contiguous(),
+                                   dy.reshape(-1, D).contiguous(), eps)
+    return dx.reshape(x.shape), dw
+
+
+class _RMSNorm(torch.autograd.Function):
+    """``rmsnorm`` with its gradient: forward and backward each through
+    ``kernels.ops``, so the kernels on the card and the plain versions on
+    the CPU or inside ``plain_versions()``."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _rmsnorm(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd(x, w, dy, ctx.eps)
+        return dx, dw.to(w.dtype), None
 
 
 def ssd_scan(x, dt, A, B_, C_, init_state, *, chunk: int):
@@ -111,6 +176,7 @@ def ssd_scan(x, dt, A, B_, C_, init_state, *, chunk: int):
     [Bt, nh, hd, ds] f32)."""
     if _plain("ssd_scan", x.device):
         return ref.ssd_scan_ref(x, dt, A, B_, C_, init_state, chunk)
+    _no_backward("ssd_scan", x, dt, A, B_, C_, init_state)
     return _ssd.ssd_scan_cuda(x, dt, A, B_, C_, init_state, chunk)
 
 
@@ -118,18 +184,20 @@ def reset_counts() -> None:
     """Zero every kernel's launch count and every plain-call count, and
     forget the attention kernels' variants."""
     with build.count_lock:
-        for name, mod in _WRAPPERS.items():
-            mod.launches = 0
+        for name, (mod, attr) in _COUNTERS.items():
+            setattr(mod, attr, 0)
             plain_calls[name] = 0
         for mod in (_pa, _pa8, _cpa):
             mod.variants.clear()
 
 
 def counts() -> Dict[str, Dict[str, int]]:
-    """``{kernel: {"launches": n, "plain": m}}`` since the last reset."""
+    """``{kernel: {"launches": n, "plain": m}}`` since the last reset
+    (``rmsnorm_bwd``: the norm's backward, two kernels a call)."""
     with build.count_lock:
-        return {name: {"launches": mod.launches, "plain": plain_calls[name]}
-                for name, mod in _WRAPPERS.items()}
+        return {name: {"launches": getattr(mod, attr),
+                       "plain": plain_calls[name]}
+                for name, (mod, attr) in _COUNTERS.items()}
 
 
 def variants() -> Dict[str, Dict]:

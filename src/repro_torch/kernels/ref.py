@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the kernels.
 
 The simplest correct implementation of each function (a gather and a
-naive masked softmax in fp32 for attention; the norm's fp32 arithmetic;
-the chunked SSD scan as ``ssd_chunked`` computes it), written apart from
+naive masked softmax in fp32 for attention; the norm's fp32 arithmetic
+and its gradient; the chunked SSD scan as ``ssd_chunked`` computes it),
+written apart from
 the CUDA kernels so that agreement between the two means something. The
 CPU path of ``kernels.ops`` runs them, the tests hold them against the
 JAX package's ``kernels/ref.py``, its Pallas kernels and
@@ -99,6 +100,19 @@ def rmsnorm_ref(x, w, eps: float = 1e-5):
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * (1.0 + w.float())).to(dt)
+
+
+def rmsnorm_bwd_ref(x, w, dy, eps: float = 1e-5):
+    """The gradient of ``rmsnorm_ref`` written out in fp32: with ``r =
+    rsqrt(mean(x^2) + eps)`` and ``u = dy * (1 + w)`` over the last axis,
+    ``dx = r * u - x * r^3 * mean(u * x)`` and ``dw = sum over rows of
+    dy * x * r``. Returns (dx in x's dtype, dw [D] fp32)."""
+    xf, dyf = x.float(), dy.float()
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    u = dyf * (1.0 + w.float())
+    dx = r * u - xf * (r * r * r * torch.mean(u * xf, dim=-1, keepdim=True))
+    dw = torch.sum((dyf * xf * r).reshape(-1, x.shape[-1]), dim=0)
+    return dx.to(x.dtype), dw
 
 
 def ssd_scan_ref(x, dt, A, B_, C_, init_state, chunk: int):

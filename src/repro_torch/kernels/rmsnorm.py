@@ -6,6 +6,13 @@ pass over ``[N, D]`` rows computing ``x * rsqrt(mean(x^2) + eps) *
 registers from its one read to its write, ``plan`` warps per row, its
 squares summed by warp shuffles (in fp64 for f32 rows); see the source's
 note for the design and its bound.
+
+Its gradient, ``rmsnorm_bwd_cuda``, is the second entry of the same
+source (the JAX package's training path differentiates
+``models/layers.py::rmsnorm`` with XLA's autodiff instead): the
+forward's row plan, each row's ``dx`` in registers, ``dw`` as per-group
+fp32 partial sums added in a second launch in fixed order, with its own
+launch count.
 """
 from __future__ import annotations
 
@@ -21,7 +28,12 @@ LANE_UNITS = 4      # units a lane holds before a row takes another warp
 BLOCK_WARPS = 4     # warps per block while a row needs at most four
 MAX_WARPS = 8       # warps per row (and per block) at most
 
-launches = 0    # kernel launches by this process
+BWD_UNITS = 8       # the backward's largest units per lane
+BWD_ROWS = 4        # rows a group takes before the backward's grid grows
+BWD_MAX_BLOCKS = 1024
+
+launches = 0        # forward kernel launches by this process
+bwd_launches = 0    # backward calls (two kernels each) by this process
 
 
 class Plan(NamedTuple):
@@ -51,13 +63,30 @@ def plan(D: int, dtype: torch.dtype) -> Plan:
     return Plan(vec, wpr, upl, max(1, BLOCK_WARPS // wpr))
 
 
-def _check(x, w):
-    build.check_inputs(NAME, (x, w), ())
-    if x.dim() != 2 or w.shape != (x.shape[1],):
+def bwd_blocks(N: int, p: Plan) -> int:
+    """The backward's grid for ``N`` rows: groups of ``BWD_ROWS`` rows or
+    more, at most ``BWD_MAX_BLOCKS`` blocks of ``p.rows_per_block``
+    groups; each group adds one fp32 row of ``dw`` partial sums."""
+    return max(1, min(-(-N // (p.rows_per_block * BWD_ROWS)),
+                      BWD_MAX_BLOCKS))
+
+
+def _check(x, w, *more):
+    """The checks of both entries; ``more`` is the backward's ``dy``,
+    shaped and typed as ``x``."""
+    build.check_inputs(NAME, (x, w, *more), ())
+    if x.dim() != 2 or w.shape != (x.shape[1],) \
+            or any(t.shape != x.shape for t in more):
         raise ValueError(f"rmsnorm: unsupported shapes x {tuple(x.shape)}, "
-                         f"w {tuple(w.shape)} (x is [N, D], w is [D])")
+                         f"w {tuple(w.shape)}"
+                         + "".join(f", dy {tuple(t.shape)}" for t in more)
+                         + " (x and dy are [N, D], w is [D])")
     p = plan(x.shape[1], x.dtype)
-    build.check_device(NAME, (x, w))
+    if more and p.units_per_lane > BWD_UNITS:
+        raise ValueError(f"rmsnorm backward: a row of {x.shape[1]} "
+                         f"{x.dtype} elements needs {p.units_per_lane} units "
+                         f"a lane; the backward takes at most {BWD_UNITS}")
+    build.check_device(NAME, (x, w, *more))
     return p
 
 
@@ -79,3 +108,27 @@ def rmsnorm_cuda(x, w, eps: float = 1e-5):
     with build.count_lock:
         launches += 1
     return out
+
+
+def rmsnorm_bwd_cuda(x, w, dy, eps: float = 1e-5):
+    """The gradient of ``rmsnorm_cuda``. x, dy: [N, D] (f32 or bf16); w:
+    [D] in x's dtype. Rows up to eight warps at ``BWD_UNITS`` units a
+    lane (16384 bf16 or 8192 f32 elements 16 bytes at a time, 2048
+    element by element). Returns (dx [N, D] in x's dtype, dw [D] fp32).
+    Two kernels on the current stream, counted once."""
+    global bwd_launches
+    p = _check(x, w, dy)
+    N, D = x.shape
+    dx = torch.empty_like(x)
+    if N == 0 or D == 0:
+        return dx, torch.zeros(D, dtype=torch.float32, device=x.device)
+    blocks = bwd_blocks(N, p)
+    part = torch.empty((blocks * p.rows_per_block, D), dtype=torch.float32,
+                       device=x.device)
+    dw = torch.empty(D, dtype=torch.float32, device=x.device)
+    build.launch(NAME, x, w, dy, dx, part, dw, N, D, build.DTYPES[x.dtype],
+                 float(eps), int(p.vec), p.warps_per_row, p.units_per_lane,
+                 p.rows_per_block, blocks, entry="rmsnorm_bwd_launch")
+    with build.count_lock:
+        bwd_launches += 1
+    return dx, dw

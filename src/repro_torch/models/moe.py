@@ -1,14 +1,16 @@
-"""The mixture-of-experts FFN of the serve path, in PyTorch.
+"""The mixture-of-experts FFN, in PyTorch.
 
-Counterpart of the serve functions of the JAX package's
-``models/moe.py``: ``_capacity_ladder``, ``moe_forward_grouped`` (the
-fused engine's default) and ``moe_forward_dropless`` keep their names,
+Counterpart of the JAX package's ``models/moe.py``: ``GROUP_TOKENS``,
+``_num_groups`` and ``moe_forward`` (the training path's capacity
+dispatch), ``_capacity_ladder``, ``moe_forward_grouped`` (the fused
+engine's default) and ``moe_forward_dropless`` keep their names,
 the parameter layout of ``init_moe_params`` (``router [d, E]``,
 ``w_gate`` / ``w_up [E, d, f_e]``, ``w_down [E, f_e, d]``) and their
 ops: the router product in x's dtype, an fp32 softmax, top-k, the
-normalisation clamped at 1e-9, the dense ``[B, S, E]`` gates and the
-``bse,bsed->bsd`` combine. Both return the output alone (JAX also
-returns an empty metrics dict).
+normalisation clamped at 1e-9; the serve paths' dense ``[B, S, E]``
+gates and ``bse,bsed->bsd`` combine. The serve paths return the output
+alone (JAX also returns an empty metrics dict); ``moe_forward`` returns
+the output and its load-balance metrics, as JAX's does.
 
 The router, the expert products and the combine each run inside a
 ``torch.profiler.record_function`` span (``moe.router``, ``moe.experts``,
@@ -19,9 +21,8 @@ first): router logits computed in bf16 can tie exactly, and
 ``torch.topk`` on the card promises no order, so the top k are the head
 of a stable descending sort.
 
-Not ported yet (ROADMAP.md queue 1): the capacity-dropping training
-path ``moe_forward`` (item 12) and the expert-sharded tensor-parallel
-branch of ``moe_forward_grouped`` (item 11).
+Not ported yet (ROADMAP.md queue 1): the expert-sharded
+tensor-parallel branch of ``moe_forward_grouped``.
 """
 from __future__ import annotations
 
@@ -59,6 +60,82 @@ class MoE(nn.Module):
         self.w_gate = param(e, d, f)
         self.w_up = param(e, d, f)
         self.w_down = param(e, f, d)
+
+
+GROUP_TOKENS = 4096   # dispatch group size (MaxText-style)
+
+
+def _num_groups(T: int) -> int:
+    """Largest group count with T/G <= GROUP_TOKENS and G | T."""
+    if T <= GROUP_TOKENS:
+        return 1
+    g = -(-T // GROUP_TOKENS)
+    while T % g:
+        g += 1
+    return g
+
+
+def moe_forward(p: MoE, x, cfg: ModelConfig):
+    """The training path's capacity dispatch. x: ``[B, S, d]`` ->
+    (``[B, S, d]``, metrics).
+
+    Tokens dispatch within groups of up to ``GROUP_TOKENS`` (``G`` of
+    ``Tg`` tokens), each expert taking at most ``C = max(K, int(cf * Tg *
+    K / E))`` of a group's (token, k) replicas in order: a replica's
+    position is the group's one-hot cumsum at its expert, and a replica
+    past ``C`` goes to column ``C`` of the ``[G, E, C + 1, d]`` buffer,
+    which is cut away (dropped). The experts run as batched products over
+    ``[G, E, C, d]``; each replica gathers its row back (zeros where
+    dropped) and the top-k rows combine in fp32 with the normalised gates.
+    Metrics: ``moe_aux_loss = E * sum(me * ce)`` (the Switch load-balance
+    loss: mean router probability times mean routed share, per expert)
+    and ``moe_drop_frac``, the share of replicas dropped."""
+    m = cfg.moe
+    B, S, D = x.shape
+    T = B * S
+    E, K = m.num_experts, m.top_k
+    G = _num_groups(T)
+    Tg = T // G
+    C = max(K, int(m.capacity_factor * Tg * K / E))
+
+    xg = x.reshape(G, Tg, D)
+    with record_function("moe.router"):
+        logits = torch.einsum("gtd,de->gte", xg, p.router).float()
+        probs = torch.softmax(logits, dim=-1)
+        gate_vals, expert_idx = _top_k(probs, K)                # [G, Tg, K]
+        gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(
+            1e-9)
+
+    # each (token, k) replica's position within its expert, per group
+    ef = expert_idx.reshape(G, Tg * K)                          # [G, TgK]
+    oh = F.one_hot(ef, E)                                       # [G, TgK, E]
+    pos = torch.gather(torch.cumsum(oh, dim=1) - 1, 2, ef[..., None])[..., 0]
+    keep = pos < C
+    pos = torch.where(keep, pos, C)                             # C: dropped
+
+    gi = torch.arange(G, device=x.device)[:, None].expand(G, Tg * K)
+    xk = xg.repeat_interleave(K, dim=1)                         # [G, TgK, D]
+    buf = torch.zeros((G, E, C + 1, D), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((gi, ef, pos), xk, accumulate=True)[:, :, :C]
+
+    with record_function("moe.experts"):
+        h = F.silu(torch.einsum("gecd,edf->gecf", buf, p.w_gate)) \
+            * torch.einsum("gecd,edf->gecf", buf, p.w_up)
+        out_buf = torch.einsum("gecf,efd->gecd", h, p.w_down)
+        out_buf = F.pad(out_buf, (0, 0, 0, 1))                  # column C
+
+    with record_function("moe.combine"):
+        gathered = out_buf[gi, ef, pos]                         # [G, TgK, D]
+        gathered = torch.where(keep[..., None], gathered, 0)
+        combined = (gathered.reshape(G, Tg, K, D).float()
+                    * gate_vals[..., None]).sum(dim=2)
+        out = combined.reshape(B, S, D).to(x.dtype)
+
+    me = probs.mean(dim=(0, 1))                                 # [E]
+    ce = oh.float().mean(dim=(0, 1))                            # [E]
+    aux = {"moe_aux_loss": E * torch.sum(me * ce),
+           "moe_drop_frac": 1.0 - keep.float().mean()}
+    return out, aux
 
 
 def _capacity_ladder(TK: int, E: int):

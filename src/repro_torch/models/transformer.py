@@ -9,6 +9,9 @@ d]``, ``embed [V_pad, d]``, ``lm_head [d, V_pad]``, ``norm_cross`` and
 ``models/mamba2.py``) and their einsums:
 
 - the parameters: ``init_params``;
+- the training forward: ``forward_train``, the ``train`` branches of
+  ``_decoder_block`` and ``_apply_ffn``, and ``_cross_caches_train``
+  (the functional counterpart of ``_build_cross_caches``);
 - the dense slot cache and the offline path: ``AttnCache``,
   ``QuantAttnCache``, ``_dequant``, ``_ring_size``, ``init_cache``,
   ``_write_cache``, ``_attn_cached``, ``_pos_masked_attention`` (and its
@@ -39,9 +42,9 @@ the plain PyTorch versions on the CPU. The offline path's attention is
 the JAX package's jnp attention (``models/layers.py``), as torch ops on
 every device. Mixture-of-experts FFNs (``models/moe.py``) serve through
 ``moe_forward_grouped`` in the fused engine by default and through
-``moe_forward_dropless`` in the offline path, as in JAX's serve paths;
-the training forward and its capacity dispatch are not ported, so the
-offline path is JAX's with ``serve=True``. Sliding-window layers
+``moe_forward_dropless`` in the offline path, as in JAX's serve paths
+(the offline path is JAX's with ``serve=True``), and train through the
+capacity dispatch ``moe_forward``. Sliding-window layers
 (``SWA``) read their window, through ``chunked_prefill_attention`` in the
 fused path; in the paged layout their block tables may hold ``-1`` holes
 where the engine reclaimed pages that slid out of every window.
@@ -55,6 +58,7 @@ from typing import Dict, List, NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -65,7 +69,7 @@ from .layers import (_gqa_out, _gqa_scores, _softmax_masked, apply_rope,
                      swiglu)
 from .mamba2 import (Mamba, MambaState, init_mamba_params, init_mamba_state,
                      mamba_forward, mamba_step)
-from .moe import MoE, moe_forward_dropless, moe_forward_grouped
+from .moe import MoE, moe_forward, moe_forward_dropless, moe_forward_grouped
 
 # the serve-path MoE FFNs, by the name ``moe_impl`` gives them
 MOE_IMPLS = {"grouped": moe_forward_grouped,
@@ -565,19 +569,28 @@ def _attn_pallas(p: Attention, cfg: ModelConfig, spec, x, cache: AttnCache,
 
 
 def _apply_ffn(p: Layer, cfg: ModelConfig, spec, x,
-               moe_impl: str = "dropless"):
+               moe_impl: str = "dropless", train: bool = False):
     """The layer's FFN with its residual. A MoE layer serves through
     ``MOE_IMPLS[moe_impl]``: dropless by default, as JAX's ``_apply_ffn``
     with ``serve=True``; the fused engine passes its own. Dense weights
-    are cast to x's dtype, as in JAX (the encoder runs on fp32 frames)."""
+    are cast to x's dtype, as in JAX (the encoder runs on fp32 frames).
+    ``train``: a MoE layer runs the capacity dispatch ``moe_forward``,
+    and the result is ``(x, aux)`` with its metrics (``{}`` for the
+    others), as JAX's ``_apply_ffn`` without ``serve``."""
+    aux: Dict = {}
     if spec.ffn == NONE:
-        return x
+        return (x, aux) if train else x
     h = rmsnorm(x, p.norm2, cfg.norm_eps)
     if spec.ffn == MOE:
-        return x + MOE_IMPLS[moe_impl](p.moe, h, cfg)
-    f = p.ffn
-    return x + swiglu(h, f.w_gate.to(x.dtype), f.w_up.to(x.dtype),
-                      f.w_down.to(x.dtype))
+        if train:
+            out, aux = moe_forward(p.moe, h, cfg)
+        else:
+            out = MOE_IMPLS[moe_impl](p.moe, h, cfg)
+    else:
+        f = p.ffn
+        out = swiglu(h, f.w_gate.to(x.dtype), f.w_up.to(x.dtype),
+                     f.w_down.to(x.dtype))
+    return (x + out, aux) if train else x + out
 
 
 def _embed(params: Transformer, cfg: ModelConfig, tokens,
@@ -586,8 +599,12 @@ def _embed(params: Transformer, cfg: ModelConfig, tokens,
     ``frontend_embeds`` ([B, n, d]), the leading ``n`` positions carry
     the patch embeddings instead. Where the chunk is shorter than ``n``
     JAX's ``dynamic_update_slice`` refuses; here its leading positions
-    take the first patches, as the fused path's mask zeroes them."""
-    x = params.embed[tokens.long()]
+    take the first patches, as the fused path's mask zeroes them. The
+    lookup is ``F.embedding``, whose backward adds a row's gradients in
+    a fixed order (the index op's backward, ``index_put_`` with
+    ``accumulate``, does not, even on the CPU), so a training step is
+    reproducible bit for bit."""
+    x = torch.nn.functional.embedding(tokens.long(), params.embed)
     if frontend_embeds is not None and cfg.frontend is not None \
             and cfg.frontend.kind == "vision":
         n = min(frontend_embeds.shape[1], x.shape[1])
@@ -713,6 +730,26 @@ def _encoder_forward(params: Transformer, cfg: ModelConfig, frames):
     return rmsnorm(x, params.encoder.final_norm, cfg.norm_eps)
 
 
+def _cross_caches_train(params: Transformer, cfg: ModelConfig,
+                        enc_out) -> List[AttnCache]:
+    """The training forward's cross K/V, built as new tensors (autograd
+    trains through them; ``_build_cross_caches`` writes into a cache in
+    place). As in JAX, which builds them over the template of
+    ``init_cache``'s default dtype, K and V are rounded to bf16; the
+    positions are those of ``init_cache``'s cross caches."""
+    B, P = enc_out.shape[:2]
+    pos = torch.arange(P, dtype=torch.int32,
+                       device=enc_out.device).repeat(B, 1)
+    ccs = []
+    for li in range(cfg.num_layers):
+        p = params.layers[li].cross
+        k = torch.einsum("bpd,dhk->bphk", enc_out, p.wk.to(enc_out.dtype))
+        v = torch.einsum("bpd,dhk->bphk", enc_out, p.wv.to(enc_out.dtype))
+        ccs.append(AttnCache(k=k.to(torch.bfloat16), v=v.to(torch.bfloat16),
+                             pos=pos))
+    return ccs
+
+
 def _build_cross_caches(params: Transformer, cfg: ModelConfig, enc_out,
                         cache: Dict) -> List[AttnCache]:
     """Each decoder layer's cross K/V from the encoder output, written
@@ -730,11 +767,26 @@ def _build_cross_caches(params: Transformer, cfg: ModelConfig, enc_out,
 
 def _decoder_block(p: Layer, cfg: ModelConfig, spec, x, layer_cache,
                    start_pos, decode: bool, cross_cache=None,
-                   fresh: bool = False, seq_lens=None, valid=None):
+                   fresh: bool = False, seq_lens=None, valid=None,
+                   train: bool = False):
     """One layer of the offline path over rows ``[:B]`` of its cache,
     updated in place. ``valid`` ([B, 1], decode only): rows where it is
-    False neither write KV nor advance their Mamba state."""
+    False neither write KV nor advance their Mamba state.
+
+    ``train``: the training forward's layer, which returns ``(x, aux)``
+    (the MoE metrics) and writes nothing: cache-free attention
+    (``_attn_train``), ``mamba_forward`` from ``layer_cache`` (a fresh
+    state; the new one is dropped), the training ``moe_forward``."""
     h = rmsnorm(x, p.norm1, cfg.norm_eps)
+    if train:
+        if spec.mixer == MAMBA:
+            x = x + mamba_forward(p.mamba, h, cfg, layer_cache)[0]
+        else:
+            x = x + _attn_train(p.attn, cfg, spec, h)
+        if cross_cache is not None:
+            hc = rmsnorm(x, p.norm_cross, cfg.norm_eps)
+            x = x + _cross_attn(p.cross, cfg, hc, cross_cache)
+        return _apply_ffn(p, cfg, spec, x, train=True)
     if spec.mixer == MAMBA:
         st = _rows(layer_cache, x.shape[0])
         if decode:
@@ -756,6 +808,47 @@ def _decoder_block(p: Layer, cfg: ModelConfig, spec, x, layer_cache,
         hc = rmsnorm(x, p.norm_cross, cfg.norm_eps)
         x = x + _cross_attn(p.cross, cfg, hc, cross_cache)
     return _apply_ffn(p, cfg, spec, x)
+
+
+def forward_train(params: Transformer, cfg: ModelConfig, batch: Dict,
+                  remat: bool = True):
+    """The training forward, as the JAX ``forward_train``. batch:
+    ``{"tokens": [B, S]}``, with ``"frontend_embeds"`` ([B, n, d], the
+    vision stub) or ``"frames"`` ([B, P, d], an encoder-decoder model's
+    stub frames). Returns (logits [B, S, Vp], aux): aux holds each MoE
+    metric averaged over ``cfg.num_layers``.
+
+    Differentiable in the parameters (the trainer turns their
+    ``requires_grad`` on) and never under ``inference_mode``: it writes no
+    cache (a Mamba layer starts from a fresh zero state, an
+    encoder-decoder model's cross K/V are new tensors). ``remat``: each
+    layer runs under ``torch.utils.checkpoint`` (non-reentrant), which
+    keeps its input and recomputes the rest in the backward pass, as
+    ``jax.checkpoint`` does; the result is the same, bit for bit."""
+    tokens = batch["tokens"]
+    x = _embed(params, cfg, tokens, batch.get("frontend_embeds"))
+    cross = None
+    if cfg.is_encdec:
+        enc_out = _encoder_forward(params, cfg, batch["frames"])
+        cross = _cross_caches_train(params, cfg, enc_out)
+    aux_all: Dict = {}
+    for li, spec in enumerate(cfg.layers):
+        state = init_mamba_state(tokens.shape[0], cfg, x.dtype, x.device) \
+            if spec.mixer == MAMBA else None
+        cc = cross[li] if cross is not None else None
+
+        def block(x, p=params.layers[li], spec=spec, state=state, cc=cc):
+            return _decoder_block(p, cfg, spec, x, state, None, decode=False,
+                                  cross_cache=cc, train=True)
+
+        if remat:
+            x, aux = checkpoint(block, x, use_reentrant=False)
+        else:
+            x, aux = block(x)
+        for k, v in aux.items():
+            aux_all[k] = aux_all.get(k, 0.0) + v / cfg.num_layers
+    x = rmsnorm(x, params.final_norm, cfg.norm_eps)
+    return _lm_head(params, cfg, x), aux_all
 
 
 @torch.inference_mode()

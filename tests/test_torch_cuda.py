@@ -12,7 +12,11 @@ down to one token, zero-dt tails and d_state 16), the bit-equality of
 the kernels' rows (attention: a row alone against the same row in a
 batch, a narrower block table or cache view against a wider one, a
 shorter chunk against a longer one; the scan and the norm: a row alone
-against the same row in a batch) and the wrappers' refusals. ``chip_smoke.py`` checks the same kernels at the main paths'
+against the same row in a batch), the norm's backward kernel (against
+``rmsnorm_bwd_ref``, a row's dx alone against the batch, dw the same
+from run to run, the autograd Function launching both kernels), the
+kernels without a backward refusing inputs that require a gradient, and
+the wrappers' refusals. ``chip_smoke.py`` checks the same kernels at the main paths'
 shapes.
 
 On a machine with an NVIDIA GPU and nvcc:
@@ -360,6 +364,97 @@ def test_rmsnorm_kernel_takes_the_model_layouts(cuda):
                                **NORM_TOL["f32"])
     with pytest.raises(TypeError, match="dtype"):
         ops.rmsnorm(x, w.to(torch.bfloat16))
+
+
+# the norm's backward, dx: f32 within 1e-5 plus 8 ulps (a difference of
+# two rounded fp32 terms, row sums in other orders), bf16 one bf16 ulp;
+# dw (fp32): within 2^-14 of each column's sum of |dy x r| (two orders
+# of a sum of N terms, N <= 5000 here: each within (N - 1) 2^-24)
+NORM_BWD_TOL = {"f32": dict(atol=1e-5, rtol=2 ** -20), "bf16": TOL["bf16"]}
+
+
+def _norm_bwd_inputs(rng, dev, dtype, N, D):
+    return (_t(rng.standard_normal((N, D), np.float32) * 3, dev, dtype),
+            _t(rng.standard_normal((D,), np.float32) * 0.1, dev, dtype),
+            _t(rng.standard_normal((N, D), np.float32), dev, dtype))
+
+
+def _dw_close(dw, x, w, dy, want):
+    xf = x.float()
+    r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-5)
+    mag = (dy.float() * xf * r).abs().sum(0)
+    assert bool(((dw - want).abs() <= 2 ** -14 * mag + 1e-7).all())
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("N,D", [(1, 3072), (1024, 3072), (1024, 768),
+                                 (7, 2048), (300, 2560), (5000, 128),
+                                 (5, 1001), (3, 77), (2, 1)])
+def test_rmsnorm_bwd_kernel_vs_plain(cuda, dt, N, D):
+    """The backward at the trained widths, rows that are not a multiple
+    of 16 bytes wide, one row, and groups that take several rows (5000
+    rows of 128: 1252 groups)."""
+    from repro_torch.kernels import rmsnorm as rms
+    x, w, dy = _norm_bwd_inputs(np.random.default_rng(14), cuda,
+                                DTYPES[dt], N, D)
+    ops.reset_counts()
+    dx, dw = ops.rmsnorm_bwd(x, w, dy, 1e-5)
+    torch.cuda.synchronize()
+    assert ops.counts()["rmsnorm_bwd"] == {"launches": 1, "plain": 0}
+    assert rms.bwd_launches == 1
+    assert dx.dtype == x.dtype and dw.dtype == torch.float32
+    want_dx, want_dw = ref.rmsnorm_bwd_ref(x, w, dy, 1e-5)
+    torch.testing.assert_close(dx.float(), want_dx.float(),
+                               **NORM_BWD_TOL[dt])
+    _dw_close(dw, x, w, dy, want_dw)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("D", [3072, 768, 1001])
+def test_rmsnorm_bwd_rows_alone_and_dw_deterministic(cuda, dt, D):
+    """A row alone gives the batch's dx, bit for bit; two runs give the
+    same dw, bit for bit."""
+    from repro_torch.kernels import rmsnorm as rms
+    x, w, dy = _norm_bwd_inputs(np.random.default_rng(15), cuda,
+                                DTYPES[dt], 1024, D)
+    dx, dw = rms.rmsnorm_bwd_cuda(x, w, dy)
+    for r in (0, 3, 1023):
+        alone, _ = rms.rmsnorm_bwd_cuda(x[r:r + 1].clone(), w,
+                                        dy[r:r + 1].clone())
+        assert torch.equal(alone, dx[r:r + 1])
+    assert torch.equal(rms.rmsnorm_bwd_cuda(x, w, dy)[1], dw)
+
+
+def test_rmsnorm_function_runs_both_kernels_on_the_card(cuda):
+    """With gradients on the card, ``ops.rmsnorm`` launches the forward
+    and backward kernels once each and runs no plain version; its
+    gradients are the backward kernel's."""
+    from repro_torch.kernels import rmsnorm as rms
+    x, w, dy = _norm_bwd_inputs(np.random.default_rng(16), cuda,
+                                torch.float32, 2 * 9, 1024)
+    x = x.reshape(2, 9, 1024).requires_grad_()
+    w = w.requires_grad_()
+    ops.reset_counts()
+    y = ops.rmsnorm(x, w)
+    gx, gw = torch.autograd.grad(y, (x, w), dy.reshape(2, 9, 1024))
+    torch.cuda.synchronize()
+    c = ops.counts()
+    assert c["rmsnorm"] == {"launches": 1, "plain": 0}
+    assert c["rmsnorm_bwd"] == {"launches": 1, "plain": 0}
+    dx, dw = rms.rmsnorm_bwd_cuda(x.detach().reshape(-1, 1024), w.detach(),
+                                  dy)
+    assert torch.equal(gx.reshape(-1, 1024), dx) and torch.equal(gw, dw)
+
+
+def test_kernels_without_backward_refuse_grad_on_the_card(cuda):
+    rng = np.random.default_rng(17)
+    q = _t(rng.standard_normal((1, 8, 4, 64), np.float32), cuda)
+    k = _t(rng.standard_normal((1, 8, 2, 64), np.float32), cuda)
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.chunked_prefill_attention(q, k, k)
+    with torch.no_grad():
+        assert ops.chunked_prefill_attention(q, k, k).shape == q.shape
 
 
 def _scan_inputs(rng, dev, dtype, B, S, nh, hd, ds, zero_tail=0):

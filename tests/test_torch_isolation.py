@@ -176,7 +176,8 @@ def test_reference_entry_points_default_to_the_card():
 def test_entry_points_default_to_the_card():
     """Without a card and without device="cpu", the engine, the model
     init, the paged cache (made or bridged), the replica factory and the
-    serve script raise, for the dense, Mamba2 and MoE families."""
+    serve script raise, for the dense, Mamba2 and MoE families; so do
+    the training state, the bridged AdamW state and the train script."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
     import numpy as np
@@ -202,6 +203,14 @@ def test_entry_points_default_to_the_card():
         make_torch_replica("niyama", cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--reduced"])
+    from repro_torch.engine.steps import init_train_state
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bridge.adamw_from_numpy({"step": np.int32(0), "mu": {}, "nu": {}})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--steps", "1"])
     mamba = get_config("mamba2-370m").reduced(num_layers=2, d_model=128)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TorchEngine(mamba)

@@ -169,6 +169,7 @@ def test_cpu_tensors_take_the_plain_path():
         "paged_attention_int8": {"launches": 0, "plain": 0},
         "chunked_prefill_attention": {"launches": 0, "plain": 2},
         "rmsnorm": {"launches": 0, "plain": 0},
+        "rmsnorm_bwd": {"launches": 0, "plain": 0},
         "ssd_scan": {"launches": 0, "plain": 0}}
     assert pa.launches == 0 and cpa.launches == 0
     with pytest.raises(ValueError, match="CUDA"):
