@@ -34,12 +34,17 @@ Phases, each of which fails the run if it fails:
    8192 and over whisper-medium's [1500, 1024] f32 encoder rows; the
    scan at one
    chunk, at a ragged length read in place and at d_state 16 (nh 128);
+   the scan's backward against ``ssd_scan_bwd_ref`` in f32 and bf16 at
+   mamba2-370m's widths (1 x 1024), jamba-v0.1's (nh 128, d_state 16) and
+   2 x 700 with a zero-dt tail (no library call computes it); the static
+   mode of the prefill kernel timed beside SDPA;
    and the kernels' invariance bit for bit on the card: each decode row
    served alone against the same row in the 8-row batch and the 32-page
    table against the same table widened to 64 columns of -1 (bf16 and
    int8 pages), each prefill row and each scan row alone against the same
    row in the 4-row batch, norm rows alone against the same rows of
-   [8, D] and [1024, D];
+   [8, D] and [1024, D], the scan's backward rows (dx, ddt, dB, dC, dh0)
+   alone against the 2-row batch and its dA from run to run;
 3. serve: full-width llama3.2-3b (paged, then ``--kv-layout dense``: the
    decode kernel over 256-token pages and the prefill kernel over the
    slots' rows) and full-width mamba2-370m through
@@ -127,22 +132,30 @@ Phases, each of which fails the run if it fails:
    iterations and the engine's prefill tokens; every run launches the
    attention kernels and the norm, no plain version;
 13. train: the training path (``repro_torch.engine.steps``, the norm's
-   forward and backward kernels; the kernels phase holds the backward
-   against ``rmsnorm_bwd_ref`` at the trained widths, rows alone and dw
-   from run to run bit for bit): (a) f32 gradient parity, TF32 off, of
-   full-width llama3.2-3b at 4 of 28 layers, batch 2 x 512, kernels
-   against ``ops.plain_versions()``; (b) 3 AdamW steps of full-width,
-   full-depth llama3.2-3b in f32 (3.61 B parameters), remat on, batch
-   2 x 512, through ``make_train_step``: finite losses, moving
-   parameters, seconds a step, tokens/s, peak memory and the norm
-   kernels' launches against the count predicted from the depth; (c)
-   ``repro_torch.launch.train`` for llama3.2-3b, qwen3-moe-30b-a3b and
-   gemma3-4b at ``small_100m``, 200 steps each, the last logged loss
-   below the first; (d) the llama run's checkpoint restored equal to the
-   state in memory, and one step from each equal bit for bit; (e)
-   mamba2-370m's ``forward_train`` with gradients raises, naming the scan
-   kernel's missing backward. The runs of (b) and (c) launch the norm's
-   two kernels and nothing else, and no plain version.
+   and the scan's forward and backward kernels; the kernels phase holds
+   the backwards against ``rmsnorm_bwd_ref`` and ``ssd_scan_bwd_ref``,
+   rows alone and dw / dA from run to run bit for bit): (a) f32 gradient
+   parity, TF32 off, of full-width llama3.2-3b at 4 of 28 layers, batch
+   2 x 512, kernels against ``ops.plain_versions()``; (b) 3 AdamW steps
+   of full-width, full-depth llama3.2-3b in f32 (3.61 B parameters),
+   remat on, batch 2 x 512, through ``make_train_step``: finite losses,
+   moving parameters, seconds a step, tokens/s, peak memory and the
+   kernels' launches against the count predicted from the depth; (e1)
+   the parity of (a) for full-width mamba2-370m at 4 of 48 layers, batch
+   2 x 1024 (four chunks a row, so the state's gradient crosses chunks);
+   (e2) 3 AdamW steps of full-width, full-depth mamba2-370m in f32 at
+   2 x 1024, as (b), with the scan's launches against 2L forward and L
+   backward calls a step; (e3) the parity of (a) for full-width
+   jamba-v0.1-52b cut to its first 2 of 32 layers (a Mamba layer with a
+   dense FFN and one with the 16-expert MoE, nh 128, d_state 16); (c)
+   ``repro_torch.launch.train`` for llama3.2-3b, qwen3-moe-30b-a3b,
+   gemma3-4b, mamba2-370m and jamba-v0.1-52b at ``small_100m``, 200
+   steps each (the Mamba families, whose loss falls from the start, 60),
+   the last logged loss below the first; (d) the llama run's
+   checkpoint restored equal to the state in memory, and one step from
+   each equal bit for bit. The runs of (b), (e2) and (c) launch the
+   norm's two kernels, and for the Mamba families the scan's two, and
+   nothing else, and no plain version.
 
 Prints each phase's seconds and peak device memory
 (``torch.cuda.max_memory_allocated``), the card's name and power limit,
@@ -197,6 +210,12 @@ RMSNORM_DW_REL = 2 ** -14
 # to SSD_REL of its output's largest magnitude (first readings: at most
 # 1.8e-4 of it, in the 2 x 700-token case below).
 SSD_REL = 5e-4
+# ssd_scan's backward: each gradient within SSD_REL of its own largest
+# magnitude, for the same reason (first readings: at most 2.4e-4 of it, in
+# f32 at 2 x 700); dx, dB and dC in bf16 also within one bf16 ulp of the
+# element (TOL[bf16]'s rtol), since both versions round the fp32 gradient
+# to bf16 once
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dh0")
 # the final hidden states of the 2-layer mamba2-370m parity check
 MAMBA_PARITY_HIDDEN = 1e-4
 SOURCES = {
@@ -215,6 +234,10 @@ SOURCES = {
                     "src/repro/kernels/rmsnorm.py:23"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:70"),
+    # the gradient of the same function (JAX differentiates the jnp
+    # models/mamba2.py:83 ssd_chunked with XLA's autodiff in training)
+    "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan_bwd.cu",
+                     "src/repro/kernels/ssd_scan.py:70"),
 }
 ATTENTION_PATH = ("paged_attention", "chunked_prefill_attention", "rmsnorm")
 
@@ -674,13 +697,30 @@ def phase_kernels() -> dict:
     torch.cuda.synchronize()
     err, _ = _compare("chunked_prefill_attention", "static mode",
                       torch.float32, got, want)
-    print(f"[kernels] chunked_prefill_attention static mode f32: max err "
-          f"{err:.3g}")
+    # timed as the static call launches it: the one offset and length
+    # broadcast to every row
+    qo = torch.full((2,), 100, dtype=torch.int32, device="cuda")
+    kl = torch.full((2,), 196, dtype=torch.int32, device="cuda")
+    ms = time_ms(lambda: chunked_prefill_attention_cuda(q, k, v, qo, kl))
+    plain = time_ms(lambda: ref.chunked_prefill_attention_ref(q, k, v, qo,
+                                                              kl))
+    qd = q.transpose(1, 2)
+    kd = k.transpose(1, 2).repeat_interleave(3, dim=1).contiguous()
+    vd = v.transpose(1, 2).repeat_interleave(3, dim=1).contiguous()
+    mask = _prefill_mask(96, 256, qo, kl)[:, None]
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask))
+    bms, by = bound_ms(*_prefill_work(q, k, qo, kl), torch.float32)
+    print(f"[kernels] chunked_prefill_attention static mode f32 P2 C96 H24 "
+          f"KV8 D128 S256 (offset 100, length 196): {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.4f} ms ({by}), "
+          f"max err {err:.3g}")
     _kernels_windowed_holes(np.random.default_rng(5))
     _kernels_paged(head, np.random.default_rng(4), quant=True)
     _kernels_rmsnorm(head)
     _kernels_rmsnorm_bwd(head)
     _kernels_ssd_scan(head)
+    _kernels_ssd_scan_bwd(head)
     return head
 
 
@@ -1200,6 +1240,111 @@ def _kernels_ssd_scan(head: dict) -> None:
             head["ssd_scan"] = dict(ms=ms, plain_ms=plain, library_ms=None,
                                     bound_ms=bms, bound_by=by,
                                     max_abs_err=errs[0])
+
+
+def _ssd_bwd_work(x, B, chunk):
+    """Bytes (the forward's inputs, dy and dh read once; dx, ddt, dA, dB,
+    dC and dh0 written once) and the backward's operations as fp32
+    multiply-adds over this run's rows: over each chunk's causal pairs,
+    G = dy.x^T, dx's W.dy, dB's and dC's Q products (per head) and C.B^T
+    (once a chunk); per row, the chunk state and the state gradient's
+    chunk term, dH_out.B, dH_out^T.x and H_in^T.dy ([hd x ds] each)."""
+    Bt, S, nh, hd = x.shape
+    ds = B.shape[-1]
+    es = x.element_size()
+    nbytes = 2 * (x.numel() + 2 * B.numel()) * es \
+        + 4 * (2 * Bt * S * nh + 2 * nh + 2 * Bt * S * nh * hd
+               + 3 * Bt * nh * hd * ds)
+    pairs = 0.0
+    for t0 in range(0, S, chunk):
+        n = min(chunk, S - t0)
+        pairs += n * (n + 1) / 2
+    flops = Bt * (2 * pairs * ds + nh * (
+        2 * pairs * (2 * hd + 2 * ds) + 2 * 5 * S * hd * ds))
+    return nbytes, flops
+
+
+def _kernels_ssd_scan_bwd(head: dict) -> None:
+    """The scan's backward kernel against ``ssd_scan_bwd_ref`` in f32 and
+    bf16 at mamba2-370m's widths (1 x 1024, chunk 256), jamba-v0.1's
+    (nh 128, d_state 16) and 2 rows of 700 tokens (a ragged last chunk)
+    whose last 200 have dt = 0; x, B and C strided slices of one
+    projection. Each gradient within ``SSD_REL`` of its largest magnitude
+    (bf16 dx, dB and dC: plus one bf16 ulp); the zero-dt rows' dx 0;
+    each row of the 2-row batch alone equal to its row (dx, ddt, dB, dC,
+    dh0), bit for bit; two runs the same dA. Timed cold-L2, median of
+    20, beside its plain version; no single library call computes it."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    chunk = 256
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, S, tail, nh, ds in ((1, 1024, 0, 32, 128),
+                                      (1, 1024, 0, 128, 16),
+                                      (2, 700, 200, 32, 128)):
+            label = f"{_label(dtype)} {rows} x {S}" \
+                + (f", dt = 0 on the last {tail}" if tail else "") \
+                + (f", nh {nh} d_state {ds}" if ds != 128 else "")
+            args = _ssd_case(gen, dtype, rows, S, nh=nh, ds=ds,
+                             zero_tail=tail)
+            dy = torch.randn((rows, S, nh, 64), generator=gen, device="cuda")
+            dh = torch.randn((rows, nh, 64, ds), generator=gen,
+                             device="cuda")
+            got = ssd_scan_bwd_cuda(*args, dy, dh, chunk)
+            want = ref.ssd_scan_bwd_ref(*args, dy, dh, chunk)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, g, w in zip(SSD_BWD_NAMES, got, want):
+                check(g.dtype == w.dtype and g.shape == w.shape,
+                      f"ssd_scan_bwd [{label}]: {name} is {g.dtype} "
+                      f"{tuple(g.shape)}, the plain version's {w.dtype} "
+                      f"{tuple(w.shape)}")
+                rtol = TOL[torch.bfloat16]["rtol"] \
+                    if g.dtype == torch.bfloat16 else 0.0
+                scale = float(w.float().abs().max())
+                err, _ = _compare("ssd_scan_bwd", f"{label}, {name}", dtype,
+                                  g, w, dict(atol=SSD_REL * scale + 1e-30,
+                                             rtol=rtol, cap=float("inf")))
+                errs[name] = (err, err / max(scale, 1e-30))
+            if tail:
+                check(not bool(got[0][:, S - tail:].float().any()),
+                      f"ssd_scan_bwd [{label}]: the zero-dt rows got dx")
+            if rows > 1:
+                for b in range(rows):
+                    alone = ssd_scan_bwd_cuda(
+                        *(a[b:b + 1] if a.dim() > 1 else a for a in args),
+                        dy[b:b + 1], dh[b:b + 1], chunk)
+                    for i in (0, 1, 3, 4, 5):
+                        check(torch.equal(alone[i], got[i][b:b + 1]),
+                              f"ssd_scan_bwd [{label}]: row {b} alone gives "
+                              f"another {SSD_BWD_NAMES[i]} than in the batch")
+                check(torch.equal(ssd_scan_bwd_cuda(*args, dy, dh, chunk)[2],
+                                  got[2]),
+                      f"ssd_scan_bwd [{label}]: two runs give different dA")
+                print(f"[kernels] ssd_scan_bwd {label}: each row alone "
+                      f"gives its dx, ddt, dB, dC and dh0 of the batch, and "
+                      f"two runs the same dA, bit for bit")
+            ms = time_ms(lambda: ssd_scan_bwd_cuda(*args, dy, dh, chunk))
+            plain = time_ms(lambda: ref.ssd_scan_bwd_ref(*args, dy, dh,
+                                                         chunk),
+                            reps=10, spin_ms=60.0)
+            nbytes, flops = _ssd_bwd_work(args[0], args[3], chunk)
+            bms, by = bound_ms(nbytes, flops, torch.float32)
+            mma, _ = bound_ms(nbytes, 3 * flops, torch.bfloat16)
+            print(f"[kernels] ssd_scan_bwd {label}: {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, no library call, bound {bms:.4f} ms "
+                  f"({by}; {flops / 1e9:.3g} GFLOP of fp32 multiply-adds, "
+                  f"{nbytes / 1e6:.3g} MB; on the tensor cores with the "
+                  f"hi/lo split, three products each, {mma:.4f} ms); max "
+                  f"err, and of the largest magnitude: " + ", ".join(
+                      f"{n} {e:.3g} ({r:.2g})" for n, (e, r) in errs.items()))
+            if label == "f32 1 x 1024":
+                head["ssd_scan_bwd"] = dict(
+                    ms=ms, plain_ms=plain, library_ms=None, bound_ms=bms,
+                    bound_by=by, max_abs_err=max(e for e, _ in
+                                                 errs.values()))
 
 
 # ---------------------------------------------------------------- phase 3
@@ -3192,21 +3337,55 @@ def phase_obs() -> dict:
 # ---------------------------------------------------------------- train
 
 TRAIN_PATH = ("rmsnorm", "rmsnorm_bwd")
+MAMBA_TRAIN_PATH = TRAIN_PATH + ("ssd_scan", "ssd_scan_bwd")
 TRAIN_B, TRAIN_S = 2, 512
+# the Mamba runs: four 256-token chunks a row, so the state's gradient
+# crosses chunks
+MAMBA_TRAIN_S = 1024
 TRAIN_PARITY_LAYERS = 4
+# jamba-v0.1-52b's first two layers: a Mamba layer with a dense FFN and
+# one with the 16-expert MoE (~3.7 B parameters, ~45 GB in f32 with two
+# gradient sets held)
+JAMBA_PARITY_LAYERS = 2
 # f32 (TF32 off) gradient parity, kernels against plain versions over 4
 # full-width layers: the two differ only in the norms' last bits (a few
 # ulps forward and backward), which a 4-layer network carries into the
 # loss and the gradients without growing them by orders; a dropped norm
-# gradient would be O(1) of its leaf
+# gradient would be O(1) of its leaf. The Mamba runs are held to the same
+# limits: the scan's kernels differ from its plain versions by the
+# summation order of the chunk's decay (SSD_REL of each output), which
+# the loss and gradients see diluted by the layers around it
 TRAIN_LOSS_REL = 1e-5
 TRAIN_GRAD_REL = 1e-4     # of each leaf's largest magnitude
 TRAIN_STEPS = 3
-TRAIN_SCRIPT_ARCHS = ("llama3.2-3b", "qwen3-moe-30b-a3b", "gemma3-4b")
+TRAIN_SCRIPT_ARCHS = ("llama3.2-3b", "qwen3-moe-30b-a3b", "gemma3-4b",
+                      "mamba2-370m", "jamba-v0.1-52b")
 # small_100m's task (vocab 32768, 8 x 128 tokens a step, lr 1e-3) lowers
 # the loss only after ~150 optimizer steps, in JAX's training script as
-# in the port's (PERF.md): 40 steps leave it at ln V's level or above
+# in the port's (PERF.md): 40 steps leave it at ln V's level or above.
+# The Mamba families lower it from the first logged steps (PR 23: 10.56
+# -> 9.45 by step 40, 3.57 by step 199), so their runs stop at 60
 TRAIN_SCRIPT_STEPS = 200
+MAMBA_SCRIPT_STEPS = 60
+
+
+def _train_path(cfg) -> tuple:
+    """The kernels a training step of ``cfg`` launches: the norm's two,
+    and the scan's two where it has a Mamba layer."""
+    mamba = any(spec.mixer == "mamba" for spec in cfg.layers)
+    return MAMBA_TRAIN_PATH if mamba else TRAIN_PATH
+
+
+def _predicted_launches(cfg, steps: int) -> dict:
+    """Each kernel's launches in ``steps`` steps with remat: every forward
+    kernel twice a layer (the step and the recompute), every backward
+    once, and the final norm once each way. A layer has its pre-norm and,
+    with an FFN, a second norm; a Mamba layer one scan."""
+    norms = sum(1 + (spec.ffn != "none") for spec in cfg.layers)
+    scans = sum(spec.mixer == "mamba" for spec in cfg.layers)
+    return {"rmsnorm": steps * (2 * norms + 1),
+            "rmsnorm_bwd": steps * (norms + 1),
+            "ssd_scan": steps * 2 * scans, "ssd_scan_bwd": steps * scans}
 
 
 def _loss_and_grads(params, cfg, batch):
@@ -3218,83 +3397,96 @@ def _loss_and_grads(params, cfg, batch):
     return loss.detach(), grads
 
 
-def _train_parity(cfg) -> None:
+def _train_parity(arch: str, layers: int, seq: int) -> None:
     """One loss and its gradients through the kernels, against the same
-    under ``ops.plain_versions()``: full width, ``TRAIN_PARITY_LAYERS`` of
-    its layers, f32 with TF32 off, a 2 x 512 batch."""
+    under ``ops.plain_versions()``: ``arch`` at full width, its first
+    ``layers`` layers, f32 with TF32 off, a ``TRAIN_B`` x ``seq`` batch.
+    The kernel run's counts are read (not added to the path's launches:
+    the run is a comparison)."""
     from repro_torch.engine.steps import init_train_state
     from repro_torch.kernels import ops
     from repro_torch.launch.train import synthetic_batch
 
-    cut = dataclasses.replace(cfg, num_layers=TRAIN_PARITY_LAYERS,
-                              layers=cfg.layers[:TRAIN_PARITY_LAYERS])
+    cfg = _model_config(arch)
+    cut = dataclasses.replace(cfg, num_layers=layers,
+                              layers=cfg.layers[:layers])
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    params, _ = init_train_state(cut, gen, device="cuda")
-    batch = synthetic_batch(np.random.default_rng(0), cut, TRAIN_B, TRAIN_S,
+    # the optimizer state (two moments a parameter) is not needed here
+    params = init_train_state(cut, gen, device="cuda")[0]
+    n = sum(p.numel() for p in params.parameters())
+    batch = synthetic_batch(np.random.default_rng(0), cut, TRAIN_B, seq,
                             "cuda")
+    path = _train_path(cut)
     ops.reset_counts()
     loss_k, grads_k = _loss_and_grads(params, cut, batch)
     torch.cuda.synchronize()
-    counts = _path_counts("train parity, kernel run", TRAIN_PATH)
+    counts = _path_counts(f"train parity {arch}, kernel run", path)
     with ops.plain_versions():
         loss_p, grads_p = _loss_and_grads(params, cut, batch)
+    peak = torch.cuda.max_memory_allocated() / 1e9
     loss_rel = float((loss_k - loss_p).abs() / loss_p.abs())
-    worst, worst_name = 0.0, ""
+    rels = {}
     for (name, _), gk, gp in zip(params.named_parameters(), grads_k,
                                  grads_p):
-        rel = float((gk - gp).abs().max() / gp.abs().max().clamp_min(1e-30))
+        rels[name] = float((gk - gp).abs().max()
+                           / gp.abs().max().clamp_min(1e-30))
         check(bool(torch.isfinite(gk).all()),
-              f"train parity: {name}'s gradient is not finite")
-        if rel > worst:
-            worst, worst_name = rel, name
-    norm_scale = float(max(g.abs().max() for (n, _), g in zip(
-        params.named_parameters(), grads_k) if "norm" in n))
-    print(f"[train] parity, llama3.2-3b full width, {TRAIN_PARITY_LAYERS} of "
-          f"{cfg.num_layers} layers, f32, batch {TRAIN_B} x {TRAIN_S}: loss "
-          f"{float(loss_k):.6f} kernels against {float(loss_p):.6f} plain, "
-          f"relative {loss_rel:.3g} (limit {TRAIN_LOSS_REL}); largest "
-          f"gradient difference {worst:.3g} of its leaf's largest magnitude "
-          f"({worst_name}; limit {TRAIN_GRAD_REL}); the norm weights' "
-          f"gradients reach {norm_scale:.3g}; launches rmsnorm "
-          f"{counts['rmsnorm']['launches']}, rmsnorm_bwd "
-          f"{counts['rmsnorm_bwd']['launches']}")
+              f"train parity {arch}: {name}'s gradient is not finite")
+    ranked = sorted(rels.items(), key=lambda kv: -kv[1])
+    worst_name, worst = ranked[0]
+    named = dict(zip((k for k, _ in params.named_parameters()), grads_k))
+    watched = {k: float(g.abs().max()) for k, g in named.items()
+               if "norm" in k or k.endswith(("A_log", "dt_bias"))}
+    print(f"[train] parity, {arch} full width, {layers} of "
+          f"{cfg.num_layers} layers ({n / 1e9:.3f} B parameters), f32, "
+          f"batch {TRAIN_B} x {seq}: loss {float(loss_k):.6f} kernels "
+          f"against {float(loss_p):.6f} plain, relative {loss_rel:.3g} "
+          f"(limit {TRAIN_LOSS_REL}); largest gradient difference "
+          f"{worst:.3g} of its leaf's largest magnitude ({worst_name}; "
+          f"limit {TRAIN_GRAD_REL}); the largest gradients of the norm "
+          f"weights and the scan's A_log and dt_bias: "
+          f"{max(watched.values()):.3g}; the next largest differences "
+          + ", ".join(f"{k} {v:.3g}" for k, v in ranked[1:4])
+          + "; launches "
+          + ", ".join(f"{k} {counts[k]['launches']}" for k in path)
+          + f"; peak device memory {peak:.2f} GB")
     check(loss_rel <= TRAIN_LOSS_REL and worst <= TRAIN_GRAD_REL
-          and norm_scale > 0,
-          f"train parity: loss {loss_rel:.3g}, gradients {worst:.3g} "
-          f"({worst_name}) of their limits' units")
+          and all(v > 0 for v in watched.values()),
+          f"train parity {arch}: loss {loss_rel:.3g}, gradients {worst:.3g} "
+          f"({worst_name}) of their limits' units; watched {watched}")
     del params, grads_k, grads_p
     _free_device_memory()
 
 
-def _train_full(cfg) -> dict:
-    """``TRAIN_STEPS`` AdamW steps of full-width, full-depth llama3.2-3b in
-    f32 (the dtype of the JAX training script) through ``make_train_step``,
-    remat on, batch 2 x 512; the counts zeroed just before the steps and
-    read just after."""
+def _train_full(arch: str, seq: int, watch_names: tuple,
+                expect_gb: str) -> dict:
+    """``TRAIN_STEPS`` AdamW steps of ``arch`` at full width and full
+    depth in f32 (the dtype of the JAX training script) through
+    ``make_train_step``, remat on, batch ``TRAIN_B`` x ``seq``; the counts
+    zeroed just before the steps and read just after."""
     from repro_torch.engine.steps import init_train_state, make_train_step
     from repro_torch.kernels import ops
     from repro_torch.launch.train import synthetic_batch
 
+    cfg = _model_config(arch)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     params, opt = init_train_state(cfg, gen, device="cuda")
     n = sum(p.numel() for p in params.parameters())
-    state_gb = 16 * n / 1e9
-    print(f"[train] llama3.2-3b full: {n / 1e9:.3f} B parameters, "
+    print(f"[train] {arch} full: {n / 1e9:.3f} B parameters, "
           f"{cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
-          f"{cfg.vocab_size}; expected peak: {state_gb:.1f} GB of "
-          f"parameters, gradients and moments (16 bytes a parameter) plus "
-          f"the logits (0.5 GB each of logits and their gradient), remat "
-          f"checkpoints and one layer's activations (~1 GB) and AdamW's "
-          f"temporaries of the largest leaf (~3 x 1.6 GB): ~64 GB")
+          f"{cfg.vocab_size}; expected peak: {16 * n / 1e9:.1f} GB of "
+          f"parameters, gradients and moments (16 bytes a parameter) "
+          f"{expect_gb}")
     rng = np.random.default_rng(0)
-    batches = [synthetic_batch(rng, cfg, TRAIN_B, TRAIN_S, "cuda")
+    batches = [synthetic_batch(rng, cfg, TRAIN_B, seq, "cuda")
                for _ in range(TRAIN_STEPS)]
     step = make_train_step(cfg)
-    # the leading rows of three leaves, to see the parameters move
+    # the leading rows of a few leaves, to see the parameters move
     watch = {k: v.detach()[:8].clone() for k, v in params.named_parameters()
-             if k in ("layers.0.norm1", "layers.27.ffn.w_down", "embed")}
+             if k in watch_names}
+    path = _train_path(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
@@ -3306,23 +3498,26 @@ def _train_full(cfg) -> dict:
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t)
         losses.append(loss)
-    counts = _path_counts("train llama3.2-3b full", TRAIN_PATH)
+    counts = _path_counts(f"train {arch} full", path)
     peak = torch.cuda.max_memory_allocated() / 1e9
     moved = {k: float((dict(params.named_parameters())[k].detach()[:8] - v)
                       .abs().max()) for k, v in watch.items()}
-    tok = TRAIN_B * TRAIN_S
-    print(f"[train] llama3.2-3b full, f32, batch {TRAIN_B} x {TRAIN_S}: "
-          f"losses {[round(x, 4) for x in losses]}, seconds a step "
+    want = _predicted_launches(cfg, TRAIN_STEPS)
+    tok = TRAIN_B * seq
+    print(f"[train] {arch} full, f32, batch {TRAIN_B} x {seq}: losses "
+          f"{[round(x, 4) for x in losses]}, seconds a step "
           f"{[round(x, 3) for x in secs]} (the first warms up), "
           f"{tok / float(np.median(secs)):.0f} tokens/s at the median, peak "
           f"device memory {peak:.2f} GB; largest parameter moves {moved}; "
-          f"launches rmsnorm {counts['rmsnorm']['launches']} (predicted "
-          f"{TRAIN_STEPS * (4 * cfg.num_layers + 1)}), rmsnorm_bwd "
-          f"{counts['rmsnorm_bwd']['launches']} (predicted "
-          f"{TRAIN_STEPS * (2 * cfg.num_layers + 1)})")
-    check(all(np.isfinite(losses)), f"train full: losses {losses}")
+          f"launches " + ", ".join(
+              f"{k} {counts[k]['launches']} (predicted {want[k]})"
+              for k in path))
+    check(len(watch) == len(watch_names) and all(np.isfinite(losses)),
+          f"train {arch} full: losses {losses}, watched {list(watch)}")
     check(all(v > 0 for v in moved.values()),
-          f"train full: parameters did not move: {moved}")
+          f"train {arch} full: parameters did not move: {moved}")
+    check(all(counts[k]["launches"] == want[k] for k in path),
+          f"train {arch} full: launches {counts}, predicted {want}")
     del params, opt, batches, watch
     _free_device_memory()
     return counts
@@ -3343,7 +3538,10 @@ def _train_script(ck: Path) -> tuple:
     total = {name: 0 for name in SOURCES}
     state = None
     for arch in TRAIN_SCRIPT_ARCHS:
-        argv = ["--arch", arch, "--steps", str(TRAIN_SCRIPT_STEPS),
+        cfg = train.small_100m(_model_config(arch))
+        steps = TRAIN_SCRIPT_STEPS if _train_path(cfg) == TRAIN_PATH \
+            else MAMBA_SCRIPT_STEPS
+        argv = ["--arch", arch, "--steps", str(steps),
                 "--log-every", "20", "--device", "cuda"]
         if arch == "llama3.2-3b":
             argv += ["--checkpoint", str(ck)]
@@ -3353,7 +3551,7 @@ def _train_script(ck: Path) -> tuple:
         with _cl.redirect_stdout(out):
             params, opt, _ = train.main(argv)
         secs = time.perf_counter() - t
-        counts = _path_counts(f"train script {arch}", TRAIN_PATH)
+        counts = _path_counts(f"train script {arch}", _train_path(cfg))
         _add_counts(total, counts)
         lines = out.getvalue().splitlines()
         losses = [float(line.split()[3]) for line in lines
@@ -3363,9 +3561,10 @@ def _train_script(ck: Path) -> tuple:
         for line in lines:
             print(f"[train]   {line}")
         print(f"[train]   losses {losses} against ln V "
-              f"{np.log(train.small_100m(_model_config(arch)).vocab_size):.4f}"
-              f"; launches rmsnorm {counts['rmsnorm']['launches']}, "
-              f"rmsnorm_bwd {counts['rmsnorm_bwd']['launches']}")
+              f"{np.log(cfg.vocab_size):.4f}"
+              f"; launches " + ", ".join(
+                  f"{k} {c['launches']}" for k, c in counts.items()
+                  if c["launches"]))
         check(len(losses) >= 2 and all(np.isfinite(losses))
               and losses[-1] < losses[0],
               f"train script {arch}: the loss did not fall: {losses}")
@@ -3418,39 +3617,29 @@ def _train_checkpoint(ck: Path, state) -> None:
           f"one from the state in memory: {diff}")
 
 
-def _train_refuses_scan() -> None:
-    """``forward_train`` of mamba2-370m (full width, one layer) with
-    gradients on the card raises: the scan kernel has no backward yet."""
-    from repro_torch.engine.steps import init_train_state
-    from repro_torch.models.transformer import forward_train
-
-    cfg = _model_config("mamba2-370m")
-    cut = dataclasses.replace(cfg, num_layers=1, layers=cfg.layers[:1])
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    params, _ = init_train_state(cut, gen, device="cuda")
-    tokens = torch.zeros((1, 256), dtype=torch.int32, device="cuda")
-    try:
-        forward_train(params, cut, {"tokens": tokens})
-    except RuntimeError as e:
-        check("ssd_scan" in str(e) and "no backward" in str(e),
-              f"train mamba2: the wrong error: {e}")
-        print(f"[train] mamba2-370m forward_train with gradients raises: {e}")
-        return
-    raise PhaseError("train mamba2: forward_train with gradients through "
-                     "the scan kernel did not raise")
-
-
 def phase_train() -> dict:
     """The training path on the card: f32 gradient parity, kernels against
-    plain, at full width; 3 AdamW steps of full-width, full-depth
-    llama3.2-3b; the training script for three families at small_100m;
-    the llama run's checkpoint; mamba2's refusal. Returns the launches of
-    the full run and the training script's runs."""
-    cfg = _model_config("llama3.2-3b")
-    _train_parity(cfg)
+    plain, at full width (llama3.2-3b, mamba2-370m, jamba-v0.1-52b cut to
+    a few layers); 3 AdamW steps of full-width, full-depth llama3.2-3b
+    and mamba2-370m; the training script for five families at
+    small_100m; the llama run's checkpoint. Returns the launches of the
+    full runs and the training script's runs."""
+    _train_parity("llama3.2-3b", TRAIN_PARITY_LAYERS, TRAIN_S)
     launches = {name: 0 for name in SOURCES}
-    _add_counts(launches, _train_full(cfg))
+    _add_counts(launches, _train_full(
+        "llama3.2-3b", TRAIN_S,
+        ("layers.0.norm1", "layers.27.ffn.w_down", "embed"),
+        "plus the logits (0.5 GB each of logits and their gradient), remat "
+        "checkpoints and one layer's activations (~1 GB) and AdamW's "
+        "temporaries of the largest leaf (~3 x 1.6 GB): ~64 GB"))
+    _train_parity("mamba2-370m", TRAIN_PARITY_LAYERS, MAMBA_TRAIN_S)
+    _add_counts(launches, _train_full(
+        "mamba2-370m", MAMBA_TRAIN_S,
+        ("layers.0.norm1", "layers.0.mamba.A_log", "layers.47.mamba.w_xBC",
+         "embed"),
+        "plus the logits (0.4 GB each of logits and their gradient), remat "
+        "checkpoints and one layer's activations (~0.2 GB): ~7 GB"))
+    _train_parity("jamba-v0.1-52b", JAMBA_PARITY_LAYERS, MAMBA_TRAIN_S)
     ck = ROOT / "build" / "train" / "llama3.2-3b-100m.npz"
     counts, state = _train_script(ck)
     for name in SOURCES:
@@ -3459,7 +3648,6 @@ def phase_train() -> dict:
     ck.unlink()
     del state
     _free_device_memory()
-    _train_refuses_scan()
     return launches
 
 

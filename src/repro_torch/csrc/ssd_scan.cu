@@ -71,7 +71,9 @@
 // every accumulation order depend on (S, c, nh, hd, ds) alone, so a row
 // served alone equals the same row in a batch bit for bit. Scratch comes
 // from the wrapper; the kernels allocate nothing.
-#include "common.cuh"
+//
+// Its gradient is csrc/ssd_scan_bwd.cu.
+#include "ssd_common.cuh"
 
 namespace {
 
@@ -139,31 +141,12 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* hi, int ld,
   }
 }
 
-// The chunk's dt (0 at or past `valid`) into dtv, by every thread of the
-// block, its loads issued before they are stored. chunk <= 8 blockDim.
-__device__ __forceinline__ void load_dt(const float* __restrict__ dt_row,
-                                        int nh, int valid, int chunk,
-                                        float* dtv) {
-  float v[8];
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    const int t = threadIdx.x + q * blockDim.x;
-    v[q] = t < valid ? dt_row[(size_t)t * nh] : 0.f;
-  }
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    const int t = threadIdx.x + q * blockDim.x;
-    if (t < chunk) dtv[t] = v[q];
-  }
-}
-
 // The chunk's cumulative decay in log2 units, cum_t = sum_{u <= t} dtv_u
 // A_h log2(e), by one warp in a fixed order: lane l sums rows [l c/32,
 // (l + 1) c/32) in turn, then an inclusive shuffle scan over the lanes
 // adds the rows before. A_h is scaled before the sum, so the scaling's
 // rounding moves cum_i - cum_j by a part of that difference, not of |cum|.
 // c is a multiple of 32.
-constexpr float kLog2e = 1.4426950408889634f;
 __device__ __forceinline__ void chunk_cumsum(const float* dtv, int chunk,
                                              float A_h, float* cum) {
   A_h *= kLog2e;
@@ -183,14 +166,6 @@ __device__ __forceinline__ void chunk_cumsum(const float* dtv, int chunk,
   float excl = __shfl_up_sync(0xffffffffu, incl, 1);
   if (lane == 0) excl = 0.f;
   for (int q = 0; q < per; ++q) cum[base + q] += excl;
-}
-
-// 2^x in one MUFU instruction (relative error ~2^-22; results below 2^-126
-// flush to 0)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {

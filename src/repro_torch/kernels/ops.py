@@ -6,13 +6,15 @@ to the other, so a kernel that fails to build or launch raises.
 Inside ``with plain_versions():`` the plain versions run on any device:
 ``chip_smoke.py`` compares the model's kernel path with them on the card.
 
-``rmsnorm`` carries its gradient: where an input requires one (and grad
-mode is on) it runs as a ``torch.autograd.Function`` whose forward and
-backward are the CUDA kernels on the card (``rmsnorm_cuda``,
-``rmsnorm_bwd_cuda``) and the plain versions on the CPU (``rmsnorm_ref``,
-``rmsnorm_bwd_ref``); otherwise it is the plain forward call. The other
-kernels have no backward: on the kernel route they raise where an input
-requires a gradient, rather than hand back a result with no
+``rmsnorm`` and ``ssd_scan`` carry their gradients: where an input
+requires one (and grad mode is on) each runs as a
+``torch.autograd.Function`` whose forward and backward are the CUDA
+kernels on the card (``rmsnorm_cuda`` and ``rmsnorm_bwd_cuda``;
+``ssd_scan_cuda`` and ``ssd_scan_bwd_cuda``) and the plain versions on
+the CPU (``rmsnorm_ref`` and ``rmsnorm_bwd_ref``; ``ssd_scan_ref`` and
+``ssd_scan_bwd_ref``); otherwise it is the plain forward call. The
+attention kernels have no backward: on the kernel route they raise where
+an input requires a gradient, rather than hand back a result with no
 ``grad_fn``, which would drop the gradient without an error. Their plain
 versions are PyTorch ops and differentiate as such.
 """
@@ -37,7 +39,8 @@ _COUNTERS = {"paged_attention": (_pa, "launches"),
              "chunked_prefill_attention": (_cpa, "launches"),
              "rmsnorm": (_rms, "launches"),
              "rmsnorm_bwd": (_rms, "bwd_launches"),
-             "ssd_scan": (_ssd, "launches")}
+             "ssd_scan": (_ssd, "launches"),
+             "ssd_scan_bwd": (_ssd, "bwd_launches")}
 # calls of each plain version made through this module (updated under
 # ``build.count_lock``, as the wrappers' launch counts are)
 plain_calls: Dict[str, int] = {name: 0 for name in _COUNTERS}
@@ -173,11 +176,47 @@ def ssd_scan(x, dt, A, B_, C_, init_state, *, chunk: int):
     [Bt, S, ds]; init_state: [Bt, nh, hd, ds] f32. Any ``S``: the plain
     version zero-pads to the chunk grid, the kernel reads the last chunk's
     tail as dt = 0 in place. Returns (y [Bt, S, nh, hd] f32, final state
-    [Bt, nh, hd, ds] f32)."""
+    [Bt, nh, hd, ds] f32); differentiable in every input (``_SSDScan``),
+    the mixer's strided slices of its projection included."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B_, C_, init_state)):
+        return _SSDScan.apply(x, dt, A, B_, C_, init_state, chunk)
+    return _ssd_scan(x, dt, A, B_, C_, init_state, chunk)
+
+
+def _ssd_scan(x, dt, A, B_, C_, init_state, chunk: int):
     if _plain("ssd_scan", x.device):
         return ref.ssd_scan_ref(x, dt, A, B_, C_, init_state, chunk)
-    _no_backward("ssd_scan", x, dt, A, B_, C_, init_state)
     return _ssd.ssd_scan_cuda(x, dt, A, B_, C_, init_state, chunk)
+
+
+def ssd_scan_bwd(x, dt, A, B_, C_, init_state, dy, dh, *, chunk: int):
+    """The gradient of ``ssd_scan`` at its inputs for the output
+    gradients ``dy`` ([Bt, S, nh, hd]) and ``dh`` ([Bt, nh, hd, ds]):
+    (dx, ddt, dA, dB, dC, dh0), each its input's shape, dx, dB and dC in
+    their input's dtype, the rest fp32."""
+    if _plain("ssd_scan_bwd", x.device):
+        return ref.ssd_scan_bwd_ref(x, dt, A, B_, C_, init_state, dy, dh,
+                                    chunk)
+    return _ssd.ssd_scan_bwd_cuda(x, dt, A, B_, C_, init_state, dy, dh,
+                                  chunk)
+
+
+class _SSDScan(torch.autograd.Function):
+    """``ssd_scan`` with its gradient: forward and backward each through
+    ``kernels.ops``. It saves the inputs, not the chunk states: the
+    backward recomputes the state entering each chunk."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_, C_, init_state, chunk):
+        ctx.save_for_backward(x, dt, A, B_, C_, init_state)
+        ctx.chunk = chunk
+        return _ssd_scan(x, dt, A, B_, C_, init_state, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        return (*ssd_scan_bwd(*ctx.saved_tensors, dy, dh, chunk=ctx.chunk),
+                None)
 
 
 def reset_counts() -> None:
@@ -193,7 +232,8 @@ def reset_counts() -> None:
 
 def counts() -> Dict[str, Dict[str, int]]:
     """``{kernel: {"launches": n, "plain": m}}`` since the last reset
-    (``rmsnorm_bwd``: the norm's backward, two kernels a call)."""
+    (``rmsnorm_bwd``: the norm's backward, two kernels a call;
+    ``ssd_scan_bwd``: the scan's backward, five kernels a call)."""
     with build.count_lock:
         return {name: {"launches": getattr(mod, attr),
                        "plain": plain_calls[name]}

@@ -2,7 +2,8 @@
 
 The simplest correct implementation of each function (a gather and a
 naive masked softmax in fp32 for attention; the norm's fp32 arithmetic
-and its gradient; the chunked SSD scan as ``ssd_chunked`` computes it),
+and its gradient; the chunked SSD scan as ``ssd_chunked`` computes it,
+and its gradient in fp64),
 written apart from
 the CUDA kernels so that agreement between the two means something. The
 CPU path of ``kernels.ops`` runs them, the tests hold them against the
@@ -161,3 +162,127 @@ def ssd_scan_ref(x, dt, A, B_, C_, init_state, chunk: int):
         ys.append(y_intra + y_inter)
     y = torch.stack(ys, dim=1).reshape(Bt, n * chunk, nh, hd)
     return y[:, :S], h
+
+
+def ssd_scan_bwd_ref(x, dt, A, B_, C_, init_state, dy, dh, chunk: int):
+    """The gradient of ``ssd_scan_ref`` for the output gradients ``dy``
+    ([Bt, S, nh, hd]) and ``dh`` ([Bt, nh, hd, ds], the final state's),
+    written out as the chunked decomposition the backward kernels follow
+    (the Mamba2 paper's SSD, arXiv:2405.21060 sections 6-7; the public
+    ``mamba_ssm`` SSD backward splits the same terms into its chunk-scan,
+    chunk-state and state-passing backward kernels), not as autograd of
+    the forward. In fp64, the outputs rounded to fp32 and then to their
+    dtype: two fp32 versions of this gradient disagree by up to ~5e-4 of
+    the decay parameters' largest gradient where the decay is steep
+    (``cum`` reaches ~3e3 within a chunk, where one fp32 ulp of it is
+    2.4e-4, and ``dcum``'s row and column sums cancel in its reverse
+    cumsum); the backward kernels difference the decay compensated and
+    sum dcum in fp64, so their yardstick computes in fp64. Per chunk k,
+    with ``cum`` the within-chunk cumulative sum of ``dt A``, ``L_ij =
+    exp(cum_i - cum_j)`` for ``j <= i`` (masked before the exp) and
+    ``CB_ij = C_i . B_j``:
+
+    1. the state entering each chunk, ``H_in_k``, recomputed forward;
+    2. a reverse pass over the chunks: ``dH_in_k = exp(cum_last) dH_out_k
+       + sum_i exp(cum_i) dy_i C_i^T``, where the last chunk's ``dH_out``
+       is ``dh``, ``dH_out_{k-1} = dH_in_k`` and ``dh0 = dH_in_0``;
+    3. per chunk, the dual form: with ``G_ij = dy_i . x_j``,
+       ``dx_j = dt_j [sum_{i>=j} CB_ij L_ij dy_i + exp(cum_last - cum_j)
+       dH_out B_j]``; ``dB_j`` and ``dC_i`` (summed over heads) from
+       ``Q_ij = G_ij L_ij dt_j``, ``exp(cum_i) H_in^T dy_i`` and
+       ``exp(cum_last - cum_j) dt_j dH_out^T x_j``; the direct ``ddt_j`` of
+       the dual form and of the state update;
+    4. ``dcum``: the row sum minus the column sum of ``CB_ij L_ij dt_j
+       G_ij``, plus the carried state's term ``exp(cum_i) C_i . H_in^T
+       dy_i``, minus each row's share of the state update, whose sum (and
+       ``exp(cum_last) <dH_out, H_in>``) goes to the chunk's last row;
+    5. the reverse within-chunk cumsum ``R_t = sum_{i>=t} dcum_i``:
+       ``ddt_t += A R_t`` and ``dA = sum dt_t R_t``.
+
+    ``S`` is zero-padded to the chunk grid as in the forward; rows past
+    ``S`` get no gradient. Returns (dx, ddt, dA, dB, dC, dh0): each its
+    input's shape, dx, dB and dC in their input's dtype, ddt, dA and dh0
+    fp32."""
+    Bt, S, nh, hd = x.shape
+    ds = B_.shape[-1]
+    xdt, bdt, cdt = x.dtype, B_.dtype, C_.dtype
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dy = F.pad(dy, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B_ = F.pad(B_, (0, 0, 0, pad))
+        C_ = F.pad(C_, (0, 0, 0, pad))
+    n = x.shape[1] // chunk
+    xc = x.reshape(Bt, n, chunk, nh, hd).double()
+    dyc = dy.reshape(Bt, n, chunk, nh, hd).double()
+    dtc = dt.reshape(Bt, n, chunk, nh).double()
+    Bc = B_.reshape(Bt, n, chunk, ds).double()
+    Cc = C_.reshape(Bt, n, chunk, ds).double()
+    Af = A.double()
+    cum = torch.cumsum(dtc * Af[None, None, None, :], dim=2)
+    last = cum[:, :, -1]                                   # [Bt, n, nh]
+    tail = torch.exp(last[:, :, None] - cum)               # [Bt, n, c, nh]
+    ecum = torch.exp(cum)
+    causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                   device=x.device))[None, :, :, None]
+
+    # 1. the state entering each chunk
+    h = init_state.double()
+    h_in = []
+    for k in range(n):
+        h_in.append(h)
+        upd = torch.einsum("bjs,bjhd,bjh,bjh->bhds", Bc[:, k], xc[:, k],
+                           dtc[:, k], tail[:, k])
+        h = torch.exp(last[:, k])[:, :, None, None] * h + upd
+    # 2. the state's gradient, chunks in reverse
+    g = dh.double()
+    dh_out = [None] * n
+    for k in reversed(range(n)):
+        dh_out[k] = g
+        g = torch.exp(last[:, k])[:, :, None, None] * g + torch.einsum(
+            "bih,bihd,bis->bhds", ecum[:, k], dyc[:, k], Cc[:, k])
+    dh0 = g
+
+    dxs, ddts, dBs, dCs = [], [], [], []
+    dA = torch.zeros_like(Af)
+    for k in range(n):
+        xk, dyk, dtk, Bk, Ck, cumk = (xc[:, k], dyc[:, k], dtc[:, k],
+                                      Bc[:, k], Cc[:, k], cum[:, k])
+        tk, ek, hk, gk = tail[:, k], ecum[:, k], h_in[k], dh_out[k]
+        li = cumk[:, :, None, :] - cumk[:, None, :, :]      # [Bt,i,j,nh]
+        Lmat = torch.where(causal, torch.exp(torch.where(causal, li, 0.0)),
+                           0.0)
+        cb = torch.einsum("bis,bjs->bij", Ck, Bk)[..., None]
+        G = torch.einsum("bihd,bjhd->bijh", dyk, xk)
+        Kmat = cb * G * Lmat                                # CB L G
+        Q = G * Lmat * dtk[:, None]                         # G L dt_j
+        # 3. the dual form's and the state update's direct terms
+        u = torch.einsum("bhds,bjs->bjhd", gk, Bk)          # dH_out B_j
+        su = torch.einsum("bjhd,bjhd->bjh", xk, u) * tk     # per row j
+        dx = torch.einsum("bijh,bihd->bjhd", cb * Lmat * dtk[:, None], dyk) \
+            + (dtk * tk)[..., None] * u
+        ddt = Kmat.sum(1) + su
+        dB = torch.einsum("bijh,bis->bjs", Q, Ck) + torch.einsum(
+            "bjh,bhds,bjhd->bjs", dtk * tk, gk, xk)
+        v = torch.einsum("bhds,bihd->bihs", hk, dyk)        # H_in^T dy_i
+        dC = torch.einsum("bijh,bjs->bis", Q, Bk) \
+            + torch.einsum("bih,bihs->bis", ek, v)
+        # 4. dcum
+        dcum = (Kmat * dtk[:, None]).sum(2) - dtk * Kmat.sum(1) \
+            + ek * torch.einsum("bis,bihs->bih", Ck, v) - dtk * su
+        dcum[:, -1] += (dtk * su).sum(1) + torch.exp(cumk[:, -1]) \
+            * (gk * hk).sum((-2, -1))
+        # 5. the reverse within-chunk cumsum
+        R = torch.flip(torch.cumsum(torch.flip(dcum, [1]), 1), [1])
+        ddts.append(ddt + Af * R)
+        dA = dA + (dtk * R).sum((0, 1))
+        dxs.append(dx)
+        dBs.append(dB)
+        dCs.append(dC)
+    dx = torch.stack(dxs, 1).reshape(Bt, n * chunk, nh, hd)[:, :S]
+    ddt = torch.stack(ddts, 1).reshape(Bt, n * chunk, nh)[:, :S]
+    dB = torch.stack(dBs, 1).reshape(Bt, n * chunk, ds)[:, :S]
+    dC = torch.stack(dCs, 1).reshape(Bt, n * chunk, ds)[:, :S]
+    return (dx.float().to(xdt), ddt.float(), dA.float(),
+            dB.float().to(bdt), dC.float().to(cdt), dh0.float())

@@ -15,6 +15,16 @@ the mixer's slices of its ``xBC`` projection are: the kernels take their
 batch and token strides, and only a layout they cannot read (inner
 dimensions not contiguous, strides not a multiple of 16 bytes) is copied
 with ``.contiguous()``.
+
+Its gradient, ``ssd_scan_bwd_cuda``, wraps ``csrc/ssd_scan_bwd.cu``
+(the JAX package's training path differentiates
+``models/mamba2.py::ssd_chunked`` with XLA's autodiff instead): five
+kernels, counted once in ``bwd_launches``: each chunk's state and the
+state gradient's chunk term, the state carried forward and its gradient
+back through the chunks in fp32, the chunk-parallel dual form's
+gradients (per-head partials of dB and dC), then dB, dC and dA summed in
+a fixed order. It takes what the forward takes, with head_dim up to
+``BWD_MAX_HD``.
 """
 from __future__ import annotations
 
@@ -25,14 +35,18 @@ import torch
 from . import build
 
 NAME = "ssd_scan"
+BWD_NAME = "ssd_scan_bwd"
 TILE = 64           # chunk rows, head-dim and state columns per tile
 ROWS = 128          # chunk rows per block of the output kernel
 MAX_CHUNK = 1024    # the chunk's dt and decays live in shared memory
 HD_MULTIPLE = 16    # head_dim: whole 16-column mma blocks
 STATE_DIMS = (16, 64, 128)
 PASS_THREADS = 256  # threads per block of the state pass, 4 entries each
+BWD_THREADS = 256   # threads per block of the backward's kernels
+BWD_MAX_HD = 128    # a backward thread holds a row's dx at hd / 4 columns
 
-launches = 0    # calls that launched the kernels, in this process
+launches = 0        # calls that launched the forward's kernels
+bwd_launches = 0    # calls that launched the backward's kernels
 
 
 def plan(Bt: int, S: int, chunk: int, nh: int, hd: int,
@@ -57,6 +71,31 @@ def plan(Bt: int, S: int, chunk: int, nh: int, hd: int,
     }
 
 
+def plan_bwd(Bt: int, S: int, chunk: int, nh: int, hd: int,
+             ds: int) -> Dict[str, Tuple[int, ...]]:
+    """The grids of the backward's five kernels and the shapes of its
+    scratch, as ``csrc/ssd_scan_bwd.cu``'s ``launch_bwd`` computes them:
+    each chunk's state (then the state entering it) and the state
+    gradient's chunk term (then the gradient of the state leaving it),
+    fp32; each chunk's decay; the per-head partials of dB and dC; each
+    (row, chunk, head)'s share of dA. As in ``plan``, ``Bt`` enters only
+    as the batch axis of the per-row grids and scratch."""
+    nc = -(-S // chunk)
+    return {
+        "chunks": (nc,),
+        "state_grid": (nc * -(-hd // TILE), nh, Bt),
+        "pass_grid": (-(-(hd * ds) // BWD_THREADS), nh, Bt),
+        "chunk_grid": (nc, nh, Bt),
+        "reduce_grid": (-(-(2 * Bt * S * ds) // BWD_THREADS),),
+        "da_grid": (-(-nh // 128),),
+        "states": (Bt, nc, nh, hd, ds),
+        "dstates": (Bt, nc, nh, hd, ds),
+        "decay": (Bt, nc, nh),
+        "head_partials": (Bt, nh, S, ds),
+        "da_partials": (Bt, nc, nh),
+    }
+
+
 def _strided(t: torch.Tensor, inner: int) -> torch.Tensor:
     """``t`` as the kernels read it: its last ``inner`` dimensions
     contiguous and its batch and token strides multiples of 16 bytes
@@ -72,15 +111,19 @@ def _strided(t: torch.Tensor, inner: int) -> torch.Tensor:
     return t if ok else t.contiguous()
 
 
-def _check(x, dt, A, B_, C_, h0, chunk):
+def _check(x, dt, A, B_, C_, h0, chunk, grads=()):
+    """The forward's rules; ``grads`` is the backward's (dy, dh), fp32,
+    shaped as y and the state, and the backward takes head_dim up to
+    ``BWD_MAX_HD``."""
     dts = {x.dtype, B_.dtype, C_.dtype}
     if len(dts) != 1 or x.dtype not in build.DTYPES:
         raise TypeError(f"ssd_scan: x, B and C must share a dtype of "
                         f"{list(build.DTYPES)}, got {x.dtype}, {B_.dtype}, "
                         f"{C_.dtype}")
-    if any(t.dtype != torch.float32 for t in (dt, A, h0)):
-        raise TypeError(f"ssd_scan: dt, A and the state are float32, got "
-                        f"{dt.dtype}, {A.dtype}, {h0.dtype}")
+    if any(t.dtype != torch.float32 for t in (dt, A, h0, *grads)):
+        raise TypeError(f"ssd_scan: dt, A, the state and the output "
+                        f"gradients are float32, got "
+                        f"{[t.dtype for t in (dt, A, h0, *grads)]}")
     if x.dim() != 4:
         raise ValueError(f"ssd_scan: x is [Bt, S, nh, hd], got "
                          f"{tuple(x.shape)}")
@@ -99,10 +142,21 @@ def _check(x, dt, A, B_, C_, h0, chunk):
             f"ssd_scan: chunk {chunk} must be a multiple of {TILE} up to "
             f"{MAX_CHUNK}, head_dim {hd} a multiple of {HD_MULTIPLE}, "
             f"d_state {ds} one of {STATE_DIMS}")
+    if grads:
+        dy, dh = grads
+        if dy.shape != x.shape or dh.shape != h0.shape:
+            raise ValueError(f"ssd_scan backward: unsupported shapes dy "
+                             f"{tuple(dy.shape)}, dh {tuple(dh.shape)} (y "
+                             f"is {tuple(x.shape)}, the state "
+                             f"{tuple(h0.shape)})")
+        if hd > BWD_MAX_HD:
+            raise ValueError(f"ssd_scan backward: head_dim {hd} is past "
+                             f"{BWD_MAX_HD}")
     if any(t.data_ptr() % 16 for t in (dt, A, h0)):
         raise ValueError("ssd_scan: dt, A and the state must be 16-byte "
                          "aligned (the kernels load 16 bytes at a time)")
-    build.check_device(NAME, (x, dt, A, B_, C_, h0))
+    build.check_device(BWD_NAME if grads else NAME,
+                       (x, dt, A, B_, C_, h0, *grads))
 
 
 def ssd_scan_cuda(x, dt, A, B_, C_, init_state, chunk: int):
@@ -134,3 +188,46 @@ def ssd_scan_cuda(x, dt, A, B_, C_, init_state, chunk: int):
     with build.count_lock:
         launches += 1
     return y, h
+
+
+def ssd_scan_bwd_cuda(x, dt, A, B_, C_, init_state, dy, dh, chunk: int):
+    """The gradient of ``ssd_scan_cuda`` for the output gradients ``dy``
+    ([Bt, S, nh, hd]) and ``dh`` ([Bt, nh, hd, ds]), both f32. Takes the
+    forward's inputs as it does, head_dim up to ``BWD_MAX_HD``. Returns
+    (dx [Bt, S, nh, hd] in x's dtype, ddt [Bt, S, nh] f32, dA [nh] f32, dB
+    and dC [Bt, S, ds] in their dtype, dh0 [Bt, nh, hd, ds] f32). Five
+    kernels on the current stream, counted once."""
+    global bwd_launches
+    dt, A, h0, dy, dh = (t.contiguous() for t in (dt, A, init_state, dy, dh))
+    x = _strided(x, 2)
+    B_, C_ = _strided(B_, 1), _strided(C_, 1)
+    if B_.stride() != C_.stride():
+        B_, C_ = B_.contiguous(), C_.contiguous()
+    _check(x, dt, A, B_, C_, h0, chunk, (dy, dh))
+    Bt, S, nh, hd = x.shape
+    ds = B_.shape[-1]
+    dev = x.device
+    dx = torch.empty((Bt, S, nh, hd), dtype=x.dtype, device=dev)
+    ddt = torch.empty((Bt, S, nh), dtype=torch.float32, device=dev)
+    dB = torch.empty((Bt, S, ds), dtype=B_.dtype, device=dev)
+    dC = torch.empty_like(dB)
+    if Bt == 0 or S == 0:
+        return (dx, ddt, torch.zeros_like(A), dB, dC, dh.clone())
+    p = plan_bwd(Bt, S, chunk, nh, hd, ds)
+    f32 = dict(dtype=torch.float32, device=dev)
+    states = torch.empty(p["states"], **f32)
+    dstates = torch.empty(p["dstates"], **f32)
+    decay = torch.empty(p["decay"], **f32)
+    dBh = torch.empty(p["head_partials"], **f32)
+    dCh = torch.empty(p["head_partials"], **f32)
+    da_part = torch.empty(p["da_partials"], **f32)
+    dA = torch.empty_like(A)
+    dh0 = torch.empty_like(h0)
+    build.launch(BWD_NAME, x, dt, A, B_, C_, h0, dy, dh, dx, ddt, dA, dB,
+                 dC, dh0, states, dstates, decay, dBh, dCh, da_part, Bt, S,
+                 nh, hd, ds, chunk, build.Long(x.stride(0)),
+                 build.Long(x.stride(1)), build.Long(B_.stride(0)),
+                 build.Long(B_.stride(1)), build.DTYPES[x.dtype])
+    with build.count_lock:
+        bwd_launches += 1
+    return dx, ddt, dA, dB, dC, dh0

@@ -15,9 +15,12 @@ shorter chunk against a longer one; the scan and the norm: a row alone
 against the same row in a batch), the norm's backward kernel (against
 ``rmsnorm_bwd_ref``, a row's dx alone against the batch, dw the same
 from run to run, the autograd Function launching both kernels), the
-kernels without a backward refusing inputs that require a gradient, and
-the wrappers' refusals. ``chip_smoke.py`` checks the same kernels at the main paths'
-shapes.
+scan's backward kernel (against ``ssd_scan_bwd_ref`` at the forward's
+shapes, a row's dx, ddt, dB, dC and dh0 alone against the batch, dA the
+same from run to run, the autograd Function launching both kernels), the
+attention kernels, which have no backward, refusing inputs that require
+a gradient, and the wrappers' refusals. ``chip_smoke.py`` checks the
+same kernels at the main paths' shapes.
 
 On a machine with an NVIDIA GPU and nvcc:
 
@@ -30,7 +33,9 @@ and plain version both accumulate in fp32 and round the output once.
 The norm in f32 is held to 8 ulps (rtol 2^-20, atol 1e-6), and the scan,
 whose output is fp32 in either input dtype, to 5e-4 of its output's
 largest magnitude (the versions sum the chunk's cumulative decay in
-different orders; ``chip_smoke.py``'s ``SSD_REL``).
+different orders; ``chip_smoke.py``'s ``SSD_REL``); the scan's gradients
+likewise, each relative to its own largest magnitude, and in bf16 (dx, dB
+and dC) one bf16 ulp of the element besides.
 """
 import numpy as np
 import pytest
@@ -470,13 +475,7 @@ def _scan_inputs(rng, dev, dtype, B, S, nh, hd, ds, zero_tail=0):
             _t(rng.standard_normal((B, nh, hd, ds), np.float32), dev))
 
 
-def _close_scaled(got, want, rel=5e-4):
-    torch.testing.assert_close(got, want, rtol=0,
-                               atol=rel * float(want.abs().max()))
-
-
-@pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("B,S,nh,hd,ds,chunk,zero_tail", [
+SCAN_SHAPES = [
     (1, 512, 32, 64, 128, 256, 0),    # full width, two chunks
     (2, 700, 4, 64, 128, 256, 0),     # ragged: the last chunk read in place
     (3, 130, 2, 32, 64, 64, 40),      # ds 64, hd 32, a zero-dt tail
@@ -485,7 +484,16 @@ def _close_scaled(got, want, rel=5e-4):
     (1, 1, 32, 64, 128, 256, 0),      # one token
     (1, 1024, 128, 64, 16, 256, 0),   # jamba-v0.1's d_state 16
     (2, 300, 8, 128, 16, 256, 37),    # d_state 16, hd 128, a zero-dt tail
-])
+]
+
+
+def _close_scaled(got, want, rel=5e-4):
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=rel * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,nh,hd,ds,chunk,zero_tail", SCAN_SHAPES)
 def test_ssd_scan_kernel_vs_plain(cuda, dt, B, S, nh, hd, ds, chunk,
                                   zero_tail):
     from repro_torch.kernels import ssd_scan as ssd
@@ -505,6 +513,79 @@ def test_ssd_scan_kernel_vs_plain(cuda, dt, B, S, nh, hd, ds, chunk,
                and a.shape[1] == S else a for a in args]
         _, h_cut = ops.ssd_scan(*cut, chunk=chunk)
         _close_scaled(h, h_cut)
+
+
+def _close_grads(got, want, bf16):
+    """Each gradient within 5e-4 of its largest magnitude, plus one bf16
+    ulp of the element where it is rounded to bf16."""
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g.float()).all())
+        rtol = 2 ** -7 if bf16 and g.dtype == torch.bfloat16 else 0.0
+        torch.testing.assert_close(
+            g.float(), w.float(), rtol=rtol,
+            atol=5e-4 * float(w.float().abs().max()) + 1e-30)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,nh,hd,ds,chunk,zero_tail", SCAN_SHAPES)
+def test_ssd_scan_bwd_kernel_vs_plain(cuda, dt, B, S, nh, hd, ds, chunk,
+                                      zero_tail):
+    from repro_torch.kernels import ssd_scan as ssd
+    rng = np.random.default_rng(10)
+    args = _scan_inputs(rng, cuda, DTYPES[dt], B, S, nh, hd, ds, zero_tail)
+    dy = _t(rng.standard_normal((B, S, nh, hd), np.float32), cuda)
+    dh = _t(rng.standard_normal((B, nh, hd, ds), np.float32), cuda)
+    ops.reset_counts()
+    got = ops.ssd_scan_bwd(*args, dy, dh, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.counts()["ssd_scan_bwd"] == {"launches": 1, "plain": 0}
+    assert ssd.bwd_launches == 1
+    _close_grads(got, ref.ssd_scan_bwd_ref(*args, dy, dh, chunk),
+                 dt == "bf16")
+    if zero_tail:           # the zero-dt rows get no dx
+        assert not got[0][:, S - zero_tail:].float().any()
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("S,ds", [(1024, 128), (700, 128), (300, 16)])
+def test_ssd_scan_bwd_rows_alone_and_dA_deterministic(cuda, dt, S, ds):
+    """Each row of a 4-row batch alone gives the same dx, ddt, dB, dC and
+    dh0 as in the batch, bit for bit; two runs give the same dA."""
+    rng = np.random.default_rng(11)
+    args = _scan_inputs(rng, cuda, DTYPES[dt], 4, S, 32, 64, ds)
+    dy = _t(rng.standard_normal((4, S, 32, 64), np.float32), cuda)
+    dh = _t(rng.standard_normal((4, 32, 64, ds), np.float32), cuda)
+    got = ops.ssd_scan_bwd(*args, dy, dh, chunk=256)
+    for b in range(4):
+        alone = ops.ssd_scan_bwd(*(a[b:b + 1] if a.dim() > 1 else a
+                                   for a in args), dy[b:b + 1], dh[b:b + 1],
+                                 chunk=256)
+        for i in (0, 1, 3, 4, 5):
+            assert torch.equal(alone[i], got[i][b:b + 1])
+    assert torch.equal(ops.ssd_scan_bwd(*args, dy, dh, chunk=256)[2],
+                       got[2])
+
+
+def test_ssd_scan_function_runs_both_kernels_on_the_card(cuda):
+    """With inputs that require a gradient, ``ops.ssd_scan`` launches the
+    forward kernels once and the backward kernels once, and its
+    gradients are the backward wrapper's, bit for bit."""
+    from repro_torch.kernels import ssd_scan as ssd
+    rng = np.random.default_rng(12)
+    args = _scan_inputs(rng, cuda, torch.float32, 2, 300, 8, 64, 128)
+    leaves = [a.clone().requires_grad_() for a in args]
+    dy = _t(rng.standard_normal((2, 300, 8, 64), np.float32), cuda)
+    ops.reset_counts()
+    y, h = ops.ssd_scan(*leaves, chunk=256)
+    grads = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    c = ops.counts()
+    assert c["ssd_scan"] == {"launches": 1, "plain": 0}
+    assert c["ssd_scan_bwd"] == {"launches": 1, "plain": 0}
+    want = ssd.ssd_scan_bwd_cuda(*args, dy, torch.zeros_like(args[5]), 256)
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])

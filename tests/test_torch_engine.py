@@ -179,7 +179,8 @@ def test_warm_runs_both_attention_paths_without_writing_live_pages():
                                       "plain": tc.num_layers},
         "rmsnorm": {"launches": 0, "plain": 4 * tc.num_layers + 1},
         "rmsnorm_bwd": {"launches": 0, "plain": 0},
-        "ssd_scan": {"launches": 0, "plain": 0}}
+        "ssd_scan": {"launches": 0, "plain": 0},
+        "ssd_scan_bwd": {"launches": 0, "plain": 0}}
     for b, c in zip(before, eng.cache["layers"]):
         assert torch.equal(b, c.k[:-1])
     ops.reset_counts()

@@ -170,7 +170,8 @@ def test_cpu_tensors_take_the_plain_path():
         "chunked_prefill_attention": {"launches": 0, "plain": 2},
         "rmsnorm": {"launches": 0, "plain": 0},
         "rmsnorm_bwd": {"launches": 0, "plain": 0},
-        "ssd_scan": {"launches": 0, "plain": 0}}
+        "ssd_scan": {"launches": 0, "plain": 0},
+        "ssd_scan_bwd": {"launches": 0, "plain": 0}}
     assert pa.launches == 0 and cpa.launches == 0
     with pytest.raises(ValueError, match="CUDA"):
         paged_attention_cuda(q, kp, vp, bt, ln)

@@ -29,8 +29,9 @@ on a quadratic (twins of ``tests/test_engine_optim.py``), the training
 MoE with drops and with two dispatch groups, ``cross_entropy`` over a
 padded vocab, ``rmsnorm_bwd_ref`` against ``jax.vjp`` of JAX's
 ``layers.rmsnorm`` and against autograd of ``rmsnorm_ref``, the
-``rmsnorm`` Function's wiring, the kernels without a backward refusing
-grad on the kernel route (forced with stub wrappers), ``synthetic_batch``
+``rmsnorm`` Function's wiring, the attention kernels, which have no
+backward, refusing grad on the kernel route (forced with stub wrappers;
+the scan's gradient is ``tests/test_torch_ssd_bwd.py``'s), ``synthetic_batch``
 equal to JAX's, checkpoints crossing both ways, the bridge's round
 trips and the training script with ``--checkpoint`` / ``--resume``.
 """
@@ -518,10 +519,9 @@ def test_rmsnorm_bwd_grid_and_refusals():
 
 @pytest.fixture
 def kernel_route(monkeypatch):
-    """Route every ``ops`` call to its kernel wrapper, each replaced by a
-    stub that runs the plain version and records its call: the kernel
-    route's wiring, without a card."""
-    from repro_torch.kernels import ssd_scan as ssd
+    """Route ``ops`` to the kernel wrappers, the attention and norm
+    wrappers each replaced by a stub that runs the plain version and
+    records its call: the kernel route's wiring, without a card."""
     calls = []
 
     def stub(name, fn):
@@ -541,8 +541,6 @@ def kernel_route(monkeypatch):
         "chunked_prefill_attention",
         lambda q, k, v, qo, kl, window=None:
         ref.chunked_prefill_attention_ref(q, k, v, qo, kl, window=window)))
-    monkeypatch.setattr(ssd, "ssd_scan_cuda", stub("ssd_scan",
-                                                  ref.ssd_scan_ref))
     monkeypatch.setattr(ops._rms, "rmsnorm_cuda", stub(
         "rmsnorm", ref.rmsnorm_ref))
     monkeypatch.setattr(ops._rms, "rmsnorm_bwd_cuda", stub(
@@ -566,18 +564,13 @@ def _kernel_calls(name, rng):
         sc = t(3, 16, 2).abs().to(torch.bfloat16)
         return (lambda: ops.paged_attention(q, k8, k8, bt, lens,
                                             k_scales=sc, v_scales=sc)), q
-    if name == "chunked_prefill_attention":
-        q = t(1, 8, 4, 16)
-        return (lambda: ops.chunked_prefill_attention(
-            q, t(1, 8, 2, 16), t(1, 8, 2, 16))), q
-    x = t(1, 64, 2, 8)
-    return (lambda: ops.ssd_scan(
-        x, t(1, 64, 2).abs(), -t(2).abs(), t(1, 64, 4), t(1, 64, 4),
-        torch.zeros(1, 2, 8, 4), chunk=64)), x
+    q = t(1, 8, 4, 16)
+    return (lambda: ops.chunked_prefill_attention(
+        q, t(1, 8, 2, 16), t(1, 8, 2, 16))), q
 
 
 @pytest.mark.parametrize("name", ["paged_attention", "paged_attention_int8",
-                                  "chunked_prefill_attention", "ssd_scan"])
+                                  "chunked_prefill_attention"])
 def test_kernel_without_backward_refuses_grad(kernel_route, name):
     """On the kernel route, an input requiring a gradient raises, naming
     the kernel, before the wrapper runs; under ``no_grad`` the wrapper
