@@ -155,7 +155,31 @@ Phases, each of which fails the run if it fails:
    checkpoint restored equal to the state in memory, and one step from
    each equal bit for bit. The runs of (b), (e2) and (c) launch the
    norm's two kernels, and for the Mamba families the scan's two, and
-   nothing else, and no plain version.
+   nothing else, and no plain version;
+14. tp: tensor-parallel serve at TP = 2, both ranks (two processes, each
+   holding its shard) on the one card, joined over gloo (NCCL refuses
+   two ranks on one device; the phase asserts gloo): (a) full-width,
+   full-depth qwen-7b (the paper's TP2 model, bf16): a tp = 1 wall run of
+   6 requests of the serve mix under ``--max-len 512`` records its plans
+   (``_Recorder(wall=True)``), and they replay into ``TorchEngine(tp=2)``
+   in bf16 (streams equal, or parted at a logged near-tie), in f32 at 4
+   of 32 layers with TF32 off (equal, no near-tie; sampled hidden states
+   within ``TP_F32_HIDDEN_REL``; bit-equality printed) and with int8
+   pages (against a tp = 1 int8 replay); each replay's counts zeroed on
+   every rank just before it: every rank launched the decode and prefill
+   kernels at its local head counts (H16 KV16) only, ran no plain
+   version, and its gathers received, summed over the ranks, exactly
+   ``TPServePlan.collective_bytes`` of the rows they moved; then
+   ``make_torch_replica(tp=2)`` on the wall clock, its tok/s and TTFT /
+   TBT p50 / p99 beside the tp = 1 run's; (b) ``python -m
+   repro_torch.launch.serve --tp 2`` on full-width llama3.2-3b (H12 KV4 a
+   rank), which must print ``tp=2``; (c) jamba-v0.1-52b at full widths,
+   its first 8 of 32 layers: a tp = 1 run recorded, freed, replayed into
+   TP = 2 (H16 KV4 and 8 of 16 experts a rank, the scan on both) in
+   bf16, where a stream may also part after the first live token routed
+   to other experts if that routing was a near-tie, and at 5 layers in
+   f32 with no near-tie and no routing difference. Each engine and its
+   ranks are stopped and freed before the next.
 
 Prints each phase's seconds and peak device memory
 (``torch.cuda.max_memory_allocated``), the card's name and power limit,
@@ -1355,15 +1379,20 @@ def _model_config(arch: str):
     from repro_torch.configs import get_config, paper_models
     if arch == "llama3-8b":
         return paper_models.LLAMA3_8B
+    if arch == "qwen-7b":
+        return paper_models.QWEN_7B
     return get_config(arch)
 
 
-def _replica(arch: str, scheme: str, kv_quant: bool, kv_cfg=None):
+def _replica(arch: str, scheme: str, kv_quant: bool, kv_cfg=None,
+             tp: int = 1, max_len: int = 2048, backend_wrap=None):
     """A full-width replica on the card (bf16 weights, 8 slots,
-    ``--max-len 2048``, 64-token blocks, seed 0, priced on the H100 spec)
-    as ``make_torch_replica`` builds it, or, for int8 KV pages, from the
-    factory's own pieces with ``TorchEngine(kv_quant=True)``: the
-    factory, like the JAX one, has no int8 switch."""
+    ``--max-len 2048`` unless ``max_len`` says otherwise, 64-token blocks,
+    seed 0, priced on the H100 spec) as ``make_torch_replica`` builds it
+    (over ``tp`` ranks, the engine wrapped in ``backend_wrap``), or, for
+    int8 KV pages, from the factory's own pieces with
+    ``TorchEngine(kv_quant=True)``: the factory, like the JAX one, has no
+    int8 switch."""
     from repro_torch.core.kvpool import KVPool, kv_bytes_per_block
     from repro_torch.core.predictor import H100, ModelCostModel
     from repro_torch.core.scheduler import (NiyamaConfig, NiyamaScheduler,
@@ -1374,10 +1403,11 @@ def _replica(arch: str, scheme: str, kv_quant: bool, kv_cfg=None):
     from repro_torch.serving.schemes import make_torch_replica
 
     cfg = _model_config(arch)
-    kw = dict(n_slots=8, max_len=2048, block_size=64, quantum=32, seed=0)
+    kw = dict(n_slots=8, max_len=max_len, block_size=64, quantum=32, seed=0)
     if not kv_quant:
         return make_torch_replica(scheme, cfg, hw=H100, device="cuda",
-                                  dtype=torch.bfloat16, kv_cfg=kv_cfg, **kw)
+                                  dtype=torch.bfloat16, kv_cfg=kv_cfg,
+                                  tp=tp, backend_wrap=backend_wrap, **kw)
     n, L, bs = kw["n_slots"], kw["max_len"], kw["block_size"]
     nb = n * L // bs
     kv = KVHierarchy(nb, bs, cfg=kv_cfg, bytes_per_block=kv_bytes_per_block(
@@ -2714,10 +2744,13 @@ class _Recorder(_FixedClock):
     replica makes to the engine, in order: ``("admit", rid)``,
     ``("release", rid)`` and ``("exec", ((rid, chunk, prefilled), ...),
     (decode rids))``, and each request once, so that ``_replay`` can
-    drive another engine through the same plans."""
+    drive another engine through the same plans. With ``wall`` it
+    reports the engine's measured seconds instead: the replica then runs
+    on the wall clock, and its plans are recorded all the same."""
 
-    def __init__(self, inner):
+    def __init__(self, inner, wall: bool = False):
         super().__init__(inner)
+        self.wall = wall
         self.events = []
         self.reqs = {}
 
@@ -2737,7 +2770,7 @@ class _Recorder(_FixedClock):
         out = super().execute(plan, now)
         self.events.append(("exec", rows,
                             tuple(r.rid for r in plan.decode)))
-        return out
+        return self.inner.iteration_log[-1][1] if self.wall else out
 
 
 def _replay(eng, rec: _Recorder) -> float:
@@ -3651,6 +3684,572 @@ def phase_train() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 14
+
+TP = 2
+# the tp phase's request mix: the serve script's, 6 requests under
+# --max-len 512 (prompts of 32-255 tokens, 4-23 output tokens)
+TP_REQUESTS, TP_MAX_LEN = 6, 512
+TP_KW = dict(n_slots=8, max_len=TP_MAX_LEN, block_size=64, quantum=32,
+             seed=0, device="cuda")
+# the f32 replay's depth: qwen-7b at full width, 4 of its 32 layers
+TP_F32_LAYERS = 4
+# the f32 replay's sampled hidden states, TP = 2 against tp = 1 (TF32
+# off), each iteration's within this share of its largest magnitude: a
+# rank's GEMMs are narrower, so cuBLAS may pick another kernel, with
+# another summation order, for them (predicted: at most 1e-5)
+TP_F32_HIDDEN_REL = 1e-5
+# jamba-v0.1-52b's depth in the tp phase: one period of its 32 layers;
+# its f32 replay: the first 5 (Mamba2 with a dense FFN and with the MoE,
+# twice, then the attention layer)
+JAMBA_TP_LAYERS = 8
+JAMBA_F32_LAYERS = 5
+INT8_PATH = ("paged_attention_int8", "chunked_prefill_attention", "rmsnorm")
+
+
+class _Rebuilt:
+    """A freed engine as ``_streams_agree`` reads it: its prompts, kept,
+    and the engine itself, rebuilt from its seed by ``build`` only when a
+    divergence needs its forward (``_top2``)."""
+
+    def __init__(self, build, tokens: dict):
+        self._build, self._eng, self.tokens = build, None, tokens
+
+    def __getattr__(self, name):
+        if self._eng is None:
+            self._eng = self._build()
+        return getattr(self._eng, name)
+
+
+def _tp_requests():
+    from repro_torch.launch import serve
+    return serve.make_requests(np.random.default_rng(0), TP_REQUESTS,
+                               TP_MAX_LEN)
+
+
+@contextlib.contextmanager
+def _hidden_states(out: list):
+    """While open, every fused forward of this process (rank 0 of a TP
+    engine, or a tp = 1 engine) appends its sampled rows' final hidden
+    states (``_sampled_hidden``, replicated on every rank) to ``out``."""
+    from repro_torch.models import transformer as T
+
+    orig = T._sampled_hidden
+
+    def kept(*a, **kw):
+        xs = orig(*a, **kw)
+        out.append(xs.float().cpu())
+        return xs
+    T._sampled_hidden = kept
+    try:
+        yield out
+    finally:
+        T._sampled_hidden = orig
+
+
+@contextlib.contextmanager
+def _routes(out: list):
+    """While open, every MoE router call of this process (rank 0's, the
+    router being replicated) appends ``(step, rids, expert ids [n, K],
+    the top K + 1 router logits [n, K + 1])`` over its live tokens only
+    (real prefill positions, active decode slots; a call with none is
+    skipped), ``step`` the calling engine's executed plans so far and
+    ``rids`` the request of each live token."""
+    from repro_torch.engine.torch_backend import TorchEngine
+    from repro_torch.models import moe
+
+    route, step = moe._route, TorchEngine._step
+    cur = {}
+
+    def stepped(self, rows, bts_host, bts=None):
+        cur.update(eng=self, rows=rows)
+        return step(self, rows, bts_host, bts)
+
+    def routed(p, x, cfg):
+        gates, idx = route(p, x, cfg)
+        B, S = x.shape[:2]
+        rows, eng = cur["rows"], cur["eng"]
+        if S == 1:                  # the decode sub-batch: row j is slot j
+            live = torch.as_tensor(rows[8])[:, None]
+            slots = torch.arange(B)[:, None]
+        else:                       # prefill rows [P, L] of slots rows[1]
+            live = (torch.arange(S)[None] < torch.as_tensor(rows[3])[:, None])
+            slots = torch.as_tensor(rows[1])[:, None].expand(B, S)
+        live = live.reshape(-1)
+        if live.any():
+            owner = {s: r for r, s in eng.slot_of.items()}
+            rids = [owner[int(s)] for s in slots.reshape(-1)[live]]
+            lg = torch.einsum("bsd,de->bse", x, p.router).float()
+            top = torch.sort(lg.reshape(B * S, -1), dim=-1,
+                             descending=True).values[:, :cfg.moe.top_k + 1]
+            on = live.to(x.device)
+            out.append((len(eng.iteration_log), rids,
+                        idx.reshape(B * S, -1)[on].cpu(), top[on].cpu()))
+        return gates, idx
+    moe._route, TorchEngine._step = routed, stepped
+    try:
+        yield out
+    finally:
+        moe._route, TorchEngine._step = route, step
+
+
+def _token_steps(rec) -> dict:
+    """rid -> the index of the recorded plan that emitted each of its
+    tokens (the prompt's last chunk, then each decode)."""
+    steps, i = {}, 0
+    for kind, *args in rec.events:
+        if kind != "exec":
+            continue
+        pre, dec = args
+        for rid, c, start in pre:
+            if start + c >= rec.reqs[rid].prompt_len:
+                steps.setdefault(rid, []).append(i)
+        for rid in dec:
+            steps.setdefault(rid, []).append(i)
+        i += 1
+    return steps
+
+
+def _parting_steps(rec, got: dict, want: dict) -> dict:
+    """rid -> the recorded plan that emitted the first token at which the
+    two streams of the request differ, for each request whose streams
+    differ."""
+    steps = _token_steps(rec)
+    out = {}
+    for rid in sorted(want):
+        a, b = got[rid], want[rid]
+        if a != b:
+            i = next((j for j in range(min(len(a), len(b)))
+                      if a[j] != b[j]), min(len(a), len(b)))
+            out[rid] = steps[rid][i]
+    return out
+
+
+def _routing_flips(what: str, ref: list, got: list,
+                   parted: dict) -> dict:
+    """rid -> the step at which two runs over the same plans first routed
+    a live token of that request to other experts. Every routing
+    difference is looked at: each must sit at a router near-tie in both
+    runs (the token's K-th and (K+1)-th logits within ``NEAR_TIE_ULPS``
+    bf16 ulps of each other in each), unless the request had already
+    routed apart in an earlier router call, or its stream had parted at
+    a token emitted before this step (``parted``, ``_parting_steps``):
+    from there on the two runs feed that request other inputs. A flip
+    moves only its own request's later layers and tokens."""
+    check(len(ref) == len(got), f"{what}: {len(ref)} against {len(got)} "
+          f"router calls")
+    first = {}                      # rid -> (router call, step)
+    seen = ties = after = 0
+    for i, ((step, ra, a, ta), (_, rb, b, tb)) in enumerate(zip(ref, got)):
+        check(ra == rb and a.shape == b.shape, f"{what}: router call {i} "
+              f"routed other tokens ({len(ra)} against {len(rb)})")
+        diff = (a.sort(-1).values != b.sort(-1).values).any(-1)
+        k = a.shape[-1]
+        for r in diff.nonzero()[:, 0].tolist():
+            seen += 1
+            rid = ra[r]
+            if first.get(rid, (i, step))[0] < i \
+                    or parted.get(rid, step) < step:
+                after += 1
+                continue
+            gaps = []
+            for t in (ta, tb):
+                mag = float(t[r, k - 1].abs())
+                ulp = 2.0 ** (np.floor(np.log2(max(mag, 1e-30))) - 7)
+                gaps.append(float(t[r, k - 1] - t[r, k]) / ulp)
+            print(f"[streams] {what}: router call {i} (step {step}) routes "
+                  f"a live token of rid {rid} apart: experts "
+                  f"{a[r].tolist()} against {b[r].tolist()}, the K-th and "
+                  f"(K+1)-th logits {gaps[0]:.2f} / {gaps[1]:.2f} bf16 "
+                  f"ulps apart")
+            check(max(gaps) <= NEAR_TIE_ULPS, f"{what}: router call {i} "
+                  f"routed a live token of rid {rid} apart and it is not a "
+                  f"near-tie in both runs ({gaps[0]:.2f} / {gaps[1]:.2f} "
+                  f"ulps)")
+            ties += 1
+            first.setdefault(rid, (i, step))
+    print(f"[streams] {what}: {seen} live tokens routed apart in "
+          f"{len(ref)} router calls: {ties} at near-ties in both runs, "
+          f"{after} of requests that had routed or streamed apart before")
+    return {rid: step for rid, (_, step) in first.items()}
+
+
+def _moe_streams_agree(what: str, eng, rec, got: dict, want: dict,
+                       flips: dict) -> int:
+    """``_streams_agree`` for a MoE model in bf16: a request's stream may
+    also part at a token emitted at or after the step at which one of
+    its own tokens was routed apart at a near-tie (``flips``,
+    ``_routing_flips``), after which the two runs mix other experts for
+    it; every other divergence must be a logit near-tie. Returns the
+    streams that parted."""
+    late = []
+    for rid, step in _parting_steps(rec, got, want).items():
+        if rid in flips and step >= flips[rid]:
+            print(f"[streams] {what}: rid {rid} parts at step {step}, "
+                  f"after its own routing near-tie at step {flips[rid]}")
+            late.append(rid)
+    early = [rid for rid in want if rid not in late]
+    return len(late) + _streams_agree(
+        what, eng, {r: got[r] for r in early}, {r: want[r] for r in early})
+
+
+def _tp_checks(what: str, cfg, stats: list, kernels: tuple) -> dict:
+    """Every rank launched each kernel of ``kernels`` and no other, ran
+    no plain version, and launched the attention kernels at its local
+    head counts only; the MoE families took a capacity rung on every
+    rank. Returns the launches summed over the ranks."""
+    h, kv = cfg.num_heads // TP, cfg.num_kv_heads // TP
+    total = {name: 0 for name in SOURCES}
+    for rank, st in enumerate(stats):
+        for name, c in st["counts"].items():
+            check(c["plain"] == 0, f"{what} rank {rank}: the plain {name} "
+                  f"ran {c['plain']} times")
+            check((c["launches"] > 0) == (name in kernels),
+                  f"{what} rank {rank}: {name} launched {c['launches']} "
+                  f"times; this path's kernels are {kernels}")
+            total[name] += c["launches"]
+        for name, layouts in st["heads"].items():
+            check(set(layouts) <= {(h, kv)}, f"{what} rank {rank}: {name} "
+                  f"launched at head layouts {layouts}, not H{h} KV{kv}")
+        if any(l.ffn == "moe" for l in cfg.layers):
+            check(sum(st["rungs"].values()) > 0,
+                  f"{what} rank {rank}: the grouped MoE took no rung")
+    return total
+
+
+def _tp_replay(what: str, cfg, rec, dtype, kernels: tuple,
+               kv_quant: bool = False, hidden=None, routes=None) -> tuple:
+    """``rec``'s plans replayed into ``TorchEngine(tp=TP)`` (standalone,
+    its own pool) after its warm-up, the counters of every rank zeroed
+    just before: each rank's kernels at its local head counts
+    (``_tp_checks``), and the bytes the ranks' gathers received, summed,
+    equal to ``TPServePlan.collective_bytes`` over the rows the gathers
+    moved (prefill P x L tokens and every decode slot; the element size
+    of ``dtype``). ``hidden`` and ``routes`` collect the sampled hidden
+    states and the routing (``_hidden_states``, ``_routes``). Returns
+    the streams, the launches, the seconds."""
+    from repro_torch.distributed import TPServePlan
+    from repro_torch.engine.torch_backend import TorchEngine
+
+    t0 = time.perf_counter()
+    eng = TorchEngine(cfg, dtype=dtype, kv_quant=kv_quant, tp=TP, **TP_KW)
+    try:
+        check(eng._tp_group.backend == "gloo", f"{what}: backend "
+              f"{eng._tp_group.backend}, not gloo")
+        built = time.perf_counter() - t0
+        if any(l.ffn == "moe" for l in cfg.layers):
+            e_loc = {l.moe.w_gate.shape[0] for l in eng.params.layers
+                     if hasattr(l, "moe")}
+            check(e_loc == {cfg.moe.num_experts // TP}, f"{what}: rank 0 "
+                  f"holds {e_loc} experts a layer")
+        eng.warm()
+        eng.reset_rank_stats()
+        moved = []
+        with contextlib.ExitStack() as stack:
+            if hidden is not None:
+                stack.enter_context(_hidden_states(hidden))
+            if routes is not None:
+                stack.enter_context(_routes(routes))
+            step = eng._step
+
+            def counted(rows, bts_host, bts=None):
+                (P, L), nd = rows[0].shape, rows[6].shape[0]
+                moved.append((P * L + nd, P + nd))
+                return step(rows, bts_host, bts)
+            eng._step = counted
+            secs = _replay(eng, rec)
+        stats = eng.rank_stats()
+        got = {rid: list(t) for rid, t in eng.generated.items()}
+    finally:
+        eng.close()
+    launches = _tp_checks(what, cfg, stats, kernels)
+    plan = TPServePlan(cfg, TP)
+    el = torch.tensor([], dtype=dtype).element_size()
+    want = {}
+    for n, rows in moved:
+        for op, b in plan.collective_bytes(n, rows, el).items():
+            want[op] = want.get(op, 0.0) + b
+    recv = {}
+    for st in stats:
+        for op, b in st["recv_bytes"].items():
+            recv[op] = recv.get(op, 0) + b
+    check(recv == want, f"{what}: the gathers received {recv} bytes, the "
+          f"plan accounts {want}")
+    mem = [round(st["peak_device_bytes"] / 1e9, 2) for st in stats]
+    print(f"[tp] {what}: TP={TP} over {eng._tp_group.backend}, built in "
+          f"{built:.1f} s, {len(moved)} steps replayed in {secs:.2f} s; "
+          f"bytes received by the gathers {recv} = the plan's account; "
+          f"launches by rank "
+          f"{[{k: c['launches'] for k, c in st['counts'].items() if c['launches']} for st in stats]}"
+          f" at heads {[st['heads'] for st in stats]}; peak device GB by "
+          f"rank {mem}")
+    del eng
+    _free_device_memory()
+    return got, launches, secs
+
+
+def _tp_wall_numbers(rep) -> dict:
+    """Served output tok/s over the replica's busy seconds, TTFT and TBT
+    p50 / p99 from the requests' own timestamps (wall clock)."""
+    from repro_torch.serving.metrics import compute_metrics
+
+    reqs = rep.all_requests()
+    m = compute_metrics(reqs, rep.now)
+    tbts = [d for q in reqs for d in q.tbts()]
+    n_tok = sum(len(rep.backend.generated[q.rid]) for q in reqs)
+    return dict(tok_s=n_tok / rep.busy_time, ttft_p50=m.ttft_p50,
+                ttft_p99=m.ttft_p99, tbt_p50=float(np.percentile(tbts, 50)),
+                tbt_p99=m.tbt_p99, iterations=rep.iterations,
+                busy_s=rep.busy_time, tokens=n_tok)
+
+
+def _tp_qwen(launches: dict) -> None:
+    """qwen-7b at full width and depth: the tp = 1 wall run records its
+    plans; the bf16 replay into TP = 2 (near-ties logged), the f32
+    replay at 4 layers (no near-tie; hidden states within
+    ``TP_F32_HIDDEN_REL``), the int8 replay against a tp = 1 int8 replay
+    of the same plans, then ``make_torch_replica(tp=2)`` on the wall
+    clock beside the tp = 1 run."""
+    import functools
+
+    from repro_torch.engine.torch_backend import TorchEngine
+
+    cfg = _model_config("qwen-7b")
+    bf16, f32 = torch.bfloat16, torch.float32
+    reqs = _tp_requests()
+    rep1 = _replica("qwen-7b", "niyama", False, max_len=TP_MAX_LEN,
+                    backend_wrap=functools.partial(_Recorder, wall=True))
+    rec = rep1.backend
+    rec.inner.warm()
+    rep1.submit_all(reqs)
+    rep1.run()
+    torch.cuda.synchronize()
+    check(len(rep1.finished) == len(reqs), f"tp qwen-7b tp=1: "
+          f"{len(rep1.finished)}/{len(reqs)} requests finished")
+    want = {rid: list(t) for rid, t in rec.inner.generated.items()}
+    for r in reqs:
+        check(len(want[r.rid]) == r.decode_len, f"tp qwen-7b tp=1: rid "
+              f"{r.rid} streamed {len(want[r.rid])} of {r.decode_len}")
+    wall1 = _tp_wall_numbers(rep1)
+    tokens = dict(rec.inner.tokens)
+    rec.inner = None
+    del rep1
+    _free_device_memory()
+
+    def ref(dtype, kv_quant=False):
+        return _Rebuilt(lambda: TorchEngine(cfg, dtype=dtype,
+                                            kv_quant=kv_quant, **TP_KW),
+                        tokens)
+
+    got, n, _ = _tp_replay("qwen-7b bf16", cfg, rec, bf16, ATTENTION_PATH)
+    _add(launches, n)
+    ties = _streams_agree("qwen-7b TP=2 bf16 against tp=1", ref(bf16), got,
+                          want)
+    _free_device_memory()
+    print(f"[tp] qwen-7b bf16: TP=2 streams agree with tp=1's, {ties} of "
+          f"{len(want)} requests at a logged near-tie")
+
+    cut = dataclasses.replace(cfg, num_layers=TP_F32_LAYERS,
+                              layers=cfg.layers[:TP_F32_LAYERS])
+    h1, h2 = [], []
+    one = TorchEngine(cut, dtype=f32, **TP_KW)
+    one.warm()
+    with _hidden_states(h1):
+        _replay(one, rec)
+    want32 = {rid: list(t) for rid, t in one.generated.items()}
+    del one
+    _free_device_memory()
+    got32, n, _ = _tp_replay(f"qwen-7b f32 ({TP_F32_LAYERS} layers)", cut,
+                             rec, f32, ATTENTION_PATH, hidden=h2)
+    _add(launches, n)
+    _streams_agree("qwen-7b TP=2 f32 against tp=1", None, got32, want32,
+                   near_tie=False)
+    rel = _hidden_rel("qwen-7b f32", h1, h2)
+    bits = all(torch.equal(a, b) for a, b in zip(h2, h1))
+    print(f"[tp] qwen-7b f32 at {TP_F32_LAYERS} of 32 layers, TF32 off: "
+          f"TP=2 streams equal tp=1's (no near-tie allowed); sampled "
+          f"hidden states of {len(h1)} steps within {rel:.3g} of their "
+          f"largest magnitude (limit {TP_F32_HIDDEN_REL:g}); bit-equal: "
+          f"{bits}")
+    del h1, h2
+
+    one = TorchEngine(cfg, dtype=bf16, kv_quant=True, **TP_KW)
+    one.warm()
+    _replay(one, rec)
+    want8 = {rid: list(t) for rid, t in one.generated.items()}
+    del one
+    _free_device_memory()
+    got8, n, _ = _tp_replay("qwen-7b int8 pages", cfg, rec, bf16, INT8_PATH,
+                            kv_quant=True)
+    _add(launches, n)
+    ties8 = _streams_agree("qwen-7b TP=2 int8 against tp=1 int8",
+                           ref(bf16, kv_quant=True), got8, want8)
+    _free_device_memory()
+    print(f"[tp] qwen-7b int8 pages: TP=2 streams agree with a tp=1 int8 "
+          f"replay of the same plans, {ties8} at a logged near-tie")
+
+    rep2 = _replica("qwen-7b", "niyama", False, tp=TP, max_len=TP_MAX_LEN)
+    try:
+        rep2.backend.warm()
+        rep2.backend.reset_rank_stats()
+        rep2.submit_all(_tp_requests())
+        rep2.run()
+        stats = rep2.backend.rank_stats()
+    finally:
+        rep2.backend.close()
+    check(len(rep2.finished) == TP_REQUESTS, f"tp qwen-7b wall: "
+          f"{len(rep2.finished)}/{TP_REQUESTS} requests finished")
+    _add(launches, _tp_checks("qwen-7b wall", cfg, stats, ATTENTION_PATH))
+    wall2 = _tp_wall_numbers(rep2)
+    del rep2
+    _free_device_memory()
+    for tag, w in (("tp=1", wall1), (f"tp={TP}", wall2)):
+        print(f"[tp] qwen-7b wall run {tag}: {w['tokens']} output tokens in "
+              f"{w['iterations']} iterations, {w['busy_s']:.2f} s busy, "
+              f"{w['tok_s']:.1f} output tok/s; TTFT p50/p99 "
+              f"{w['ttft_p50']:.3f}/{w['ttft_p99']:.3f} s; TBT p50/p99 "
+              f"{w['tbt_p50'] * 1e3:.1f}/{w['tbt_p99'] * 1e3:.1f} ms")
+    print(f"[tp] summary {json.dumps(dict(wall_tp1=wall1, wall_tp2=wall2))}")
+
+
+def _add(total: dict, counts: dict) -> None:
+    for name in total:
+        total[name] += counts[name]
+
+
+def _tp_cli(launches: dict) -> None:
+    """``python -m repro_torch.launch.serve --tp 2`` as a user runs it,
+    in this process (rank 0; the command spawns rank 1): full-width
+    llama3.2-3b, 8 requests. It must print ``tp=2``, finish every
+    request, and rank 0 must launch the attention kernels at H12 KV4
+    only, and no plain version."""
+    import io
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    buf = io.StringIO()
+    with _counts_after_warm(), contextlib.redirect_stdout(buf):
+        rep = serve.main(["--tp", str(TP), "--dtype", "bf16",
+                          "--n-requests", str(TP_REQUESTS), "--max-len",
+                          str(TP_MAX_LEN), "--slots", "8", "--seed", "0"])
+    text = buf.getvalue()
+    print(text.rstrip())
+    check(f"tp={TP}" in text, "serve --tp: the summary does not say tp=2")
+    check(len(rep.finished) == TP_REQUESTS, f"serve --tp: "
+          f"{len(rep.finished)}/{TP_REQUESTS} requests finished")
+    counts = ops.counts()
+    _add(launches, {k: c["launches"] for k, c in counts.items()})
+    _tp_checks("serve --tp 2 (rank 0)", rep.backend.cfg,
+               [{"counts": counts, "heads": ops.heads(), "rungs": {}}],
+               ATTENTION_PATH)
+    del rep
+    _free_device_memory()
+
+
+def _tp_jamba(launches: dict) -> None:
+    """jamba-v0.1-52b at full widths, cut to its first period of 8
+    layers (an attention layer, seven Mamba2 layers, the 16-expert MoE
+    on every other one): a tp = 1 fixed-clock run records its plans and
+    routing, that engine is freed, and the plans replay into TP = 2
+    (attention at H16 KV4, 8 local experts a rank, the scan on both
+    ranks). In bf16 a rounding difference can flip a router near-tie
+    (top-2 of 16 over bf16 logits), after which the two runs mix other
+    experts for that request: ``_routing_flips`` holds every routing
+    difference to a near-tie in both runs, unless its request had
+    already routed or streamed apart, and ``_moe_streams_agree`` lets a
+    request's stream part only after its own flip. Then the same
+    plans at 5 of its layers in f32, TF32 off: equal streams (no near-tie
+    allowed), no token routed apart, and sampled hidden states within
+    ``TP_F32_HIDDEN_REL``."""
+    from repro_torch.engine.torch_backend import TorchEngine
+
+    full = _model_config("jamba-v0.1-52b")
+    cut = dataclasses.replace(full, num_layers=JAMBA_TP_LAYERS,
+                              layers=full.layers[:JAMBA_TP_LAYERS])
+    kw = dict(n_slots=8, max_len=TP_MAX_LEN, seed=0, dtype=torch.bfloat16,
+              device=TP_KW["device"])
+    r1, r2 = [], []
+    with _routes(r1):
+        rec, want, secs, _ = _recorded_fused_run(cut, _tp_requests(), kw)
+    tokens = dict(rec.inner.tokens)
+    rec.inner = None
+    _free_device_memory()
+    print(f"[tp] jamba-v0.1-52b ({JAMBA_TP_LAYERS} of 32 layers): tp=1 "
+          f"served {len(want)} requests in {secs:.2f} s")
+    got, n, _ = _tp_replay(f"jamba-v0.1-52b ({JAMBA_TP_LAYERS} layers) "
+                           f"bf16", cut, rec, torch.bfloat16,
+                           ATTENTION_PATH + ("ssd_scan",), routes=r2)
+    _add(launches, n)
+    what = "jamba TP=2 bf16 against tp=1"
+    flips = _routing_flips(what, r1, r2, _parting_steps(rec, got, want))
+    parted = _moe_streams_agree(
+        what, _Rebuilt(lambda: TorchEngine(cut, quantum=32, block_size=64,
+                                           **kw), tokens),
+        rec, got, want, flips)
+    _free_device_memory()
+    print(f"[tp] jamba-v0.1-52b bf16: TP=2 streams agree with tp=1's; "
+          f"{parted} of {len(want)} parted, each after a logged near-tie "
+          f"(its own routing near-ties at steps {flips})")
+
+    cut5 = dataclasses.replace(full, num_layers=JAMBA_F32_LAYERS,
+                               layers=full.layers[:JAMBA_F32_LAYERS])
+    h1, h2, r1, r2 = [], [], [], []
+    one = TorchEngine(cut5, dtype=torch.float32, **TP_KW)
+    one.warm()
+    with _hidden_states(h1), _routes(r1):
+        _replay(one, rec)
+    want32 = {rid: list(t) for rid, t in one.generated.items()}
+    del one
+    _free_device_memory()
+    got32, n, _ = _tp_replay(f"jamba-v0.1-52b f32 ({JAMBA_F32_LAYERS} "
+                             f"layers)", cut5, rec, torch.float32,
+                             ATTENTION_PATH + ("ssd_scan",), hidden=h2,
+                             routes=r2)
+    _add(launches, n)
+    check(not _routing_flips("jamba TP=2 f32 against tp=1", r1, r2, {}),
+          "jamba f32: a live token was routed apart")
+    _streams_agree("jamba TP=2 f32 against tp=1", None, got32, want32,
+                   near_tie=False)
+    rel = _hidden_rel("jamba f32", h1, h2)
+    print(f"[tp] jamba-v0.1-52b f32 at {JAMBA_F32_LAYERS} of 32 layers, "
+          f"TF32 off: TP=2 streams equal tp=1's (no near-tie allowed), "
+          f"{len(r1)} router calls routed alike, sampled hidden states "
+          f"within {rel:.3g} of their largest magnitude; bit-equal: "
+          f"{all(torch.equal(a, b) for a, b in zip(h1, h2))}")
+
+
+def _hidden_rel(what: str, ref: list, got: list) -> float:
+    """The largest difference of two runs' sampled hidden states, step by
+    step, as a share of the step's largest magnitude; fails above
+    ``TP_F32_HIDDEN_REL``."""
+    check(len(ref) == len(got), f"{what}: {len(ref)} against {len(got)} "
+          f"steps")
+    rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+              for a, b in zip(got, ref))
+    check(rel <= TP_F32_HIDDEN_REL, f"{what}: sampled hidden states differ "
+          f"by {rel:.3g} of their largest magnitude (limit "
+          f"{TP_F32_HIDDEN_REL:g})")
+    return rel
+
+
+def phase_tp() -> dict:
+    """Tensor-parallel serve at TP = 2 on one card: two processes, each
+    rank holding its shard, joined over gloo (NCCL refuses two ranks on
+    one device). qwen-7b (``_tp_qwen``), the serve script with ``--tp 2``
+    (``_tp_cli``) and jamba-v0.1-52b cut to 8 layers (``_tp_jamba``).
+    Each engine and its ranks are stopped and freed before the next.
+    Returns the launches of every rank in the phase's runs."""
+    launches = {name: 0 for name in SOURCES}
+    _tp_qwen(launches)
+    _tp_cli(launches)
+    _tp_jamba(launches)
+    print(f"[tp] launches of the phase's runs, every rank's, each at its "
+          f"rank's local head counts: "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3721,7 +4320,8 @@ def main() -> int:
                             (f"internvl2-76b ({INTERNVL_LAYERS} of 80 "
                              f"layers)", phase_internvl2),
                             ("obs llama3.2-3b", phase_obs),
-                            ("train", phase_train)):
+                            ("train", phase_train),
+                            (f"tp (TP={TP})", phase_tp)):
         for kernel, n in timed(name, fn, *args).items():
             launches[kernel] += n
     kernels = []

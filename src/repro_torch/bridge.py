@@ -64,6 +64,22 @@ def params_from_numpy(tree) -> Dict[str, torch.Tensor]:
     return {k: tensor_from_numpy(v) for k, v in flat.items()}
 
 
+def rank_params_to_numpy(params: Mapping[str, torch.Tensor], plan,
+                         rank: int) -> Dict[str, np.ndarray]:
+    """Rank ``rank``'s slices of the ``state_dict`` ``params`` (for
+    example JAX's weights through ``params_from_numpy``), cut by ``plan``
+    (``distributed.TPServePlan``) weight by weight, as numpy arrays to
+    send to that rank's process; ``tensor_from_numpy`` reads each back
+    with its dtype and bits (bf16 goes as its 2-byte void view). Only
+    the rank's slices are copied: the whole model is not."""
+    out = {}
+    for k, v in params.items():
+        t = plan.shard_param(k, v, rank).detach().cpu()
+        out[k] = t.view(torch.int16).numpy().view("V2") \
+            if t.dtype == torch.bfloat16 else t.numpy()
+    return out
+
+
 def _nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
     """``{"layers.0.attn.wq": a, ...}`` as the JAX tree: nested dicts,
     with a list where every key of a level is an index."""

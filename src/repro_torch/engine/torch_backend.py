@@ -28,6 +28,16 @@ the paged layout returns the leading blocks that slid out of every
 window to the pool as they die (SWA page reclamation, as in
 ``JaxEngine``), counted in ``kv_blocks_reclaimed``.
 
+``TorchEngine(tp=N)`` serves one replica over N ranks, as ``JaxEngine(tp=N)``
+does over a mesh (docs/engine.md §Sharded serve): the engine the caller
+holds is rank 0 and spawns ranks 1..N-1 (``distributed/worker.py``), each
+a process holding its slice of the heads, the dense d_ff, the experts and
+the vocab (``distributed/tp_serve.py::TPServePlan``) and its kv-heads of
+every cache, and running the same kernels on them; the serve forward's
+gathers join the slices before every combine. Rank 0 packs each plan
+from the pool and sends the step's host arrays to the other ranks before
+it runs the step itself.
+
 ``ReferenceTorchEngine`` is ``ReferenceJaxEngine``: one ``prefill`` call
 per prefill chunk against its slot, one batched ``decode_step`` over all
 slots whose inactive slots do not advance, a host argmax per request,
@@ -36,11 +46,12 @@ SSD scan through ``kernels.ops``, as everywhere). It is the port's
 equivalence oracle, and the one engine that serves encoder-decoder
 models.
 
-Not ported yet (ROADMAP.md queue 1): tensor parallelism and CUDA graphs.
+Not ported yet (ROADMAP.md queue 1): CUDA graphs.
 """
 from __future__ import annotations
 
 import time
+import weakref
 from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
@@ -51,14 +62,17 @@ from repro_torch.core.kvpool import KVPool, blocks_for
 from repro_torch.core.request import Request
 from repro_torch.core.scheduler import BatchPlan
 from repro_torch.device import resolve_device
-from repro_torch.kernels import build
+from repro_torch.distributed.tp_serve import TPServePlan, pick_backend
+from repro_torch.distributed.worker import TPWorkers
+from repro_torch.kernels import build, ops
+from repro_torch.models import moe
 from repro_torch.models.config import ATTN, MAMBA, SWA, ModelConfig
 from repro_torch.models.mamba2 import MambaState
-from repro_torch.models.transformer import (MOE_IMPLS, Transformer,
-                                            _check_decoder_only,
-                                            decode_step, fused_serve_forward,
-                                            init_cache, init_paged_cache,
-                                            init_params, prefill)
+from repro_torch.models.transformer import (MOE_IMPLS, _check_decoder_only,
+                                            _identity_shard, decode_step,
+                                            fused_serve_forward, init_cache,
+                                            init_paged_cache, init_params,
+                                            load_params, prefill)
 
 
 def _slot_slice(cache: Dict, slot: int) -> Dict:
@@ -83,13 +97,15 @@ class _SlotEngineBase:
     through ``bridge.params_from_numpy``), loaded onto ``device`` in
     ``dtype``; without it the weights are drawn from a generator seeded
     with ``seed``. ``device`` defaults to the card and raises when there
-    is none."""
+    is none. ``shard`` (a tensor-parallel rank's slicing rule, ``(name,
+    tensor) -> tensor``) keeps the rank's slice of each weight;
+    ``sliced``: ``params`` holds those slices already."""
 
     def __init__(self, cfg: ModelConfig, n_slots: int = 8,
                  max_len: int = 512, quantum: int = 64, seed: int = 0,
                  dtype=torch.float32,
                  params: Optional[Mapping[str, torch.Tensor]] = None,
-                 device="cuda"):
+                 device="cuda", shard=None, sliced: bool = False):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.n_slots = n_slots
@@ -100,10 +116,10 @@ class _SlotEngineBase:
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
-            self.params = init_params(cfg, gen, self.device, dtype)
+            self.params = init_params(cfg, gen, self.device, dtype, shard)
         else:
-            self.params = Transformer(cfg, self.device, dtype)
-            self.params.load_state_dict(params, strict=True)
+            self.params = load_params(cfg, params, self.device, dtype, shard,
+                                      sliced)
         self.slot_of: Dict[int, int] = {}
         self.free_slots = list(range(n_slots))
         self.tokens: Dict[int, np.ndarray] = {}   # rid -> prompt tokens
@@ -213,7 +229,23 @@ class TorchEngine(_SlotEngineBase):
     (``models/moe.py``). ``gather_buckets=False`` pins every block table
     to the full page window (``max_blocks``), as in ``JaxEngine``.
     Refuses encoder-decoder models, as ``JaxEngine`` does. ``params`` and
-    ``device``: see ``_SlotEngineBase``."""
+    ``device``: see ``_SlotEngineBase``.
+
+    ``tp`` > 1 serves the replica over ``tp`` ranks (``TPServePlan``):
+    this engine is rank 0, which spawns ranks 1..tp-1 with the same
+    arguments (``params``, a full ``state_dict``, is cut here and each
+    rank is sent its slices alone; without it every rank draws the
+    seeded weights and keeps its slice), joins them in a group over
+    ``pick_backend``'s backend (gloo on the CPU or on one shared card,
+    NCCL over a card per rank) and sends each step to them. ``tp_group``
+    is given only to ranks 1..tp-1, by ``distributed/worker.py``; there
+    ``params`` holds the rank's slices already. Every rendezvous,
+    collective, reply and join gives up after ``TIMEOUT_S`` seconds, so
+    a dead rank fails the caller. ``close()`` stops the ranks (also when
+    the engine is collected). ``tp_collective_bytes`` accumulates
+    ``TPServePlan.collective_bytes`` per dispatch at JAX's 4 bytes an
+    element, as ``JaxEngine``'s counters do. A dim that does not divide
+    ``tp`` replicates, and the engine still serves."""
 
     def __init__(self, cfg: ModelConfig, n_slots: int = 8,
                  max_len: int = 512, quantum: int = 64, seed: int = 0,
@@ -221,7 +253,8 @@ class TorchEngine(_SlotEngineBase):
                  block_size: int = 64, pool: Optional[KVPool] = None,
                  params: Optional[Mapping[str, torch.Tensor]] = None,
                  device="cuda", kv_quant: bool = False,
-                 moe_impl: str = "grouped", gather_buckets: bool = True):
+                 moe_impl: str = "grouped", gather_buckets: bool = True,
+                 tp: int = 1, tp_group=None):
         _check_decoder_only(cfg)
         if kv_layout not in ("paged", "dense"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
@@ -237,8 +270,40 @@ class TorchEngine(_SlotEngineBase):
                 "kv_quant rides the paged layout (int8 scale pages share "
                 "the block tables); use init_cache(kv_quant=True) for the "
                 "dense offline path")
+        self.tp = tp
+        self.tp_collective_bytes: Dict[str, float] = {}
+        self._tp_plan = TPServePlan(cfg, tp) if tp > 1 else None
+        # tensor parallelism: this rank's group and gather hooks; rank 0
+        # also holds the other ranks (``_tp_workers``), started first so
+        # that they build their shards while this one builds its own
+        self._tp_group = tp_group
+        self._tp_workers = None
+        self._shard = _identity_shard
+        if tp > 1 and tp_group is None:
+            if self.paged and pool is not None:
+                block_size = pool.block_size
+            self._spawn_ranks(params, resolve_device(device), dict(
+                n_slots=n_slots, max_len=max_len, quantum=quantum,
+                seed=seed, dtype=dtype, kv_layout=kv_layout,
+                block_size=block_size, kv_quant=kv_quant, moe_impl=moe_impl,
+                gather_buckets=gather_buckets,
+                pool=KVPool(pool.num_blocks if pool is not None
+                            else n_slots * (max_len // block_size),
+                            block_size, max_seqs=n_slots)
+                if self.paged else None))
+        shard = None
+        if self._tp_plan is not None:
+            rank = tp_group.rank if tp_group is not None else 0
+            plan = self._tp_plan
+
+            def shard(name, t):
+                return plan.shard_param(name, t, rank)
         super().__init__(cfg, n_slots, max_len, quantum, seed, dtype,
-                         params, device)
+                         params, device, shard=shard,
+                         sliced=tp_group is not None)
+        # the rank's kv-heads size its caches
+        cache_cfg = self._tp_plan.local_cfg() if self._tp_plan is not None \
+            else cfg
         self.moe_impl = moe_impl
         self.kv_quant = kv_quant
         self.gather_buckets = gather_buckets
@@ -256,13 +321,13 @@ class TorchEngine(_SlotEngineBase):
                 max_seqs=n_slots)
             self.pool.bind_runtime(self)
             self.cache = init_paged_cache(
-                cfg, n_slots, self.pool.num_blocks, block_size, dtype=dtype,
-                device=self.device, kv_quant=kv_quant)
+                cache_cfg, n_slots, self.pool.num_blocks, block_size,
+                dtype=dtype, device=self.device, kv_quant=kv_quant)
         else:
             self.block_size = max_len
             self.max_blocks = 1
             self.pool = None
-            cache = init_cache(cfg, n_slots, max_len, dtype=dtype,
+            cache = init_cache(cache_cfg, n_slots, max_len, dtype=dtype,
                                chunk=max_len, device=self.device)
             cache.pop("len")        # lengths are host-side bookkeeping
             self.cache = cache
@@ -284,6 +349,7 @@ class TorchEngine(_SlotEngineBase):
         # (the pool's table_version stamp is part of the key)
         self._pre_bt_key = self._dec_bt_key = None
         self._pre_bt_dev = self._dec_bt_dev = None
+        self._pre_bt_host = self._dec_bt_host = None
         self.slot_len = np.zeros((n_slots,), np.int32)
         self.last_token = np.zeros((n_slots,), np.int32)
         # host-parked state of swapped-out requests, CPU tensors:
@@ -295,6 +361,76 @@ class TorchEngine(_SlotEngineBase):
         self.prefill_tokens = 0
         # the (P, L, nd[, maxb]) shape buckets that execute has served
         self._buckets: set = set()
+        if self._tp_workers is not None:
+            try:
+                self._tp_group = self._tp_workers.join_group()
+                self._tp_workers.wait_ready()
+            except BaseException:
+                self.close()
+                raise
+        if self._tp_plan is not None:
+            self._shard = self._tp_plan.shard_fn(self._tp_group)
+
+    # ------------------------------------------------ tensor parallelism
+    def _spawn_ranks(self, params, device: torch.device,
+                     engine_kw: dict) -> None:
+        """Rank 0: start ranks 1..tp-1 with this engine's arguments (each
+        rank's slices of ``params`` only, as numpy arrays) on the backend
+        ``pick_backend`` names; they build their shards while this rank
+        builds its own."""
+        from repro_torch import bridge
+        backend = pick_backend(device, self.tp)
+        plan = self._tp_plan
+
+        def rank_params(rank):
+            return None if params is None else \
+                bridge.rank_params_to_numpy(params, plan, rank)
+        self._tp_workers = TPWorkers(plan.cfg, dict(
+            engine_kw, device=str(device)), rank_params, self.tp, backend)
+        self._finalizer = weakref.finalize(self, self._tp_workers.close)
+
+    def _mirror(self, name: str, *args) -> None:
+        """Rank 0 of a tensor-parallel engine: send the call ``name(*args)``
+        to ranks 1..tp-1 before running it here. Elsewhere a no-op."""
+        if self._tp_workers is not None:
+            self._tp_workers.send(name, args)
+
+    def close(self) -> None:
+        """Stop ranks 1..tp-1 and wait for them (idempotent). A no-op at
+        tp=1 and on the other ranks."""
+        if self._tp_workers is not None:
+            self._tp_workers = None
+            self._finalizer()
+
+    def rank_stats(self) -> list:
+        """Every rank's counters since the last ``reset_rank_stats``, in
+        rank order: its kernels' launch and plain-call counts, the
+        attention launches by head layout and by variant
+        (``kernels.ops``), the MoE capacity rungs it took, the bytes its
+        gathers received, by op (``TPGroup.recv_bytes``), and on the card
+        its peak device memory since the process began."""
+        own = self._rank_stats()
+        if self._tp_workers is None:
+            return [own]
+        return [own] + self._tp_workers.ask("_rank_stats")
+
+    def _rank_stats(self) -> dict:
+        cuda = self.device.type == "cuda"
+        return {"counts": ops.counts(), "heads": ops.heads(),
+                "variants": ops.variants(), "rungs": dict(moe.rungs),
+                "recv_bytes": dict(self._tp_group.recv_bytes)
+                if self._tp_group is not None else {},
+                "peak_device_bytes": torch.cuda.max_memory_allocated(
+                    self.device) if cuda else 0}
+
+    def reset_rank_stats(self) -> None:
+        """Zero every rank's counters of ``rank_stats`` (not the memory
+        readings)."""
+        self._mirror("reset_rank_stats")
+        ops.reset_counts()
+        moe.rungs.clear()
+        if self._tp_group is not None:
+            self._tp_group.recv_bytes.clear()
 
     @property
     def buckets_seen(self) -> tuple:
@@ -317,9 +453,16 @@ class TorchEngine(_SlotEngineBase):
         """Copy ``rid``'s private pages (every field of each attention
         layer's cache tuple, so int8 scale pages travel with their pages),
         its slot's Mamba state and its sampling cursor to host memory.
-        Called while the request still holds its slot."""
+        Called while the request still holds its slot. Every rank parks
+        its own kv-heads of the pages."""
         slot = self.slot_of[rid]
-        ids = torch.as_tensor(list(block_ids), dtype=torch.long,
+        self._park(rid, slot, list(block_ids), int(self.slot_len[slot]),
+                   int(self.last_token[slot]))
+
+    def _park(self, rid: int, slot: int, block_ids: list, tokens: int,
+              last_token: int) -> None:
+        self._mirror("_park", rid, slot, block_ids, tokens, last_token)
+        ids = torch.as_tensor(block_ids, dtype=torch.long,
                               device=self.device)
         pages, mamba = {}, {}
         for li, c in enumerate(self.cache["layers"]):
@@ -328,15 +471,14 @@ class TorchEngine(_SlotEngineBase):
                              c.ssm[slot].to("cpu", copy=True))
             else:
                 pages[li] = tuple(a[ids].to("cpu") for a in c)
-        self._swap_store[rid] = {
-            "tokens": int(self.slot_len[slot]),
-            "last_token": int(self.last_token[slot]),
-            "pages": pages, "mamba": mamba}
+        self._swap_store[rid] = {"tokens": tokens, "last_token": last_token,
+                                 "pages": pages, "mamba": mamba}
 
     def swap_in(self, rid: int, block_ids: Sequence[int]) -> None:
         """Write ``rid``'s saved pages into the freshly granted physical
         blocks ``block_ids``, in place; the slot's state is restored at
         ``on_admit``."""
+        self._mirror("swap_in", rid, list(block_ids))
         st = self._swap_store[rid]
         ids = torch.as_tensor(list(block_ids), dtype=torch.long,
                               device=self.device)
@@ -345,26 +487,55 @@ class TorchEngine(_SlotEngineBase):
                 a.index_copy_(0, ids, s.to(self.device, a.dtype))
 
     def drop(self, rid: int) -> None:
+        self._mirror("drop", rid)
         self._swap_store.pop(rid, None)
+
+    def _unpark(self, rid: int, slot: int) -> dict:
+        """Swap-resume into ``slot``: restore the slot's recurrent state
+        from ``rid``'s parked entry, which is forgotten; returns it."""
+        self._mirror("_unpark", rid, slot)
+        st = self._swap_store.pop(rid)
+        for li, (conv, ssm) in st["mamba"].items():
+            c = self.cache["layers"][li]
+            c.conv[slot].copy_(conv)
+            c.ssm[slot].copy_(ssm)
+        return st
 
     # ------------------------------------------------ cross-engine wire
     def export_swapped(self, rid: int) -> dict:
         """Detach ``rid``'s host-parked state as a self-contained wire
         payload: the swap-store entry (pages, recurrent state, sampling
         cursor), the prompt tokens and the generated stream. ``swap_out``
-        must have run."""
-        return {"swap": self._swap_store.pop(rid),
+        must have run. A tensor-parallel engine gathers every rank's
+        kv-heads of the pages, so the payload is a tp=1 engine's."""
+        swap = self._swap_store.pop(rid)
+        if self._tp_workers is not None:
+            shards = self._tp_workers.ask("_pop_parked_pages", rid)
+            swap = dict(swap, pages=self._tp_plan.join_pages(
+                [swap["pages"], *shards]))
+        return {"swap": swap,
                 "prompt": self.tokens.pop(rid),
                 "generated": self.generated.pop(rid)}
+
+    def _pop_parked_pages(self, rid: int) -> dict:
+        return self._swap_store.pop(rid)["pages"]
 
     def import_swapped(self, rid: int, payload: dict) -> None:
         """Land a wire payload from a peer engine (a JAX engine's through
         ``bridge.swap_payload_from_numpy``): ``rid`` becomes a locally
         swap-parked request, which the swap-resume path (``swap_in`` and
-        ``on_admit``) restores into fresh blocks and a slot."""
-        self._swap_store[rid] = payload["swap"]
+        ``on_admit``) restores into fresh blocks and a slot. Each rank of
+        a tensor-parallel engine keeps its kv-heads of the pages."""
+        self._land(rid, payload["swap"])
         self.tokens[rid] = payload["prompt"]
         self.generated[rid] = payload["generated"]
+
+    def _land(self, rid: int, swap: dict) -> None:
+        self._mirror("_land", rid, swap)
+        if self._tp_plan is not None:
+            swap = dict(swap, pages=self._tp_plan.shard_pages(
+                swap["pages"], self._tp_group.rank))
+        self._swap_store[rid] = swap
 
     # ------------------------------------------------ admission
     def on_admit(self, req: Request) -> None:
@@ -373,14 +544,10 @@ class TorchEngine(_SlotEngineBase):
         if not (fresh and self.paged):
             return
         slot = self.slot_of[req.rid]
-        st = self._swap_store.pop(req.rid, None)
-        if st is not None:
+        if req.rid in self._swap_store:
             # swap-resume: the pages are back (swap_in); restore the slot's
             # recurrent state and sampling cursor
-            for li, (conv, ssm) in st["mamba"].items():
-                c = self.cache["layers"][li]
-                c.conv[slot].copy_(conv)
-                c.ssm[slot].copy_(ssm)
+            st = self._unpark(req.rid, slot)
             self.last_token[slot] = st["last_token"]
             self.slot_len[slot] = st["tokens"]
         else:
@@ -522,15 +689,22 @@ class TorchEngine(_SlotEngineBase):
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
-    def _step(self, pre_tokens, pre_slots, pre_start, pre_len, pre_reset,
-              pre_sample, dec_tokens, dec_start, dec_active, pre_bt,
-              dec_bt) -> torch.Tensor:
-        d = self._dev
+    def _step(self, rows: tuple, bts_host: tuple,
+              bts: Optional[tuple] = None) -> torch.Tensor:
+        """One ``fused_serve_forward`` over the packed host arrays ``rows``
+        (pre_tokens, pre_slots, pre_start, pre_len, pre_reset,
+        pre_sample_col, dec_tokens, dec_start, dec_active) and the block
+        tables (None in the dense layout): ``bts`` on the device where
+        the caller holds them, else ``bts_host`` moved there. Rank 0 of a
+        tensor-parallel engine sends the same host arrays to the other
+        ranks first, and every rank runs the step on its shard."""
+        self._mirror("_step", rows, bts_host)
+        if bts is None:
+            bts = tuple(None if b is None else self._dev(b)
+                        for b in bts_host)
         return fused_serve_forward(
-            self.params, self.cfg, self.cache, d(pre_tokens), d(pre_slots),
-            d(pre_start), d(pre_len), d(pre_reset), d(pre_sample),
-            d(dec_tokens), d(dec_start), d(dec_active), pre_bt, dec_bt,
-            self.moe_impl)
+            self.params, self.cfg, self.cache, *map(self._dev, rows), *bts,
+            self.moe_impl, self._shard)
 
     def warm(self, max_chunk: Optional[int] = None) -> int:
         """Build and load the kernels (on the card), and launch each once
@@ -552,12 +726,11 @@ class TorchEngine(_SlotEngineBase):
         z1 = np.zeros((1,), np.int32)
         bts = (None, None)
         if self.paged:
-            bts = (self._dev(np.full((1, 1), -1, np.int32)),
-                   self._dev(np.full((n, 1), -1, np.int32)))
-        self._step(np.zeros((1, q), np.int32), np.full((1,), n, np.int32),
-                   z1, z1, np.zeros((1,), bool), z1,
-                   self.last_token.copy(), self.slot_len.copy(),
-                   np.zeros((n,), bool), *bts)
+            bts = (np.full((1, 1), -1, np.int32),
+                   np.full((n, 1), -1, np.int32))
+        self._step((np.zeros((1, q), np.int32), np.full((1,), n, np.int32),
+                    z1, z1, np.zeros((1,), bool), z1, self.last_token.copy(),
+                    self.slot_len.copy(), np.zeros((n,), bool)), bts)
         return 1
 
     def execute(self, plan: BatchPlan, now: float) -> float:
@@ -639,19 +812,30 @@ class TorchEngine(_SlotEngineBase):
             dec_active[slot] = True
             emit_dec[slot] = req.rid
 
-        bts = (None, None)
+        bts = bts_host = (None, None)
         if self.paged:
             bts = self._block_tables(pre, P, nd, emit_dec)
+            bts_host = self._bts_host
         # ---- ONE forward; the cache's pages and state written in place
-        sampled = self._step(pre_tokens, pre_slots, pre_start, pre_len,
-                             pre_reset, pre_sample,
-                             self.last_token[:nd].copy(),
-                             self.slot_len[:nd].copy(), dec_active, *bts)
+        sampled = self._step((pre_tokens, pre_slots, pre_start, pre_len,
+                              pre_reset, pre_sample,
+                              self.last_token[:nd].copy(),
+                              self.slot_len[:nd].copy(), dec_active),
+                             bts_host, bts)
         out = sampled.cpu().numpy()   # the ONE device->host transfer
         self._buckets.add((P, L, nd, bts[0].shape[1]) if self.paged
                           else (P, L, nd))
         self.prefill_rows += len(pre)
         self.prefill_tokens += sum(len(t) for _, _, t in pre)
+        if self._tp_plan is not None:
+            # the gathers' traffic of this dispatch, by op, priced as
+            # JaxEngine prices it (real tokens, 4 bytes an element);
+            # exported as repro_tp_collective_bytes_total{op=}
+            n_tok = sum(len(t) for _, _, t in pre) + int(dec_active.sum())
+            for op, b in self._tp_plan.collective_bytes(
+                    n_tok, P + nd).items():
+                self.tp_collective_bytes[op] = \
+                    self.tp_collective_bytes.get(op, 0.0) + b
 
         # ---- host bookkeeping
         for slot, req, toks in pre:
@@ -688,7 +872,8 @@ class TorchEngine(_SlotEngineBase):
     def _block_tables(self, pre, P: int, nd: int, emit_dec) -> tuple:
         """The paged layout's block tables of an iteration, on the
         device, sliced to the page-window bucket covering the longest
-        live row; rebuilt only when a row's grant changed."""
+        live row; rebuilt only when a row's grant changed. The host
+        arrays they came from are left in ``_bts_host``."""
         need = 1
         for _, req, toks in pre:
             need = max(need, blocks_for(req.prefilled + len(toks),
@@ -708,6 +893,7 @@ class TorchEngine(_SlotEngineBase):
             for i, (_, req, _) in enumerate(pre):
                 self._block_row(pre_bt[i], req.rid)
             self._pre_bt_dev = self._dev(pre_bt)
+            self._pre_bt_host = pre_bt
             self._pre_bt_key = pre_key
         dec_key = (nd, maxb, tuple((rid, ver(rid)) if rid is not None
                                    else None for rid in emit_dec))
@@ -717,7 +903,9 @@ class TorchEngine(_SlotEngineBase):
                 if rid is not None:
                     self._block_row(dec_bt[slot], rid)
             self._dec_bt_dev = self._dev(dec_bt)
+            self._dec_bt_host = dec_bt
             self._dec_bt_key = dec_key
+        self._bts_host = (self._pre_bt_host, self._dec_bt_host)
         return self._pre_bt_dev, self._dec_bt_dev
 
 

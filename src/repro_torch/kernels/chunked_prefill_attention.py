@@ -24,6 +24,7 @@ NAME = "chunked_prefill_attention"
 launches = 0    # kernel launches by this process
 # the (head_dim, window) of each of those launches (window None: causal)
 variants: Counter = Counter()
+heads: Counter = Counter()      # the (H, KV) of each of those
 
 
 def _check(q, k, v, q_offsets, kv_lens, window):
@@ -62,4 +63,5 @@ def chunked_prefill_attention_cuda(q, k, v, q_offsets, kv_lens, window=None):
     with build.count_lock:
         launches += 1
         variants[D, window] += 1
+        heads[H, KV] += 1
     return out

@@ -221,13 +221,14 @@ class _SSDScan(torch.autograd.Function):
 
 def reset_counts() -> None:
     """Zero every kernel's launch count and every plain-call count, and
-    forget the attention kernels' variants."""
+    forget the attention kernels' variants and head layouts."""
     with build.count_lock:
         for name, (mod, attr) in _COUNTERS.items():
             setattr(mod, attr, 0)
             plain_calls[name] = 0
         for mod in (_pa, _pa8, _cpa):
             mod.variants.clear()
+            mod.heads.clear()
 
 
 def counts() -> Dict[str, Dict[str, int]]:
@@ -246,5 +247,15 @@ def variants() -> Dict[str, Dict]:
     prefill."""
     with build.count_lock:
         return {name: dict(mod.variants) for name, mod in
+                (("paged_attention", _pa), ("paged_attention_int8", _pa8),
+                 ("chunked_prefill_attention", _cpa))}
+
+
+def heads() -> Dict[str, Dict]:
+    """The launches of each attention kernel since the last reset, by
+    the ``(H, KV)`` of its query and its pages: a tensor-parallel rank
+    launches at its local head counts."""
+    with build.count_lock:
+        return {name: dict(mod.heads) for name, mod in
                 (("paged_attention", _pa), ("paged_attention_int8", _pa8),
                  ("chunked_prefill_attention", _cpa))}

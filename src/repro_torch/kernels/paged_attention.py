@@ -25,6 +25,7 @@ SPLIT_TOKENS = 128  # tokens a split covers (at least one page)
 
 launches = 0    # wrapper calls that launched the kernels, by this process
 variants: Counter = Counter()   # the (head_dim, page) of each of those
+heads: Counter = Counter()      # the (H, KV) of each of those
 
 
 def plan_splits(n_pages: int, page: int) -> Tuple[int, int]:
@@ -87,4 +88,5 @@ def paged_attention_cuda(q, k_pages, v_pages, block_table, lens):
     with build.count_lock:
         launches += 1
         variants[D, page] += 1
+        heads[H, KV] += 1
     return out

@@ -22,6 +22,7 @@ NAME = "paged_attention_int8"
 
 launches = 0    # wrapper calls that launched the kernels, by this process
 variants: Counter = Counter()   # the (head_dim, page) of each of those
+heads: Counter = Counter()      # the (H, KV) of each of those
 
 
 def _check(q, k_pages, v_pages, k_scales, v_scales, block_table, lens):
@@ -85,4 +86,5 @@ def paged_attention_int8_cuda(q, k_pages, v_pages, k_scales, v_scales,
     with build.count_lock:
         launches += 1
         variants[D, page] += 1
+        heads[H, KV] += 1
     return out

@@ -29,7 +29,10 @@ that serves ``whisper-medium`` (the fused engine refuses it, as JAX's
 does); ``--kv-layout`` picks the fused engine's paged pool (the
 default) or its dense slot cache. ``--prefix-cache`` gives the replica
 the KV hierarchy's shared-prefix tier (paged fused engine only), as in
-the JAX serve script. ``--trace-out`` and ``--trace-chrome`` record the
+the JAX serve script. ``--tp N`` serves the fused engine over N
+tensor-parallel ranks (``TorchEngine(tp=N)``): the command spawns the
+other ranks itself, over gloo on the CPU or on one shared card, and
+stops them when it is done. ``--trace-out`` and ``--trace-chrome`` record the
 request-lifecycle trace (``repro_torch.obs``) on any of the three
 paths, write it as JSONL or Chrome trace events and print the
 SLO-violation attribution table; ``--metrics-port`` serves the fleet's
@@ -40,6 +43,10 @@ live metrics registry on ``GET /metrics`` with ``--fleet``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
       --dtype bf16 --n-requests 12 --max-len 2048
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
+  PYTHONPATH=src python -m repro_torch.launch.serve --dtype bf16 --tp 2 \
+      --n-requests 12 --max-len 2048
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
+      --tp 2
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
       --arch qwen3-moe-30b-a3b
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
@@ -153,6 +160,12 @@ def main(argv=None):
     ap.add_argument("--prefix-cache", action="store_true",
                     help="enable the shared-prefix KV cache tier on the "
                          "engine's pages")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree of the fused engine: "
+                         "heads, d_ff, experts and vocab shard over this "
+                         "many ranks, spawned by this command (gloo on "
+                         "the CPU or on one shared card, NCCL over a "
+                         "card per rank)")
     ap.add_argument("--dataset", default="azure_code",
                     help="sim backend: one of data.workloads.DATASETS")
     ap.add_argument("--qps", type=float, default=2.0)
@@ -202,21 +215,27 @@ def main(argv=None):
         seed=args.seed, hw=H100 if device.type == "cuda" else CPU_HW,
         device=device, dtype=DTYPES[args.dtype],
         kv_cfg=(KVCacheConfig(enable_prefix=True) if args.prefix_cache
-                else None))
+                else None), tp=args.tp)
     rep.tracer = rec
     reqs = make_requests(rng, args.n_requests, args.max_len)
-    # build and load the kernels and run one iteration at the model's
-    # shapes before the clock starts, so no request pays for the set-up
-    rep.backend.warm()
-    # arrivals in virtual time; each iteration advances it by its
-    # measured wall-clock time
-    rep.submit_all(reqs)
-    rep.run()
+    try:
+        # build and load the kernels and run one iteration at the model's
+        # shapes before the clock starts, so no request pays for the set-up
+        rep.backend.warm()
+        # arrivals in virtual time; each iteration advances it by its
+        # measured wall-clock time
+        rep.submit_all(reqs)
+        rep.run()
+    finally:
+        if args.tp > 1:
+            rep.backend.close()
     dur = rep.now
 
+    tp_tag = f" tp={args.tp}" if args.tp > 1 else ""
     print(f"\nscheme={args.scheme} engine={args.engine} "
           f"kv_layout={args.kv_layout} device={device} dtype={args.dtype} "
-          f"arch={cfg.name} layers={cfg.num_layers} d_model={cfg.d_model}")
+          f"arch={cfg.name} layers={cfg.num_layers} d_model={cfg.d_model}"
+          f"{tp_tag}")
     _report(rep, dur)
     print(f"  kv pool: {rep.kv.num_blocks} blocks x {rep.kv.block_size} "
           f"tokens, util {rep.kv.utilization():.0%} at exit")

@@ -175,5 +175,12 @@ def decode_attention(q, k, v, *, kv_len, window: Optional[int] = None,
 
 # ---------------------------------------------------------------- mlp
 
-def swiglu(x, w_gate, w_up, w_down):
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+def swiglu(x, w_gate, w_up, w_down, constrain=None):
+    """``constrain`` (the serve forward's ``shard``) sees the hidden
+    activations between the up-projections and ``w_down``: a
+    tensor-parallel rank gathers its d_ff slices there (``tp_ffn``), so
+    the down-projection runs replicated, as in JAX."""
+    h = F.silu(x @ w_gate) * (x @ w_up)
+    if constrain is not None:
+        h = constrain(h, "tp_ffn")
+    return h @ w_down

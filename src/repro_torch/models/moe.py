@@ -21,8 +21,11 @@ first): router logits computed in bf16 can tie exactly, and
 ``torch.topk`` on the card promises no order, so the top k are the head
 of a stable descending sort.
 
-Not ported yet (ROADMAP.md queue 1): the expert-sharded
-tensor-parallel branch of ``moe_forward_grouped``.
+On a tensor-parallel rank (``distributed/tp_serve.py``) the expert
+weights hold the rank's ``E_loc`` experts and the router is replicated:
+both serve paths run the rank's experts only and gather the ``[..., E_loc,
+d]`` expert outputs of every rank (``constrain(eo, "tp_experts")``)
+before the replicated combine, as JAX's branches do.
 """
 from __future__ import annotations
 
@@ -191,7 +194,12 @@ def _combine(gates, eo):
         return torch.einsum("bse,bsed->bsd", gates.to(eo.dtype), eo)
 
 
-def moe_forward_grouped(p: MoE, x, cfg: ModelConfig):
+def _no_constrain(t, kind):
+    return t
+
+
+def moe_forward_grouped(p: MoE, x, cfg: ModelConfig,
+                        constrain=_no_constrain):
     """Gather-based grouped GEMM for dropless serving. x: ``[B, S, d]``.
 
     Token replicas sort into per-expert segments (a one-hot cumsum gives
@@ -206,7 +214,18 @@ def moe_forward_grouped(p: MoE, x, cfg: ModelConfig):
     realised largest segment. JAX picks the rung on the device with
     ``lax.switch``; eager torch needs the buffer's shape on the host, so
     this reads the largest segment once per call (``rungs`` counts the
-    calls by rung). The ladder keeps the shapes to a few static rungs."""
+    calls by rung). The ladder keeps the shapes to a few static rungs.
+
+    Expert-sharded (``p`` holds ``E_loc < E`` experts: a tensor-parallel
+    rank, JAX's ``_make_local``): the routing, the positions and the
+    rung are the global ones, from the replicated router, so every rank
+    reads the same largest segment and takes the same rung. The rank's
+    replicas get local ids through ``constrain(ids, "tp_expert_ids")``;
+    those of other ranks go to the explicit index ``E_loc``, a sink row
+    of the buffer and of the output that is cut away (JAX's scatter
+    drops it). The ``[T, E_loc, d]`` outputs gather through
+    ``constrain(eo, "tp_experts")`` into the ``[T, E, d]`` operand,
+    exact slices of the single-device one."""
     m = cfg.moe
     B, S, D = x.shape
     E, K = m.num_experts, m.top_k
@@ -227,12 +246,22 @@ def moe_forward_grouped(p: MoE, x, cfg: ModelConfig):
     caps = _capacity_ladder(TK, E)
     C = caps[sum(c < mx for c in caps[:-1])]
     rungs[C] += 1
-    buf = torch.zeros((E, C, D), dtype=x.dtype, device=x.device)
+    E_loc = p.w_gate.shape[0]
+    local = E_loc != E          # expert-sharded: a tensor-parallel rank
+    if local:
+        el = constrain(ef, "tp_expert_ids")
+        ef = torch.where((el >= 0) & (el < E_loc), el, E_loc)
+    # expert-sharded, row E_loc is the sink of other ranks' replicas
+    n_rows = E_loc + 1 if local else E
+    buf = torch.zeros((n_rows, C, D), dtype=x.dtype, device=x.device)
     buf[ef, pos] = xf[tok]
-    rows = _experts(p, buf)[ef, pos]                         # [TK, d]
+    out = _experts(p, buf[:E_loc] if local else buf)
+    rows = out[ef.clamp(max=E_loc - 1) if local else ef, pos]   # [TK, d]
     # (tok, ef) pairs are unique: top-k picks distinct experts
-    eo = torch.zeros((T, E, D), dtype=x.dtype, device=x.device)
+    eo = torch.zeros((T, n_rows, D), dtype=x.dtype, device=x.device)
     eo[tok, ef] = rows
+    if local:
+        eo = constrain(eo[:, :E_loc].reshape(B, S, E_loc, D), "tp_experts")
     return _combine(gates, eo.reshape(B, S, E, D)).to(x.dtype)
 
 
@@ -244,10 +273,17 @@ def _expert_sweep(p: MoE, x):
         return torch.einsum("bsef,efd->bsed", h, p.w_down)
 
 
-def moe_forward_dropless(p: MoE, x, cfg: ModelConfig):
+def moe_forward_dropless(p: MoE, x, cfg: ModelConfig,
+                         constrain=_no_constrain):
     """Per-token top-k MoE without capacity dropping: every expert runs
     over every token and the gates zero the experts off the top k, so a
     token's output is a function of that token alone. x: ``[B, S, d]``.
-    It costs E / top_k times the expert products of the grouped path."""
+    It costs E / top_k times the expert products of the grouped path.
+    Expert-sharded (``p`` holds fewer than E experts), the rank's
+    ``[B, S, E_loc, d]`` outputs gather through ``constrain(eo,
+    "tp_experts")`` before the combine."""
     gates, _ = _route(p, x, cfg)
-    return _combine(gates, _expert_sweep(p, x)).to(x.dtype)
+    eo = _expert_sweep(p, x)
+    if p.w_gate.shape[0] != cfg.moe.num_experts:
+        eo = constrain(eo, "tp_experts")
+    return _combine(gates, eo).to(x.dtype)

@@ -54,7 +54,7 @@ frontend is the stub that zeroes each prefill chunk's leading
 """
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple
+from typing import Callable, Dict, List, Mapping, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -77,6 +77,13 @@ MOE_IMPLS = {"grouped": moe_forward_grouped,
 
 
 DEFAULT_RING_CHUNK = 4096   # max prefill chunk a ring cache must absorb
+
+
+def _identity_shard(t, kind):
+    """The serve forward's ``shard(t, kind)`` seam on one device: every
+    kind passes through. A tensor-parallel rank passes the gather hooks
+    of ``distributed.tp_serve.TPServePlan.shard_fn`` instead."""
+    return t
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -207,24 +214,81 @@ def _init_std(name: str, cfg: ModelConfig) -> float:
 
 @torch.no_grad()
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda", dtype=torch.float32) -> Transformer:
+                device="cuda", dtype=torch.float32,
+                shard: Optional[Callable] = None) -> Transformer:
     """Random weights with the JAX ``init_params`` shapes and scales
     (norm weights zero, i.e. unit scale; the Mamba leaves as
     ``init_mamba_params`` sets them). The numbers come from
-    ``generator``, which lives on ``device``; they are not JAX's."""
+    ``generator``, which lives on ``device``; they are not JAX's.
+
+    Each weight is drawn whole, in ``named_parameters`` order, and
+    placed before the next is drawn. ``shard`` (``(name, tensor) ->
+    tensor``, a tensor-parallel rank's slicing rule) keeps only its
+    slice: the slices are those of the unsharded draw, and no more than
+    one whole weight is ever held."""
     dev = resolve_device(device)
-    model = Transformer(cfg, dev, dtype)
-    for name, p in model.named_parameters():
+    cut = shard or _whole
+    model = Transformer(cfg, "meta", dtype)
+    for name, p in list(model.named_parameters()):
         if ".mamba." in name:
             continue
         if "norm" in name.rsplit(".", 1)[-1]:
-            p.zero_()
+            w = torch.zeros(p.shape, device=dev, dtype=dtype)
         else:
-            p.copy_(torch.randn(p.shape, generator=generator, device=dev)
-                    * _init_std(name, cfg))
+            w = (torch.randn(p.shape, generator=generator, device=dev)
+                 * _init_std(name, cfg)).to(dtype)
+        _assign(model, name, cut(name, w))
     for layer in model.layers:
         if hasattr(layer, "mamba"):
+            layer.mamba = Mamba(cfg, device=dev, dtype=dtype)
             init_mamba_params(layer.mamba, cfg, generator)
+    return model
+
+
+def _whole(name: str, t: torch.Tensor) -> torch.Tensor:
+    """The slicing rule of a single-device model: every weight whole."""
+    return t
+
+
+def _assign(model: nn.Module, name: str, t: torch.Tensor) -> None:
+    """Make ``t`` the parameter ``name`` of ``model`` (any shape)."""
+    mod, _, leaf = name.rpartition(".")
+    setattr(model.get_submodule(mod) if mod else model, leaf,
+            nn.Parameter(t, requires_grad=False))
+
+
+@torch.no_grad()
+def load_params(cfg: ModelConfig, params: Mapping[str, torch.Tensor],
+                device="cuda", dtype=torch.float32,
+                shard: Optional[Callable] = None,
+                sliced: bool = False) -> Transformer:
+    """The model holding ``params`` (a full ``state_dict``, for example
+    JAX's weights through ``bridge.params_from_numpy``) on ``device`` in
+    ``dtype``, each weight a copy. Every name must be there, and no
+    other, and each entry must have its parameter's shape. ``shard`` as
+    in ``init_params``: each weight is cut before it is moved. With
+    ``sliced`` the entries are a rank's slices already (``shard``'s
+    output, ``bridge.rank_params_to_numpy``): each is checked against
+    its slice's shape and not cut again."""
+    dev = resolve_device(device)
+    cut = shard or _whole
+    model = Transformer(cfg, "meta", dtype)
+    names = [n for n, _ in model.named_parameters()]
+    if set(names) != set(params):
+        raise KeyError(f"state_dict names differ from the model's: missing "
+                       f"{sorted(set(names) - set(params))}, unexpected "
+                       f"{sorted(set(params) - set(names))}")
+    for name, p in list(model.named_parameters()):
+        t = params[name]
+        want = cut(name, p).shape if sliced else p.shape
+        if t.shape != want:
+            raise ValueError(f"state_dict entry {name} has shape "
+                             f"{tuple(t.shape)}, the model's "
+                             f"{'slice ' if sliced else ''}{tuple(want)}")
+        if not sliced:
+            t = cut(name, t)
+        _assign(model, name, torch.empty(t.shape, device=dev,
+                                         dtype=dtype).copy_(t))
     return model
 
 
@@ -500,7 +564,7 @@ def _qkv(p: Attention, cfg: ModelConfig, x, start_pos):
 
 def _attn_paged(p: Attention, cfg: ModelConfig, spec, x,
                 cache: PagedAttnCache, bt, start_pos, lens, valid,
-                decode: bool):
+                decode: bool, shard=_identity_shard):
     """Cached attention over the paged pool: write through the block
     table, then read, as the JAX kernel branch does. Decode rows of a
     full-attention layer go to ``paged_attention`` with the block table
@@ -510,7 +574,10 @@ def _attn_paged(p: Attention, cfg: ModelConfig, spec, x,
     pages hand their scale pages to the decode kernel's fused-dequant
     variant (exact fp32 dequantization); the other reads take the view
     that ``_paged_view`` dequantized in bf16, cast to q's dtype
-    (lossless), as JAX's prefill kernel reads it in fp32."""
+    (lossless), as JAX's prefill kernel reads it in fp32. On a
+    tensor-parallel rank the heads are the rank's (the kernels read H and
+    KV from their tensors); ``shard(o, "tp_heads")`` gathers every rank's
+    heads before the replicated ``wo``."""
     q, k, v, _ = _qkv(p, cfg, x, start_pos)
     _paged_write(cache, k, v, start_pos, bt, valid)
     kv_lens = (start_pos + lens).to(torch.int32)
@@ -526,11 +593,13 @@ def _attn_paged(p: Attention, cfg: ModelConfig, spec, x,
         o = ops.chunked_prefill_attention(
             q, kview.to(q.dtype), vview.to(q.dtype), window=window,
             q_offsets=start_pos.to(torch.int32), kv_lens=kv_lens)
+    o = shard(o, "tp_heads")
     return torch.einsum("bshk,hkd->bsd", o, p.wo)
 
 
 def _attn_pallas(p: Attention, cfg: ModelConfig, spec, x, cache: AttnCache,
-                 start_pos, lens, valid, decode: bool, rows=None):
+                 start_pos, lens, valid, decode: bool, rows=None,
+                 shard=_identity_shard):
     """Cached attention over the dense slot cache in the fused step, as
     the JAX ``_attn_pallas``: the write is ``_write_cache`` (into rows
     ``rows``, by default the slots ``0..B-1``), the read goes through the
@@ -540,7 +609,8 @@ def _attn_pallas(p: Attention, cfg: ModelConfig, spec, x, cache: AttnCache,
     cache (each slot's pages in order, so its block table is an iota);
     every other read to ``chunked_prefill_attention`` in its dynamic mode
     over R positions, the prefill rows over their slots' rows gathered
-    after the write (pad rows gather the sink row, read with length 0)."""
+    after the write (pad rows gather the sink row, read with length 0).
+    ``shard``: as in ``_attn_paged``."""
     B = x.shape[0]
     q, k, v, _ = _qkv(p, cfg, x, start_pos)
     _write_cache(cache, k, v, start_pos, valid=valid, rows=rows)
@@ -565,18 +635,22 @@ def _attn_pallas(p: Attention, cfg: ModelConfig, spec, x, cache: AttnCache,
         o = ops.chunked_prefill_attention(
             q, kc, vc, window=window, q_offsets=start_pos.to(torch.int32),
             kv_lens=kv_lens)
+    o = shard(o, "tp_heads")
     return torch.einsum("bshk,hkd->bsd", o, p.wo)
 
 
 def _apply_ffn(p: Layer, cfg: ModelConfig, spec, x,
-               moe_impl: str = "dropless", train: bool = False):
+               moe_impl: str = "dropless", train: bool = False,
+               shard=_identity_shard):
     """The layer's FFN with its residual. A MoE layer serves through
     ``MOE_IMPLS[moe_impl]``: dropless by default, as JAX's ``_apply_ffn``
     with ``serve=True``; the fused engine passes its own. Dense weights
     are cast to x's dtype, as in JAX (the encoder runs on fp32 frames).
     ``train``: a MoE layer runs the capacity dispatch ``moe_forward``,
     and the result is ``(x, aux)`` with its metrics (``{}`` for the
-    others), as JAX's ``_apply_ffn`` without ``serve``."""
+    others), as JAX's ``_apply_ffn`` without ``serve``. ``shard``: the
+    serve forward's seam, which the dense FFN (``tp_ffn``) and the MoE
+    (``tp_expert_ids``, ``tp_experts``) call."""
     aux: Dict = {}
     if spec.ffn == NONE:
         return (x, aux) if train else x
@@ -585,11 +659,11 @@ def _apply_ffn(p: Layer, cfg: ModelConfig, spec, x,
         if train:
             out, aux = moe_forward(p.moe, h, cfg)
         else:
-            out = MOE_IMPLS[moe_impl](p.moe, h, cfg)
+            out = MOE_IMPLS[moe_impl](p.moe, h, cfg, shard)
     else:
         f = p.ffn
         out = swiglu(h, f.w_gate.to(x.dtype), f.w_up.to(x.dtype),
-                     f.w_down.to(x.dtype))
+                     f.w_down.to(x.dtype), shard)
     return (x + out, aux) if train else x + out
 
 
@@ -943,7 +1017,7 @@ def _mamba_block(p: Layer, cfg: ModelConfig, x_pre, x_dec,
 def _fused_block(p: Layer, cfg: ModelConfig, spec, x_pre, x_dec,
                  layer_cache, pre_slots, pre_start, pre_len, pre_reset,
                  pre_valid, dec_start, dec_active, pre_bt, dec_bt,
-                 moe_impl: str = "grouped"):
+                 moe_impl: str = "grouped", shard=_identity_shard):
     """One layer of the fused serve iteration: the prefill sub-batch
     ([P, L] chunk rows) and the decode sub-batch ([N, 1]) advance
     together; a request is in one of them only, so their page writes
@@ -962,34 +1036,37 @@ def _fused_block(p: Layer, cfg: ModelConfig, spec, x_pre, x_dec,
             h = rmsnorm(x_pre, p.norm1, cfg.norm_eps)
             x_pre = x_pre + _attn_pallas(p.attn, cfg, spec, h, layer_cache,
                                          pre_start, pre_len, pre_valid,
-                                         False, rows=pre_slots)
+                                         False, rows=pre_slots, shard=shard)
         if x_dec.shape[0]:
             h = rmsnorm(x_dec, p.norm1, cfg.norm_eps)
             x_dec = x_dec + _attn_pallas(
                 p.attn, cfg, spec, h, layer_cache, dec_start,
-                dec_active.to(dec_start.dtype), dec_active[:, None], True)
+                dec_active.to(dec_start.dtype), dec_active[:, None], True,
+                shard=shard)
     else:
         if x_pre.shape[0]:
             h = rmsnorm(x_pre, p.norm1, cfg.norm_eps)
             x_pre = x_pre + _attn_paged(p.attn, cfg, spec, h, layer_cache,
                                         pre_bt, pre_start, pre_len,
-                                        pre_valid, False)
+                                        pre_valid, False, shard)
         if x_dec.shape[0]:
             h = rmsnorm(x_dec, p.norm1, cfg.norm_eps)
             x_dec = x_dec + _attn_paged(
                 p.attn, cfg, spec, h, layer_cache, dec_bt, dec_start,
-                dec_active.to(dec_start.dtype), dec_active[:, None], True)
+                dec_active.to(dec_start.dtype), dec_active[:, None], True,
+                shard)
     if x_pre.shape[0]:
-        x_pre = _apply_ffn(p, cfg, spec, x_pre, moe_impl)
+        x_pre = _apply_ffn(p, cfg, spec, x_pre, moe_impl, shard=shard)
     if x_dec.shape[0]:
-        x_dec = _apply_ffn(p, cfg, spec, x_dec, moe_impl)
+        x_dec = _apply_ffn(p, cfg, spec, x_dec, moe_impl, shard=shard)
     return x_pre, x_dec
 
 
 def _sampled_hidden(params: Transformer, cfg: ModelConfig, cache: Dict,
                     pre_tokens, pre_slots, pre_start, pre_len, pre_reset,
                     pre_sample_col, dec_tokens, dec_start, dec_active,
-                    pre_bt, dec_bt, moe_impl: str = "grouped"):
+                    pre_bt, dec_bt, moe_impl: str = "grouped",
+                    shard=_identity_shard):
     """Every layer of one fused iteration, then the final norm of the
     rows that are sampled: ``[P + N, d]``, prefill rows (their
     ``pre_sample_col`` column) then decode slots. This is what the LM
@@ -1007,7 +1084,7 @@ def _sampled_hidden(params: Transformer, cfg: ModelConfig, cache: Dict,
         x_pre, x_dec = _fused_block(
             params.layers[li], cfg, spec, x_pre, x_dec, cache["layers"][li],
             pre_slots, pre_start, pre_len, pre_reset, pre_valid, dec_start,
-            dec_active, pre_bt, dec_bt, moe_impl)
+            dec_active, pre_bt, dec_bt, moe_impl, shard)
     parts: List[torch.Tensor] = []
     if P:
         # the norm is per row: gathering the sampled column first gives
@@ -1025,7 +1102,8 @@ def fused_serve_forward(params: Transformer, cfg: ModelConfig, cache: Dict,
                         pre_tokens, pre_slots, pre_start, pre_len,
                         pre_reset, pre_sample_col, dec_tokens, dec_start,
                         dec_active, pre_bt=None, dec_bt=None,
-                        moe_impl: str = "grouped") -> torch.Tensor:
+                        moe_impl: str = "grouped",
+                        shard=_identity_shard) -> torch.Tensor:
     """ONE fused serve iteration executing a whole BatchPlan, with greedy
     sampling on the device. The arguments are those of the JAX
     ``fused_serve_forward``:
@@ -1037,7 +1115,13 @@ def fused_serve_forward(params: Transformer, cfg: ModelConfig, cache: Dict,
       int32, dec_active [N] bool; pre_bt [P, maxb] / dec_bt [N, maxb]
       int32 block tables (-1 = unallocated) in the paged layout, None in
       the dense one (``init_cache``); moe_impl ``"grouped"`` or
-      ``"dropless"``, the MoE layers' FFN.
+      ``"dropless"``, the MoE layers' FFN; shard the ``shard(t, kind)``
+      seam: the identity on one device, on a tensor-parallel rank the
+      gathers of ``TPServePlan.shard_fn`` (``tp_heads`` on each
+      attention output before ``wo``, ``tp_ffn`` between the
+      up-projections and ``w_down``, ``tp_expert_ids`` and
+      ``tp_experts`` in the MoE, ``logits`` on the LM head's output
+      before the argmax), as in JAX.
 
     The cache's pages, slot rows and Mamba state rows are updated in
     place. Returns the sampled ids, ``[P + N]`` int32 (prefill rows, then
@@ -1046,8 +1130,8 @@ def fused_serve_forward(params: Transformer, cfg: ModelConfig, cache: Dict,
     xs = _sampled_hidden(params, cfg, cache, pre_tokens, pre_slots,
                          pre_start, pre_len, pre_reset, pre_sample_col,
                          dec_tokens, dec_start, dec_active, pre_bt, dec_bt,
-                         moe_impl)
+                         moe_impl, shard)
     w = params.lm_head if params.lm_head is not None else params.embed.T
-    logits = xs @ w
+    logits = shard(xs @ w, "logits")
     # torch.argmax, like jnp.argmax, returns the first maximum
     return torch.argmax(logits[:, :cfg.vocab_size], dim=-1).to(torch.int32)

@@ -100,6 +100,7 @@ def make_torch_replica(scheme: str, cfg: ModelConfig, *,
                        device="cuda", dtype=torch.float32,
                        params: Optional[Mapping[str, torch.Tensor]] = None,
                        kv_cfg: Optional[KVCacheConfig] = None,
+                       tp: int = 1,
                        backend_wrap: Optional[Callable] = None) -> Replica:
     """The scheduler, a ``KVPool`` and an engine on ``device``, sized and
     refused as ``make_jax_replica`` does. ``engine``: ``"fused"``
@@ -114,10 +115,13 @@ def make_torch_replica(scheme: str, cfg: ModelConfig, *,
     layout: one block of ``max_len`` per slot, no hierarchy. ``params``
     goes to the engine (a ``state_dict``); ``backend_wrap`` optionally
     wraps the engine (e.g. a fixed-clock shim for token-stream
-    comparisons)."""
+    comparisons). ``tp`` > 1 serves the fused engine over ``tp`` ranks
+    (``TorchEngine(tp=)``, which starts the other ranks; stop them with
+    ``replica.backend.close()``) and prices the collective term into the
+    scheduler's cost model, as in JAX."""
     from repro_torch.engine.torch_backend import make_engine
 
-    cost = ModelCostModel(cfg, hw)
+    cost = ModelCostModel(cfg, hw, tp=tp)
     if kv_layout == "paged":
         if kv_blocks is None:
             kv_blocks = n_slots * ((max_len + block_size - 1) // block_size)
@@ -140,9 +144,12 @@ def make_torch_replica(scheme: str, cfg: ModelConfig, *,
     ekw = dict(n_slots=n_slots, max_len=max_len, seed=seed, dtype=dtype,
                params=params, device=device)
     if engine == "fused":
-        ekw.update(quantum=quantum, kv_layout=kv_layout)
+        ekw.update(quantum=quantum, kv_layout=kv_layout, tp=tp)
         if kv_layout == "paged":
             ekw.update(pool=kv)
+    elif tp > 1:
+        raise ValueError("tp > 1 requires the fused engine (the "
+                         "reference oracle is single-device by design)")
     else:
         ekw.update(quantum=1)
     backend = make_engine(engine, cfg, **ekw)

@@ -283,3 +283,20 @@ def test_unported_families_raise():
         assert [dataclasses.asdict(l) for l in got.layers] == \
             [dataclasses.asdict(l) for l in want.layers]
         assert {l.window for l in got.layers if l.mixer == SWA} == {8192}
+
+
+def test_the_probe_walks_the_tp_slice():
+    """The import probe and the source scans cover the tensor-parallel
+    slice: the plan, the ranks' entry point and the group, whose worker
+    ranks import nothing but the port (tests/test_torch_tp_ranks.py
+    checks a live rank's modules)."""
+    import pkgutil
+
+    import repro_torch
+    from repro_torch.distributed import worker
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.distributed", "repro_torch.distributed.tp_serve",
+            "repro_torch.distributed.worker"} <= names
+    assert PORT / "distributed" / "worker.py" in _sources()
+    assert worker.main.__module__ == "repro_torch.distributed.worker"
