@@ -179,7 +179,19 @@ Phases, each of which fails the run if it fails:
    bf16, where a stream may also part after the first live token routed
    to other experts if that routing was a near-tie, and at 5 layers in
    f32 with no near-tie and no routing difference. Each engine and its
-   ranks are stopped and freed before the next.
+   ranks are stopped and freed before the next;
+15. sharding: the sharding rules' steps on the 1x1 host mesh
+   (``launch.mesh.make_host_mesh("cuda")``): (a) full-width llama3.2-3b
+   in bf16, ``make_prefill_step`` and ``make_serve_step`` with
+   ``shard=rules.shard_fn()``, logits bit-equal to the unsharded steps'
+   on the same weights and tokens, the norm kernel launched and no
+   plain version; (b) one AdamW step of its first 4 layers in f32 with
+   ``shard=`` and ``grad_shardings=``, loss, first moments and
+   parameters bit-equal to the unsharded step's, the norm's forward and
+   backward launches as predicted; (c) ``launch.dryrun.run_one`` of
+   llama3.2-3b x decode_32k on the 16x16 fake mesh in a subprocess with
+   a 60 s limit, its three terms, dominant term and peak per device
+   printed beside the torch version and where its DTensor API came from.
 
 Prints each phase's seconds and peak device memory
 (``torch.cuda.max_memory_allocated``), the card's name and power limit,
@@ -4250,6 +4262,171 @@ def phase_tp() -> dict:
     return launches
 
 
+# the sharding phase: the host-mesh serve steps on full-width llama3.2-3b
+# in bf16 (SHARD_B prompts of SHARD_S tokens, one decode step), the
+# host-mesh train step at SHARD_TRAIN_LAYERS of 28 layers in f32, and the
+# dry-run of one pair in a subprocess given SHARD_DRYRUN_S seconds
+SHARD_B, SHARD_S = 4, 512
+SHARD_TRAIN_LAYERS = 4
+SHARD_DRYRUN_S = 60
+SHARD_DRYRUN = ("llama3.2-3b", "decode_32k")
+
+
+def _host_serve(params, cfg, tokens, shard) -> tuple:
+    """One prefill of ``tokens`` and one greedy decode step through the
+    offline steps (``shard`` given, or the steps' default)."""
+    from repro_torch.engine.steps import (make_prefill_step,
+                                          make_serve_step, sample_greedy)
+    from repro_torch.models.transformer import init_cache
+    kw = {} if shard is None else {"shard": shard}
+    cache = init_cache(cfg, tokens.shape[0], tokens.shape[1] + 8,
+                       dtype=torch.bfloat16, device="cuda")
+    lg, cache = make_prefill_step(cfg, **kw)(params, cache,
+                                             {"tokens": tokens})
+    nxt = sample_greedy(lg, cfg.vocab_size)
+    lg2, _ = make_serve_step(cfg, **kw)(params, cache, nxt)
+    torch.cuda.synchronize()
+    return lg, lg2
+
+
+def _host_train(cfg, batch, rules) -> tuple:
+    """One AdamW step from seed-0 weights: with ``rules`` through
+    ``shard=`` and ``grad_shardings=``, else unsharded. Returns the
+    metrics, the parameters and the first moments (the clipped
+    gradients times 1 - b1)."""
+    from repro_torch.distributed.sharding import placements
+    from repro_torch.engine.steps import init_train_state, make_train_step
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params, opt = init_train_state(cfg, gen, device="cuda")
+    if rules is None:
+        step = make_train_step(cfg, lr=1e-3)
+    else:
+        pls = {n: placements(spec, rules.mesh) for n, spec in
+               rules.param_specs(params).items()}
+        step = make_train_step(cfg, shard=rules.shard_fn(), lr=1e-3,
+                               grad_shardings=pls)
+    params, opt, m = step(params, opt, batch)
+    torch.cuda.synchronize()
+    return m, dict(params.named_parameters()), opt.mu
+
+
+def _dryrun_on_the_card_machine() -> dict:
+    """``run_one`` of ``SHARD_DRYRUN`` on the 16x16 fake mesh, in a
+    subprocess of its own (the fake group is process-global), within
+    ``SHARD_DRYRUN_S`` seconds; nothing is saved."""
+    arch, shape = SHARD_DRYRUN
+    code = ("import json, sys; from repro_torch.launch.dryrun import "
+            "run_one; from repro_torch.distributed.torch_api import "
+            "describe; r = run_one(sys.argv[1], sys.argv[2], False, "
+            "save=False); r['api'] = describe(); "
+            "print('REPORT ' + json.dumps(r))")
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, arch, shape],
+                          capture_output=True, text=True,
+                          timeout=SHARD_DRYRUN_S, cwd=ROOT,
+                          env={**__import__("os").environ,
+                               "PYTHONPATH": str(ROOT / "src")})
+    secs = time.perf_counter() - t
+    check(proc.returncode == 0, f"sharding dry-run: exit "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    line = [l for l in proc.stdout.splitlines() if l.startswith("REPORT ")]
+    check(bool(line), "sharding dry-run: no report")
+    rep = json.loads(line[-1][len("REPORT "):])
+    check(rep.get("ok") is True, f"sharding dry-run: {rep.get('error')}")
+    print(f"[sharding] dry-run {arch} x {shape} on the 16x16 fake mesh "
+          f"({rep['api']}), {secs:.1f} s in a subprocess: t_compute "
+          f"{rep['t_compute_s']:.3e} s, t_memory {rep['t_memory_s']:.3e} "
+          f"s, t_collective {rep['t_collective_s']:.3e} s, dominant "
+          f"{rep['dominant']}, peak {rep['peak_bytes_per_dev'] / 1e9:.3f} "
+          f"GB per device (datasheet constants over a trace on meta "
+          f"tensors, not measured times)")
+    return rep
+
+
+def phase_sharding() -> dict:
+    """The sharding layer on the card: (a) the host-mesh prefill and
+    serve steps (``make_host_mesh("cuda")``, ``shard=rules.shard_fn()``)
+    of full-width llama3.2-3b in bf16 against the unsharded steps, logits
+    bit-equal, the norm kernel launched and no plain version run; (b) one
+    host-mesh AdamW step (``shard=`` and ``grad_shardings=``) at
+    ``SHARD_TRAIN_LAYERS`` of 28 full-width layers in f32, TF32 off,
+    against the unsharded step: loss, first moments and parameters
+    bit-equal, the norm's forward and backward kernels counted; (c) the
+    dry-run of ``SHARD_DRYRUN`` in a subprocess. Returns the launches of
+    (a)'s and (b)'s sharded runs."""
+    from repro_torch.distributed import torch_api as ta
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models.transformer import init_params
+
+    launches = {name: 0 for name in SOURCES}
+    print(f"[sharding] {ta.describe()}")
+    mesh = make_host_mesh("cuda")
+    try:
+        cfg = _model_config("llama3.2-3b")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = init_params(cfg, gen, "cuda", torch.bfloat16)
+        tokens = torch.randint(0, cfg.vocab_size, (SHARD_B, SHARD_S),
+                               generator=gen, device="cuda",
+                               dtype=torch.int32)
+        rules = ShardingRules(cfg, mesh, train=False)
+        ops.reset_counts()
+        got = _host_serve(params, cfg, tokens, rules.shard_fn())
+        counts = _path_counts("sharding host-mesh serve", ("rmsnorm",))
+        _add_counts(launches, counts)
+        want = _host_serve(params, cfg, tokens, None)
+        for what, a, b in zip(("prefill", "decode"), got, want):
+            check(torch.equal(a, b), f"sharding host-mesh {what}: logits "
+                  f"differ from the unsharded step's by "
+                  f"{float((a.float() - b.float()).abs().max()):.3g}")
+        print(f"[sharding] (a) host-mesh prefill + decode, llama3.2-3b "
+              f"full width bf16, {SHARD_B} x {SHARD_S} tokens: logits "
+              f"bit-equal to the unsharded steps'; rmsnorm launched "
+              f"{counts['rmsnorm']['launches']} times, no plain version")
+        del params, got, want
+        _free_device_memory()
+
+        cut = dataclasses.replace(cfg, num_layers=SHARD_TRAIN_LAYERS,
+                                  layers=cfg.layers[:SHARD_TRAIN_LAYERS])
+        batch = synthetic_batch(np.random.default_rng(0), cut, TRAIN_B,
+                                TRAIN_S, "cuda")
+        trules = ShardingRules(cut, mesh, train=True)
+        ops.reset_counts()
+        m1, p1, mu1 = _host_train(cut, batch, trules)
+        counts = _path_counts("sharding host-mesh train", TRAIN_PATH)
+        _add_counts(launches, counts)
+        predicted = _predicted_launches(cut, 1)
+        for k in TRAIN_PATH:
+            check(counts[k]["launches"] == predicted[k],
+                  f"sharding host-mesh train: {k} launched "
+                  f"{counts[k]['launches']} times, {predicted[k]} predicted")
+        m2, p2, mu2 = _host_train(cut, batch, None)
+        check(torch.equal(m1["loss"], m2["loss"])
+              and torch.equal(m1["grad_norm"], m2["grad_norm"]),
+              f"sharding host-mesh train: loss {float(m1['loss'])} against "
+              f"{float(m2['loss'])}")
+        for n in p2:
+            check(torch.equal(p1[n], p2[n]) and torch.equal(mu1[n], mu2[n]),
+                  f"sharding host-mesh train: {n} differs")
+        print(f"[sharding] (b) host-mesh AdamW step, llama3.2-3b "
+              f"{SHARD_TRAIN_LAYERS} of 28 layers full width f32, batch "
+              f"{TRAIN_B} x {TRAIN_S}: loss {float(m1['loss']):.6f}, "
+              f"gradients (first moments) and parameters bit-equal to the "
+              f"unsharded step's; rmsnorm {counts['rmsnorm']['launches']}, "
+              f"rmsnorm_bwd {counts['rmsnorm_bwd']['launches']} launches "
+              f"(as predicted), no plain version")
+        del p1, p2, mu1, mu2
+        _free_device_memory()
+    finally:
+        ta.destroy_group()
+    _dryrun_on_the_card_machine()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4321,7 +4498,8 @@ def main() -> int:
                              f"layers)", phase_internvl2),
                             ("obs llama3.2-3b", phase_obs),
                             ("train", phase_train),
-                            (f"tp (TP={TP})", phase_tp)):
+                            (f"tp (TP={TP})", phase_tp),
+                            ("sharding", phase_sharding)):
         for kernel, n in timed(name, fn, *args).items():
             launches[kernel] += n
     kernels = []

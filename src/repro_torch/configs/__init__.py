@@ -13,7 +13,8 @@ empty. The paper's own models (``paper_models``: ``LLAMA3_8B``,
 ``QWEN_7B``) are imported as a module, not through the registry, as in
 the JAX package. ``SHAPES`` and ``InputShape`` (``shapes.py``, a copy)
 are the four assigned input shapes that the training script and the
-JAX package's launch tools name.
+launch tools (``launch/dryrun.py``) name; ``ARCH_IDS``, ``SKIPS`` and
+``all_pairs`` are the JAX registry's, in its order.
 """
 from __future__ import annotations
 
@@ -25,16 +26,26 @@ from . import (dbrx_132b, gemma3_4b, granite_8b, internvl2_76b,
 from .shapes import (DECODE_32K, LONG_500K, PREFILL_32K, SHAPES, TRAIN_4K,
                      InputShape)
 
-_CONFIGS = {"llama3.2-3b": llama3_2_3b.CONFIG,
-            "mamba2-370m": mamba2_370m.CONFIG,
-            "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b.CONFIG,
-            "dbrx-132b": dbrx_132b.CONFIG,
-            "jamba-v0.1-52b": jamba_v0_1_52b.CONFIG,
+# in the JAX registry's order (its ``ARCH_IDS``)
+_CONFIGS = {"qwen3-moe-30b-a3b": qwen3_moe_30b_a3b.CONFIG,
+            "llama3.2-3b": llama3_2_3b.CONFIG,
             "granite-8b": granite_8b.CONFIG,
+            "jamba-v0.1-52b": jamba_v0_1_52b.CONFIG,
+            "mamba2-370m": mamba2_370m.CONFIG,
+            "internvl2-76b": internvl2_76b.CONFIG,
+            "dbrx-132b": dbrx_132b.CONFIG,
             "starcoder2-15b": starcoder2_15b.CONFIG,
             "gemma3-4b": gemma3_4b.CONFIG,
-            "internvl2-76b": internvl2_76b.CONFIG,
             "whisper-medium": whisper_medium.CONFIG}
+
+ARCH_IDS = tuple(_CONFIGS)
+
+# (arch, shape) pairs that do not run, and why
+SKIPS = {
+    ("whisper-medium", "long_500k"):
+        "enc-dec over bounded 30s audio; decoder length bounded by "
+        "construction — no 500k decode exists for this family",
+}
 
 # the JAX registry's architectures the port does not serve, and what each
 # waits for: none
@@ -48,19 +59,32 @@ SWA_500K_ARCHS = frozenset({
 })
 
 
-def get_config(arch_id: str, shape: str | None = None) -> ModelConfig:
+def get_config(arch_id: str, shape: InputShape | str | None = None
+               ) -> ModelConfig:
     """The config of ``arch_id``, with the swa_500k variant applied when
-    ``shape`` (an input shape's name) is ``long_500k`` and the arch is
-    natively full attention, as the JAX registry resolves it."""
+    ``shape`` (an input shape or its name) is ``long_500k`` and the arch
+    is natively full attention, as the JAX registry resolves it."""
     if arch_id not in _CONFIGS:
         raise KeyError(f"unknown arch {arch_id!r}; the port serves "
                        f"{list(_CONFIGS)}")
     cfg = _CONFIGS[arch_id]
-    if shape == "long_500k" and arch_id in SWA_500K_ARCHS:
+    sname = shape.name if isinstance(shape, InputShape) else shape
+    if sname == "long_500k" and arch_id in SWA_500K_ARCHS:
         cfg = cfg.with_variant("swa_500k")
     return cfg
 
 
-__all__ = ["get_config", "NOT_PORTED", "SWA_500K_ARCHS", "SHAPES",
-           "InputShape", "TRAIN_4K", "PREFILL_32K", "DECODE_32K",
-           "LONG_500K"]
+def all_pairs():
+    """All (arch_id, shape) combinations minus ``SKIPS``, cheap to trace
+    first (decode < prefill < train), as the JAX registry orders them."""
+    cost = {"decode_32k": 0, "long_500k": 1, "prefill_32k": 2,
+            "train_4k": 3}
+    out = [(a, s) for a in ARCH_IDS for s in SHAPES.values()
+           if (a, s.name) not in SKIPS]
+    out.sort(key=lambda p: (cost.get(p[1].name, 9), p[0]))
+    return out
+
+
+__all__ = ["ARCH_IDS", "SKIPS", "get_config", "all_pairs", "NOT_PORTED",
+           "SWA_500K_ARCHS", "SHAPES", "InputShape", "TRAIN_4K",
+           "PREFILL_32K", "DECODE_32K", "LONG_500K"]

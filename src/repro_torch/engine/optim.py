@@ -15,7 +15,10 @@ JAX's does, the same objects updated.
 
 ``params`` is a ``Transformer`` (or any ``nn.Module``), whose
 ``named_parameters()`` name the leaves (``layers.3.attn.wq``), or a dict
-of tensors; the moments are dicts under the same names.
+of tensors; the moments are dicts under the same names. The parameters
+and gradients may be DTensors (a sharded train step): each moment then
+takes its parameter's placements (``zeros_like``), and every op of the
+update, the global norm's sums included, has a DTensor strategy.
 """
 from __future__ import annotations
 
@@ -51,7 +54,7 @@ def init_adamw(params: Params) -> AdamWState:
     dev = next(iter(leaves.values())).device
 
     def zeros():
-        return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {n: torch.zeros_like(p, dtype=torch.float32)
                 for n, p in leaves.items()}
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       mu=zeros(), nu=zeros())

@@ -17,6 +17,14 @@ attention kernels have no backward: on the kernel route they raise where
 an input requires a gradient, rather than hand back a result with no
 ``grad_fn``, which would drop the gradient without an error. Their plain
 versions are PyTorch ops and differentiate as such.
+
+DTensors (the sharded steps of ``distributed/sharding.py``) take the
+plain versions only: on the kernel route a DTensor raises, naming the op,
+and is never handed to a kernel's wrapper; the kernels on each rank's
+local shards wait for a card per rank. The plain versions run on
+DTensors as DTensor ops, except the scan, which runs on each rank's own
+(batch, head) shards (``local_map``): it is independent per batch row
+and head, and DTensor's einsum over its chunked form fails on shards.
 """
 from __future__ import annotations
 
@@ -24,6 +32,9 @@ import contextlib
 from typing import Dict, Iterator
 
 import torch
+
+from repro_torch.distributed.torch_api import (DTensor, Partial, Replicate,
+                                               Shard, is_dtensor, local_map)
 
 from . import build
 from . import chunked_prefill_attention as _cpa
@@ -58,14 +69,29 @@ def plain_versions() -> Iterator[None]:
         _force_plain = prev
 
 
-def _plain(name: str, device: torch.device) -> bool:
+def _plain(name: str, t: torch.Tensor) -> bool:
+    """Whether ``name`` runs its plain version for the lead input ``t``
+    (counted in ``plain_calls``); False means its kernel. Raises for a
+    DTensor on the kernel route and for a device without either."""
+    device = t.device
     if _force_plain or device.type == "cpu":
         with build.count_lock:
             plain_calls[name] += 1
         return True
+    _no_dtensor(name, t)
     if device.type == "cuda":
         return False
     raise ValueError(f"{name}: no implementation for device {device}")
+
+
+def _no_dtensor(name: str, t: torch.Tensor) -> None:
+    """Raise where a DTensor would take a kernel route."""
+    if is_dtensor(t) and not (_force_plain or t.device.type == "cpu"):
+        raise NotImplementedError(
+            f"{name}: a DTensor on the CUDA kernel route; the kernels run "
+            f"on plain tensors only (one card, or each rank's local "
+            f"shards), and a sharded program runs the plain versions "
+            f"(on the CPU, or inside kernels.ops.plain_versions())")
 
 
 def _no_backward(name: str, *tensors) -> None:
@@ -88,13 +114,13 @@ def paged_attention(q, k_pages, v_pages, block_table, lens, *,
     block_table: [B, n_pages] int32 (-1 = unused); lens: [B] int32.
     Returns [B, H, D] in q's dtype."""
     if k_scales is not None:
-        if _plain("paged_attention_int8", q.device):
+        if _plain("paged_attention_int8", q):
             return ref.paged_attention_ref(q, k_pages, v_pages, block_table,
                                            lens, k_scales, v_scales)
         _no_backward("paged_attention_int8", q, k_scales, v_scales)
         return _pa8.paged_attention_int8_cuda(q, k_pages, v_pages, k_scales,
                                               v_scales, block_table, lens)
-    if _plain("paged_attention", q.device):
+    if _plain("paged_attention", q):
         return ref.paged_attention_ref(q, k_pages, v_pages, block_table,
                                        lens)
     _no_backward("paged_attention", q, k_pages, v_pages)
@@ -116,7 +142,7 @@ def chunked_prefill_attention(q, k, v, *, q_offset: int = 0,
                                device=q.device)
         kv_lens = torch.full((B,), S if kv_len is None else kv_len,
                              dtype=torch.int32, device=q.device)
-    if _plain("chunked_prefill_attention", q.device):
+    if _plain("chunked_prefill_attention", q):
         return ref.chunked_prefill_attention_ref(q, k, v, q_offsets,
                                                  kv_lens, window=window)
     _no_backward("chunked_prefill_attention", q, k, v)
@@ -133,7 +159,7 @@ def rmsnorm(x, w, eps: float = 1e-5):
 
 
 def _rmsnorm(x, w, eps: float):
-    if _plain("rmsnorm", x.device):
+    if _plain("rmsnorm", x):
         return ref.rmsnorm_ref(x, w, eps)
     shape = x.shape
     out = _rms.rmsnorm_cuda(x.reshape(-1, shape[-1]).contiguous(),
@@ -144,7 +170,7 @@ def _rmsnorm(x, w, eps: float):
 def rmsnorm_bwd(x, w, dy, eps: float = 1e-5):
     """The gradient of ``rmsnorm`` at ``x`` for the output gradient
     ``dy`` (``x``'s shape and dtype): (dx in x's dtype, dw [D] fp32)."""
-    if _plain("rmsnorm_bwd", x.device):
+    if _plain("rmsnorm_bwd", x):
         return ref.rmsnorm_bwd_ref(x, w, dy, eps)
     D = x.shape[-1]
     dx, dw = _rms.rmsnorm_bwd_cuda(x.reshape(-1, D).contiguous(),
@@ -177,15 +203,59 @@ def ssd_scan(x, dt, A, B_, C_, init_state, *, chunk: int):
     version zero-pads to the chunk grid, the kernel reads the last chunk's
     tail as dt = 0 in place. Returns (y [Bt, S, nh, hd] f32, final state
     [Bt, nh, hd, ds] f32); differentiable in every input (``_SSDScan``),
-    the mixer's strided slices of its projection included."""
+    the mixer's strided slices of its projection included. DTensor
+    inputs scan each rank's own shards (``_scan_shards``)."""
+    if is_dtensor(x):
+        return _scan_shards(x, dt, A, B_, C_, init_state, chunk)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, A, B_, C_, init_state)):
         return _SSDScan.apply(x, dt, A, B_, C_, init_state, chunk)
     return _ssd_scan(x, dt, A, B_, C_, init_state, chunk)
 
 
+# per ssd_scan input and output: its dim that holds x's batch dim (0) and
+# head dim (2), where it has one; a mesh axis that shards x on either
+# shards each of these on that dim and replicates the rest
+_SCAN_DIMS = {"x": {0: 0, 2: 2}, "dt": {0: 0, 2: 2}, "A": {2: 0},
+              "B": {0: 0}, "C": {0: 0}, "h0": {0: 0, 2: 1}}
+
+
+def _scan_shards(x, dt, A, B_, C_, init_state, chunk: int):
+    """``ssd_scan`` over DTensors, each rank scanning its (batch, head)
+    shards with the plain version through ``local_map`` (a kernel on a
+    kernel route raises). A mesh axis that shards x on another dim is
+    gathered first; the outputs take x's batch and head placements. The
+    scan is independent per batch row and head, so the result is the
+    unsharded scan's, with no collective but those gathers."""
+    _no_dtensor("ssd_scan", x)
+    mesh = x.device_mesh
+    split = [p.dim if isinstance(p, Shard) and p.dim in (0, 2) else None
+             for p in x.placements]
+
+    def pl(which, grad=False):
+        # an input whole on an axis that splits x on a dim it lacks (A
+        # over the batch, B and C over the heads) gets the sum of each
+        # rank's part as its gradient
+        dims = _SCAN_DIMS[which]
+        return tuple(Replicate() if d is None else
+                     Shard(dims[d]) if d in dims else
+                     Partial() if grad else Replicate() for d in split)
+
+    names = ("x", "dt", "A", "B", "C", "h0")
+    fn = local_map(
+        lambda *a: ssd_scan(*a, chunk=chunk),
+        out_placements=(pl("x"), pl("h0")),
+        in_placements=tuple(pl(n) for n in names),
+        in_grad_placements=tuple(pl(n, grad=True) for n in names),
+        device_mesh=mesh, redistribute_inputs=True)
+    rep = (Replicate(),) * mesh.ndim    # a plain input (a fresh state)
+    return fn(*(t if is_dtensor(t) else
+                DTensor.from_local(t, mesh, rep, run_check=False)
+                for t in (x, dt, A, B_, C_, init_state)))
+
+
 def _ssd_scan(x, dt, A, B_, C_, init_state, chunk: int):
-    if _plain("ssd_scan", x.device):
+    if _plain("ssd_scan", x):
         return ref.ssd_scan_ref(x, dt, A, B_, C_, init_state, chunk)
     return _ssd.ssd_scan_cuda(x, dt, A, B_, C_, init_state, chunk)
 
@@ -195,7 +265,7 @@ def ssd_scan_bwd(x, dt, A, B_, C_, init_state, dy, dh, *, chunk: int):
     gradients ``dy`` ([Bt, S, nh, hd]) and ``dh`` ([Bt, nh, hd, ds]):
     (dx, ddt, dA, dB, dC, dh0), each its input's shape, dx, dB and dC in
     their input's dtype, the rest fp32."""
-    if _plain("ssd_scan_bwd", x.device):
+    if _plain("ssd_scan_bwd", x):
         return ref.ssd_scan_bwd_ref(x, dt, A, B_, C_, init_state, dy, dh,
                                     chunk)
     return _ssd.ssd_scan_bwd_cuda(x, dt, A, B_, C_, init_state, dy, dh,

@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.torch_api import einsum
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
@@ -54,12 +55,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 def _gqa_scores(q, k):
     """q: [B, Sq, KV, G, D], k: [B, Sk, KV, D] -> [B, KV, G, Sq, Sk] fp32."""
-    return torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float())
+    return einsum("bqkgd,bskd->bkgqs", q.float(), k.float())
 
 
 def _gqa_out(p, v):
     """p: [B, KV, G, Sq, Sk] fp32, v: [B, Sk, KV, D] -> [B, Sq, KV, G, D]."""
-    return torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return einsum("bkgqs,bskd->bqkgd", p, v.float())
 
 
 def _softmax_masked(scores, mask):

@@ -36,6 +36,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
+from repro_torch.distributed.torch_api import (Partial, Replicate, Shard,
+                                               einsum, is_dtensor, local_map)
+
 from .config import ModelConfig
 
 # the capacity rungs that ``moe_forward_grouped`` took in this process,
@@ -78,7 +81,11 @@ def _num_groups(T: int) -> int:
     return g
 
 
-def moe_forward(p: MoE, x, cfg: ModelConfig):
+def _no_constrain(t, kind):
+    return t
+
+
+def moe_forward(p: MoE, x, cfg: ModelConfig, constrain=_no_constrain):
     """The training path's capacity dispatch. x: ``[B, S, d]`` ->
     (``[B, S, d]``, metrics).
 
@@ -92,7 +99,13 @@ def moe_forward(p: MoE, x, cfg: ModelConfig):
     dropped) and the top-k rows combine in fp32 with the normalised gates.
     Metrics: ``moe_aux_loss = E * sum(me * ce)`` (the Switch load-balance
     loss: mean router probability times mean routed share, per expert)
-    and ``moe_drop_frac``, the share of replicas dropped."""
+    and ``moe_drop_frac``, the share of replicas dropped.
+
+    ``constrain(tensor, kind)`` (the training step's ``shard``) sees the
+    grouped input (``"moe_group"``, ``[G, Tg, d]``), both expert buffers
+    (``"expert_buffer"``, ``[G, E, C, d]``) and the output
+    (``"tokens"``), at JAX's points, and the gathered replicas of a
+    sharded step (``"moe_group"``; ``_ExpertShards``)."""
     m = cfg.moe
     B, S, D = x.shape
     T = B * S
@@ -101,9 +114,9 @@ def moe_forward(p: MoE, x, cfg: ModelConfig):
     Tg = T // G
     C = max(K, int(m.capacity_factor * Tg * K / E))
 
-    xg = x.reshape(G, Tg, D)
+    xg = constrain(x.reshape(G, Tg, D), "moe_group")
     with record_function("moe.router"):
-        logits = torch.einsum("gtd,de->gte", xg, p.router).float()
+        logits = einsum("gtd,de->gte", xg, p.router).float()
         probs = torch.softmax(logits, dim=-1)
         gate_vals, expert_idx = _top_k(probs, K)                # [G, Tg, K]
         gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(
@@ -118,27 +131,110 @@ def moe_forward(p: MoE, x, cfg: ModelConfig):
 
     gi = torch.arange(G, device=x.device)[:, None].expand(G, Tg * K)
     xk = xg.repeat_interleave(K, dim=1)                         # [G, TgK, D]
-    buf = torch.zeros((G, E, C + 1, D), dtype=x.dtype, device=x.device)
-    buf = buf.index_put((gi, ef, pos), xk, accumulate=True)[:, :, :C]
+    if is_dtensor(xk):
+        buf = _ExpertShards(xk, p.w_gate, E).dispatch(xk, ef, pos, C)
+    else:
+        buf = torch.zeros((G, E, C + 1, D), dtype=x.dtype, device=x.device)
+        buf = buf.index_put((gi, ef, pos), xk, accumulate=True)[:, :, :C]
+    buf = constrain(buf, "expert_buffer")
 
     with record_function("moe.experts"):
-        h = F.silu(torch.einsum("gecd,edf->gecf", buf, p.w_gate)) \
-            * torch.einsum("gecd,edf->gecf", buf, p.w_up)
-        out_buf = torch.einsum("gecf,efd->gecd", h, p.w_down)
+        h = F.silu(einsum("gecd,edf->gecf", buf, p.w_gate)) \
+            * einsum("gecd,edf->gecf", buf, p.w_up)
+        out_buf = einsum("gecf,efd->gecd", h, p.w_down)
         out_buf = F.pad(out_buf, (0, 0, 0, 1))                  # column C
+        out_buf = constrain(out_buf, "expert_buffer")
 
     with record_function("moe.combine"):
-        gathered = out_buf[gi, ef, pos]                         # [G, TgK, D]
+        if is_dtensor(out_buf):
+            gathered = constrain(_ExpertShards(xk, p.w_gate, E).gather(
+                out_buf, ef, pos), "moe_group")
+        else:
+            gathered = out_buf[gi, ef, pos]                     # [G, TgK, D]
         gathered = torch.where(keep[..., None], gathered, 0)
         combined = (gathered.reshape(G, Tg, K, D).float()
                     * gate_vals[..., None]).sum(dim=2)
-        out = combined.reshape(B, S, D).to(x.dtype)
+        out = constrain(combined.reshape(B, S, D).to(x.dtype), "tokens")
 
     me = probs.mean(dim=(0, 1))                                 # [E]
     ce = oh.float().mean(dim=(0, 1))                            # [E]
     aux = {"moe_aux_loss": E * torch.sum(me * ce),
            "moe_drop_frac": 1.0 - keep.float().mean()}
     return out, aux
+
+
+class _ExpertShards:
+    """The training dispatch's scatter and gather on DTensors, each rank
+    on its own shards (``local_map``): its groups (the mesh axes that
+    split the groups) and its experts (the axes that split the expert
+    weights' dim 0 and not the groups). A rank writes only the replicas
+    routed to its experts into its ``[G_l, E_l, C, d]`` buffer (the
+    others into a sink row it cuts away), and gathers only those back,
+    zeros elsewhere: the gathered rows are each rank's share of every
+    row (``Partial`` over the expert axes), reduced by the caller. Every
+    cell takes one replica, so the values are the unsharded dispatch's.
+    DTensor has no sharding of the scatter over group and expert dims:
+    it would gather the whole ``[G, E, C + 1, d]`` buffer on every
+    rank."""
+
+    def __init__(self, xk, w, E: int):
+        self.mesh = mesh = w.device_mesh
+        split = [i for i, pl in enumerate(xk.placements)
+                 if isinstance(pl, Shard) and pl.dim == 0]
+        experts = [i for i, pl in enumerate(w.placements)
+                   if isinstance(pl, Shard) and pl.dim == 0
+                   and i not in split]
+        rank = 0
+        for i in experts:
+            rank = rank * mesh.size(i) + mesh.get_local_rank(i)
+        n = 1
+        for i in experts:
+            n *= mesh.size(i)
+        self.E_l = E // n
+        self.e0 = rank * self.E_l
+
+        def pl(dims, other=Replicate()):
+            return tuple(Shard(0) if i in split else
+                         dims if i in experts else other
+                         for i in range(mesh.ndim))
+        self.rows = pl(Replicate())          # [G, TgK, ...]: groups split
+        self.rows_partial = pl(Partial())
+        self.buf = pl(Shard(1))              # [G, E, C, d]
+
+    def _local(self, ef):
+        el = ef - self.e0
+        on = (el >= 0) & (el < self.E_l)
+        return torch.where(on, el, self.E_l), on
+
+    def dispatch(self, xk, ef, pos, C: int):
+        def local(xk, ef, pos):
+            G_l, TgK, D = xk.shape
+            el, _ = self._local(ef)
+            gi = torch.arange(G_l, device=xk.device)[:, None].expand(G_l,
+                                                                     TgK)
+            buf = torch.zeros((G_l, self.E_l + 1, C + 1, D),
+                              dtype=xk.dtype, device=xk.device)
+            buf = buf.index_put((gi, el, pos), xk, accumulate=True)
+            return buf[:, :self.E_l, :C]
+        return local_map(local, out_placements=list(self.buf),
+                         in_placements=(self.rows,) * 3,
+                         in_grad_placements=(self.rows_partial, self.rows,
+                                             self.rows),
+                         device_mesh=self.mesh,
+                         redistribute_inputs=True)(xk, ef, pos)
+
+    def gather(self, out_buf, ef, pos):
+        def local(ob, ef, pos):
+            G_l, TgK = ef.shape
+            el, on = self._local(ef)
+            gi = torch.arange(G_l, device=ob.device)[:, None].expand(G_l,
+                                                                     TgK)
+            rows = ob[gi, torch.where(on, el, 0), pos]
+            return torch.where(on[..., None], rows, 0)
+        return local_map(local, out_placements=list(self.rows_partial),
+                         in_placements=(self.buf, self.rows, self.rows),
+                         device_mesh=self.mesh,
+                         redistribute_inputs=True)(out_buf, ef, pos)
 
 
 def _capacity_ladder(TK: int, E: int):
@@ -192,10 +288,6 @@ def _combine(gates, eo):
     gates (exact zeros off the top k)."""
     with record_function("moe.combine"):
         return torch.einsum("bse,bsed->bsd", gates.to(eo.dtype), eo)
-
-
-def _no_constrain(t, kind):
-    return t
 
 
 def moe_forward_grouped(p: MoE, x, cfg: ModelConfig,

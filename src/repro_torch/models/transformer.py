@@ -54,6 +54,8 @@ frontend is the stub that zeroes each prefill chunk's leading
 """
 from __future__ import annotations
 
+import functools
+from types import SimpleNamespace
 from typing import Callable, Dict, List, Mapping, NamedTuple, Optional
 
 import torch
@@ -61,6 +63,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.torch_api import (Partial, Replicate, Shard,
+                                               einsum, is_dtensor, local_map,
+                                               local_offset)
 from repro_torch.kernels import ops
 
 from .config import ATTN, DENSE, MAMBA, MOE, NONE, SWA, LayerSpec, ModelConfig
@@ -330,7 +335,10 @@ def _dequant(c):
 
 def _rows(c, n: int):
     """The first ``n`` rows of every field of a cache tuple (views): the
-    rows a batch of ``n`` reads, without the sink."""
+    rows a batch of ``n`` reads, without the sink. A cache of ``n`` rows
+    (a sharded step's, which has no sink) is returned as it is."""
+    if c[0].shape[0] == n:
+        return c
     return type(c)(*(a[:n] for a in c))
 
 
@@ -462,7 +470,10 @@ def _write_cache(c, k_new, v_new, start_pos, valid=None,
     optional) masks bucketed-serving tail padding: pad tokens must not
     write at all (a padded decode row would wrap the ring and overwrite
     live low positions). JAX routes them to slot index R, which its
-    scatter drops; here they go to the sink, the cache's last row."""
+    scatter drops; here they go to the sink, the cache's last row. A
+    DTensor cache is written shard by shard (``_write_cache_shards``)."""
+    if is_dtensor(c.k):
+        return _write_cache_shards(c, k_new, v_new, start_pos, valid)
     B, S = k_new.shape[:2]
     R = c.k.shape[1]
     dev = k_new.device
@@ -484,6 +495,52 @@ def _write_cache(c, k_new, v_new, start_pos, valid=None,
         return
     c.k.index_put_(idx, k_new.to(c.k.dtype))
     c.v.index_put_(idx, v_new.to(c.v.dtype))
+
+
+def _write_cache_shards(c, k_new, v_new, start_pos, valid) -> None:
+    """``_write_cache`` into a DTensor cache (a sharded step's: no sink
+    row, each field ``[B, R, ...]`` sharded on its batch and slot dims):
+    each rank writes the slots of its own shard, in place. Slot ``r`` of
+    row ``b`` takes token ``s = (r - start_pos[b]) mod R`` where ``s <
+    S`` (and ``valid[b, s]``), the token that ``_write_cache``'s scatter
+    puts there; the others keep their value. A select over the shard,
+    not a scatter, because DTensor has no sharding of an in-place
+    scatter over sharded dims; the bits are the scatter's. The new
+    tokens are gathered to every rank of the slot axes first (their
+    bytes are the tokens', not the cache's). A chunk longer than the ring
+    would map two tokens to one slot, which this select does not order
+    as the scatter does, so it is refused."""
+    S, R = k_new.shape[1], c.k.shape[1]
+    assert S <= R, f"a chunk of {S} tokens overruns the cache's ring of {R}"
+    mesh, pls = c.k.device_mesh, c.k.placements
+    rows = tuple(Shard(0) if isinstance(p, Shard) and p.dim == 0
+                 else Replicate() for p in pls)
+
+    def local(t):
+        return t.redistribute(mesh, rows).to_local() if is_dtensor(t) \
+            else t
+    kn, vn, sp = local(k_new), local(v_new), local(start_pos)
+    slot0 = local_offset(c.k)[1]
+    loc = type(c)(*(f.to_local() for f in c))
+    r = slot0 + torch.arange(loc.k.shape[1], device=kn.device)
+    s = (r[None, :] - sp[:, None].long()) % R             # [b, r_loc]
+    hit = s < S
+    s = torch.where(hit, s, 0)
+    if valid is not None:
+        hit = hit & torch.gather(local(valid), 1, s)
+    loc.pos.copy_(torch.where(hit, (sp[:, None] + s).to(torch.int32),
+                              loc.pos))
+    if isinstance(c, QuantAttnCache):
+        (kn, ks), (vn, vs) = _quantize(kn), _quantize(vn)
+        pairs = ((loc.k, kn), (loc.v, vn), (loc.k_scale, ks),
+                 (loc.v_scale, vs))
+    else:
+        pairs = ((loc.k, kn.to(loc.k.dtype)), (loc.v, vn.to(loc.v.dtype)))
+    for dst, src in pairs:
+        idx = s.reshape(*s.shape, *(1,) * (src.dim() - 2)).expand(
+            *s.shape, *src.shape[2:])
+        m = hit.reshape(*hit.shape, *(1,) * (src.dim() - 2))
+        dst.copy_(torch.where(m, torch.gather(src, 1, idx), dst))
 
 
 def _paged_write(c: PagedAttnCache, k_new, v_new, start_pos, bt,
@@ -554,9 +611,9 @@ def _qkv(p: Attention, cfg: ModelConfig, x, start_pos):
     """The projections of x ([B, S, d]) at positions ``start_pos[b] +
     i``, RoPE applied to q and k: (q, k, v, the positions [B, S])."""
     S = x.shape[1]
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk)
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv)
+    q = einsum("bsd,dhk->bshk", x, p.wq)
+    k = einsum("bsd,dhk->bshk", x, p.wk)
+    v = einsum("bsd,dhk->bshk", x, p.wv)
     qpos = start_pos[:, None] + torch.arange(S, device=x.device)[None]
     return (apply_rope(q, qpos, cfg.rope_theta),
             apply_rope(k, qpos, cfg.rope_theta), v, qpos)
@@ -649,26 +706,28 @@ def _apply_ffn(p: Layer, cfg: ModelConfig, spec, x,
     ``train``: a MoE layer runs the capacity dispatch ``moe_forward``,
     and the result is ``(x, aux)`` with its metrics (``{}`` for the
     others), as JAX's ``_apply_ffn`` without ``serve``. ``shard``: the
-    serve forward's seam, which the dense FFN (``tp_ffn``) and the MoE
-    (``tp_expert_ids``, ``tp_experts``) call."""
+    forward's seam, which the serving dense FFN (``tp_ffn``) and MoE
+    (``tp_expert_ids``, ``tp_experts``) call, and the training MoE
+    (``moe_group``, ``expert_buffer``, ``tokens``); the training dense
+    FFN does not, as in JAX."""
     aux: Dict = {}
     if spec.ffn == NONE:
         return (x, aux) if train else x
-    h = rmsnorm(x, p.norm2, cfg.norm_eps)
+    h = shard(rmsnorm(x, p.norm2, cfg.norm_eps), "gathered")
     if spec.ffn == MOE:
         if train:
-            out, aux = moe_forward(p.moe, h, cfg)
+            out, aux = moe_forward(p.moe, h, cfg, constrain=shard)
         else:
             out = MOE_IMPLS[moe_impl](p.moe, h, cfg, shard)
     else:
         f = p.ffn
         out = swiglu(h, f.w_gate.to(x.dtype), f.w_up.to(x.dtype),
-                     f.w_down.to(x.dtype), shard)
+                     f.w_down.to(x.dtype), None if train else shard)
     return (x + out, aux) if train else x + out
 
 
 def _embed(params: Transformer, cfg: ModelConfig, tokens,
-           frontend_embeds=None):
+           frontend_embeds=None, shard=_identity_shard):
     """The token embeddings; with a vision frontend and its stub
     ``frontend_embeds`` ([B, n, d]), the leading ``n`` positions carry
     the patch embeddings instead. Where the chunk is shorter than ``n``
@@ -677,8 +736,17 @@ def _embed(params: Transformer, cfg: ModelConfig, tokens,
     lookup is ``F.embedding``, whose backward adds a row's gradients in
     a fixed order (the index op's backward, ``index_put_`` with
     ``accumulate``, does not, even on the CPU), so a training step is
-    reproducible bit for bit."""
-    x = torch.nn.functional.embedding(tokens.long(), params.embed)
+    reproducible bit for bit. Two points of the ``shard`` seam that JAX
+    does not have: the table passes ``shard(table, "embed_table")``
+    before the lookup and the rows ``shard(x, "embedded")`` after it. A
+    sharded program gathers the table's data-axis (FSDP) shards at the
+    first and reduces the lookup's partial rows (a vocab-sharded table
+    gives each rank the rows of its own vocabulary slice) at the second:
+    DTensor's lookup takes neither a table sharded on two axes nor a
+    reduction of those partial rows straight into a sharded layout."""
+    x = torch.nn.functional.embedding(tokens.long(),
+                                      shard(params.embed, "embed_table"))
+    x = shard(x, "embedded")
     if frontend_embeds is not None and cfg.frontend is not None \
             and cfg.frontend.kind == "vision":
         n = min(frontend_embeds.shape[1], x.shape[1])
@@ -686,9 +754,30 @@ def _embed(params: Transformer, cfg: ModelConfig, tokens,
     return x
 
 
-def _lm_head(params: Transformer, cfg: ModelConfig, x):
+def _lm_head(params: Transformer, cfg: ModelConfig, x,
+             shard=_identity_shard):
+    """The head's product; its weight passes ``shard(w, "weight")`` (see
+    ``_weights``)."""
     w = params.lm_head if params.lm_head is not None else params.embed.T
-    return torch.einsum("bsd,dv->bsv", x, w)
+    return einsum("bsd,dv->bsv", x, shard(w, "weight"))
+
+
+def _weights(p: nn.Module, shard):
+    """``p`` (a layer) as its forward reads it: with the identity seam
+    ``p`` itself; else a mirror of its attributes whose every weight
+    passed ``shard(w, "weight")``, where a sharded step gathers the
+    weight's FSDP (data-axis) shards for the layer's use, as FSDP does
+    (its backward reduce-scatters the gradient). A point of the port's
+    own: DTensor would otherwise pick a product's layout from the
+    weight's, and may split a flattened head dim the heads do not
+    divide."""
+    if shard is _identity_shard:
+        return p
+    ns = SimpleNamespace(**{n: _weights(c, shard)
+                            for n, c in p.named_children()})
+    for n, w in p.named_parameters(recurse=False):
+        setattr(ns, n, shard(w, "weight"))
+    return ns
 
 
 # ================================================================ offline
@@ -702,14 +791,14 @@ def _pos_masked_attention(q, cache, qpos, window):
     G = H // KV
     ck, cv = _dequant(cache)
     qf = q.reshape(B, S, KV, G, D)
-    s = torch.einsum("bqkgd,brkd->bkgqr", qf.float(),
-                     ck.to(q.dtype).float()) * D ** -0.5
+    s = einsum("bqkgd,brkd->bkgqr", qf.float(),
+               ck.to(q.dtype).float()) * D ** -0.5
     kvpos = cache.pos                                       # [B, R]
     mask = (kvpos[:, None, :] >= 0) & (kvpos[:, None, :] <= qpos[:, :, None])
     if window is not None:
         mask = mask & (qpos[:, :, None] - kvpos[:, None, :] < window)
     pr = _softmax_masked(s, mask[:, None, None])            # [B,1,1,S,R]
-    o = torch.einsum("bkgqr,brkd->bqkgd", pr, cv.float())
+    o = einsum("bkgqr,brkd->bqkgd", pr, cv.float())
     return o.to(q.dtype).reshape(B, S, H, D)
 
 
@@ -731,16 +820,21 @@ def _pos_masked_attention_blocked(q, cache, qpos, window,
 
 
 def _attn_cached(p: Attention, cfg: ModelConfig, spec, x, cache, start_pos,
-                 decode: bool, fresh: bool = False, valid=None):
+                 decode: bool, fresh: bool = False, valid=None,
+                 shard=_identity_shard):
     """Cached attention over a written cache (prefill chunk or decode).
     x: [B, S, D]; start_pos: [B]. The new tokens are written first
     (``_write_cache``, in place), then read.
 
     fresh=True (from-scratch full-prompt prefill, start_pos == 0):
     attention runs over the locally computed k/v and the cache is only
-    written, as in JAX."""
+    written, as in JAX. The queries pass ``shard(q, "attn_q")`` (a
+    point of the port's own): the attention views them as ``[.., KV, G,
+    ..]``, and a sharded step gathers their heads where the kv heads do
+    not divide the model axis."""
     S = x.shape[1]
     q, k, v, qpos = _qkv(p, cfg, x, start_pos)
+    q = shard(q, "attn_q")
     _write_cache(cache, k, v, start_pos, valid=valid)
     window = spec.window if spec.mixer == SWA else None
     if fresh and not decode:
@@ -753,26 +847,59 @@ def _attn_cached(p: Attention, cfg: ModelConfig, spec, x, cache, start_pos,
         o = _pos_masked_attention(q, cache, qpos, window)
     else:
         o = _pos_masked_attention_blocked(q, cache, qpos, window)
-    return torch.einsum("bshk,hkd->bsd", o, p.wo)
+    o = shard(o, "tp_heads")
+    return einsum("bshk,hkd->bsd", o, p.wo)
 
 
 def _attn_train(p: Attention, cfg: ModelConfig, spec, x,
-                causal: bool = True):
+                causal: bool = True, shard=_identity_shard):
     """Cache-free attention (the encoder's, bidirectional with
-    ``causal=False``). The weights are cast to x's dtype, as in JAX."""
+    ``causal=False``). The weights are cast to x's dtype, as in JAX.
+    Two points of the port's own: the queries pass ``shard(q,
+    "attn_q")`` and the keys and values ``shard(t, "gathered")``; a
+    sharded train step keeps the queries' sequence split as the
+    residual's and gathers the keys' and values' (``_attention``)."""
     B, S, _ = x.shape
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv.to(x.dtype))
+    q = einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
+    k = einsum("bsd,dhk->bshk", x, p.wk.to(x.dtype))
+    v = einsum("bsd,dhk->bshk", x, p.wv.to(x.dtype))
     pos = torch.arange(S, device=x.device)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
-    if spec.mixer == SWA and causal:
-        o = swa_blocked_attention(q, k, v, q_offset=0, kv_len=S,
-                                  window=spec.window)
-    else:
-        o = blocked_attention(q, k, v, q_offset=0, kv_len=S, causal=causal)
-    return torch.einsum("bshk,hkd->bsd", o, p.wo.to(x.dtype))
+    q = shard(apply_rope(q, pos, cfg.rope_theta), "attn_q")
+    k = shard(apply_rope(k, pos, cfg.rope_theta), "gathered")
+    o = _attention(q, k, shard(v, "gathered"), causal,
+                   spec.window if spec.mixer == SWA and causal else None)
+    return einsum("bshk,hkd->bsd", o, p.wo.to(x.dtype))
+
+
+def _attention(q, k, v, causal: bool, window):
+    """``blocked_attention`` (``swa_blocked_attention`` with a
+    ``window``) of q over the whole of k and v, from position 0. On
+    DTensors each rank attends with its own query rows (``local_map``):
+    its shard of the batch, of the sequence (at its own offset, which the
+    causal mask reads) and of the heads, over the keys and values of its
+    batch rows and kv heads, whole along the sequence. Rows are
+    independent, so no collective is needed but the placement of k and
+    v; their gradients are each rank's share, summed."""
+    def attend(q, k, v, offset=0):
+        if window is not None:
+            return swa_blocked_attention(q, k, v, q_offset=offset,
+                                         kv_len=k.shape[1], window=window)
+        return blocked_attention(q, k, v, q_offset=offset,
+                                 kv_len=k.shape[1], causal=causal)
+    if not is_dtensor(q):
+        return attend(q, k, v)
+    mesh = q.device_mesh
+    split = [p.dim if isinstance(p, Shard) else None for p in q.placements]
+    kv_pl = tuple(Shard(d) if d in (0, 2) else Replicate() for d in split)
+    kv_grad = tuple(Partial() if d == 1 else pl
+                    for d, pl in zip(split, kv_pl))
+    q_pl = tuple(Replicate() if d is None else Shard(d) for d in split)
+    fn = local_map(functools.partial(attend, offset=local_offset(q)[1]),
+                   out_placements=list(q_pl),
+                   in_placements=(q_pl, kv_pl, kv_pl),
+                   in_grad_placements=(q_pl, kv_grad, kv_grad),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(q, k, v)
 
 
 def _cross_attn(p: Attention, cfg: ModelConfig, x, cc: AttnCache):
@@ -780,7 +907,7 @@ def _cross_attn(p: Attention, cfg: ModelConfig, x, cc: AttnCache):
     rows ``[:B]`` of the cross cache."""
     B, S, _ = x.shape
     cc = _rows(cc, B)
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    q = einsum("bsd,dhk->bshk", x, p.wq)
     KV = cc.k.shape[2]
     G = cfg.num_heads // KV
     qf = q.reshape(B, S, KV, G, cfg.head_dim)
@@ -789,18 +916,20 @@ def _cross_attn(p: Attention, cfg: ModelConfig, x, cc: AttnCache):
     pr = _softmax_masked(s, mask)
     o = _gqa_out(pr, cc.v).to(x.dtype).reshape(B, S, cfg.num_heads,
                                                cfg.head_dim)
-    return torch.einsum("bshk,hkd->bsd", o, p.wo)
+    return einsum("bshk,hkd->bsd", o, p.wo)
 
 
-def _encoder_forward(params: Transformer, cfg: ModelConfig, frames):
+def _encoder_forward(params: Transformer, cfg: ModelConfig, frames,
+                     shard=_identity_shard):
     """Bidirectional encoder over stub frame embeddings [B, P, D], in
-    the frames' dtype (fp32 from the engines' stub, as in JAX)."""
+    the frames' dtype (fp32 from the engines' stub, as in JAX); each
+    layer's output passes ``shard(x, "residual")``."""
     spec = LayerSpec(ATTN, DENSE)
     x = frames
     for p in params.encoder.layers:
         h = rmsnorm(x, p.norm1, cfg.norm_eps)
-        x = x + _attn_train(p.attn, cfg, spec, h, causal=False)
-        x = _apply_ffn(p, cfg, spec, x)
+        x = x + _attn_train(p.attn, cfg, spec, h, causal=False, shard=shard)
+        x = shard(_apply_ffn(p, cfg, spec, x), "residual")
     return rmsnorm(x, params.encoder.final_norm, cfg.norm_eps)
 
 
@@ -817,8 +946,8 @@ def _cross_caches_train(params: Transformer, cfg: ModelConfig,
     ccs = []
     for li in range(cfg.num_layers):
         p = params.layers[li].cross
-        k = torch.einsum("bpd,dhk->bphk", enc_out, p.wk.to(enc_out.dtype))
-        v = torch.einsum("bpd,dhk->bphk", enc_out, p.wv.to(enc_out.dtype))
+        k = einsum("bpd,dhk->bphk", enc_out, p.wk.to(enc_out.dtype))
+        v = einsum("bpd,dhk->bphk", enc_out, p.wv.to(enc_out.dtype))
         ccs.append(AttnCache(k=k.to(torch.bfloat16), v=v.to(torch.bfloat16),
                              pos=pos))
     return ccs
@@ -832,17 +961,17 @@ def _build_cross_caches(params: Transformer, cfg: ModelConfig, enc_out,
     for li in range(cfg.num_layers):
         p = params.layers[li].cross
         old = cache["cross"][li]
-        old.k[:B] = torch.einsum("bpd,dhk->bphk", enc_out,
-                                 p.wk.to(enc_out.dtype))
-        old.v[:B] = torch.einsum("bpd,dhk->bphk", enc_out,
-                                 p.wv.to(enc_out.dtype))
+        old.k[:B] = einsum("bpd,dhk->bphk", enc_out,
+                           p.wk.to(enc_out.dtype))
+        old.v[:B] = einsum("bpd,dhk->bphk", enc_out,
+                           p.wv.to(enc_out.dtype))
     return cache["cross"]
 
 
 def _decoder_block(p: Layer, cfg: ModelConfig, spec, x, layer_cache,
                    start_pos, decode: bool, cross_cache=None,
                    fresh: bool = False, seq_lens=None, valid=None,
-                   train: bool = False):
+                   train: bool = False, shard=_identity_shard):
     """One layer of the offline path over rows ``[:B]`` of its cache,
     updated in place. ``valid`` ([B, 1], decode only): rows where it is
     False neither write KV nor advance their Mamba state.
@@ -850,17 +979,26 @@ def _decoder_block(p: Layer, cfg: ModelConfig, spec, x, layer_cache,
     ``train``: the training forward's layer, which returns ``(x, aux)``
     (the MoE metrics) and writes nothing: cache-free attention
     (``_attn_train``), ``mamba_forward`` from ``layer_cache`` (a fresh
-    state; the new one is dropped), the training ``moe_forward``."""
+    state; the new one is dropped), the training ``moe_forward``. The
+    block's output passes ``shard(x, "residual")``, as in JAX. The
+    normed input of a Mamba mixer, the cross-attention and the FFN passes
+    ``shard(h, "gathered")``, a point of the port's own: a sharded train
+    step gathers the sequence-parallel residual's sequence there (and
+    its backward reduce-scatters), as sequence parallelism does around
+    its products; the attention keeps its queries' split
+    (``_attn_train``)."""
     h = rmsnorm(x, p.norm1, cfg.norm_eps)
     if train:
         if spec.mixer == MAMBA:
-            x = x + mamba_forward(p.mamba, h, cfg, layer_cache)[0]
+            x = x + mamba_forward(p.mamba, shard(h, "gathered"), cfg,
+                                  layer_cache)[0]
         else:
-            x = x + _attn_train(p.attn, cfg, spec, h)
+            x = x + _attn_train(p.attn, cfg, spec, h, shard=shard)
         if cross_cache is not None:
-            hc = rmsnorm(x, p.norm_cross, cfg.norm_eps)
+            hc = shard(rmsnorm(x, p.norm_cross, cfg.norm_eps), "gathered")
             x = x + _cross_attn(p.cross, cfg, hc, cross_cache)
-        return _apply_ffn(p, cfg, spec, x, train=True)
+        x, aux = _apply_ffn(p, cfg, spec, x, train=True, shard=shard)
+        return shard(x, "residual"), aux
     if spec.mixer == MAMBA:
         st = _rows(layer_cache, x.shape[0])
         if decode:
@@ -877,15 +1015,15 @@ def _decoder_block(p: Layer, cfg: ModelConfig, spec, x, layer_cache,
         x = x + out
     else:
         x = x + _attn_cached(p.attn, cfg, spec, h, layer_cache, start_pos,
-                             decode, fresh=fresh, valid=valid)
+                             decode, fresh=fresh, valid=valid, shard=shard)
     if cross_cache is not None:
         hc = rmsnorm(x, p.norm_cross, cfg.norm_eps)
         x = x + _cross_attn(p.cross, cfg, hc, cross_cache)
-    return _apply_ffn(p, cfg, spec, x)
+    return shard(_apply_ffn(p, cfg, spec, x, shard=shard), "residual")
 
 
 def forward_train(params: Transformer, cfg: ModelConfig, batch: Dict,
-                  remat: bool = True):
+                  shard=_identity_shard, remat: bool = True):
     """The training forward, as the JAX ``forward_train``. batch:
     ``{"tokens": [B, S]}``, with ``"frontend_embeds"`` ([B, n, d], the
     vision stub) or ``"frames"`` ([B, P, d], an encoder-decoder model's
@@ -898,12 +1036,17 @@ def forward_train(params: Transformer, cfg: ModelConfig, batch: Dict,
     encoder-decoder model's cross K/V are new tensors). ``remat``: each
     layer runs under ``torch.utils.checkpoint`` (non-reentrant), which
     keeps its input and recomputes the rest in the backward pass, as
-    ``jax.checkpoint`` does; the result is the same, bit for bit."""
+    ``jax.checkpoint`` does; the result is the same, bit for bit.
+    ``shard``: the ``shard(t, kind)`` seam of a sharded step
+    (``distributed.sharding.ShardingRules.shard_fn``), called at JAX's
+    points: ``"residual"`` after the embedding and each block,
+    ``"logits"`` on the head."""
     tokens = batch["tokens"]
-    x = _embed(params, cfg, tokens, batch.get("frontend_embeds"))
+    x = _embed(params, cfg, tokens, batch.get("frontend_embeds"), shard)
+    x = shard(x, "residual")
     cross = None
     if cfg.is_encdec:
-        enc_out = _encoder_forward(params, cfg, batch["frames"])
+        enc_out = _encoder_forward(params, cfg, batch["frames"], shard)
         cross = _cross_caches_train(params, cfg, enc_out)
     aux_all: Dict = {}
     for li, spec in enumerate(cfg.layers):
@@ -912,8 +1055,9 @@ def forward_train(params: Transformer, cfg: ModelConfig, batch: Dict,
         cc = cross[li] if cross is not None else None
 
         def block(x, p=params.layers[li], spec=spec, state=state, cc=cc):
-            return _decoder_block(p, cfg, spec, x, state, None, decode=False,
-                                  cross_cache=cc, train=True)
+            return _decoder_block(_weights(p, shard), cfg, spec, x, state,
+                                  None, decode=False, cross_cache=cc,
+                                  train=True, shard=shard)
 
         if remat:
             x, aux = checkpoint(block, x, use_reentrant=False)
@@ -922,13 +1066,26 @@ def forward_train(params: Transformer, cfg: ModelConfig, batch: Dict,
         for k, v in aux.items():
             aux_all[k] = aux_all.get(k, 0.0) + v / cfg.num_layers
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
-    return _lm_head(params, cfg, x), aux_all
+    return shard(_lm_head(params, cfg, x, shard), "logits"), aux_all
 
 
-@torch.inference_mode()
+def _offline(fn):
+    """Run ``fn(params, ...)`` under ``torch.inference_mode()``, or under
+    ``torch.no_grad()`` where the parameters are DTensors (a sharded
+    step): a DTensor's views cannot be made in inference mode. Neither
+    changes a number."""
+    @functools.wraps(fn)
+    def run(params, *args, **kwargs):
+        with torch.no_grad() if is_dtensor(params.embed) \
+                else torch.inference_mode():
+            return fn(params, *args, **kwargs)
+    return run
+
+
+@_offline
 def prefill(params: Transformer, cfg: ModelConfig, cache: Dict, tokens,
             start_pos, batch_extras=None, fresh: bool = False,
-            seq_lens=None):
+            seq_lens=None, shard=_identity_shard):
     """Process a prefill chunk. tokens: [B, S]; start_pos: [B] (= current
     cache lengths); rows ``[:B]`` of ``cache`` are updated in place and
     ``cache["len"][:B]`` advances by S. ``fresh``: from-scratch
@@ -937,44 +1094,49 @@ def prefill(params: Transformer, cfg: ModelConfig, cache: Dict, tokens,
     tokens must not advance Mamba recurrences; attention-side padding is
     the caller's length bookkeeping). ``batch_extras``: the stubs'
     ``frontend_embeds`` and, for an encoder-decoder model, ``frames``,
-    which run the encoder and rebuild the cross caches. Returns
-    (logits [B, S, Vp], cache)."""
+    which run the encoder and rebuild the cross caches. ``shard``: as in
+    ``forward_train``. Returns (logits [B, S, Vp], cache)."""
     batch_extras = batch_extras or {}
-    x = _embed(params, cfg, tokens, batch_extras.get("frontend_embeds"))
+    x = _embed(params, cfg, tokens, batch_extras.get("frontend_embeds"),
+               shard)
+    x = shard(x, "residual")
     if cfg.is_encdec and "frames" in batch_extras:
-        enc_out = _encoder_forward(params, cfg, batch_extras["frames"])
+        enc_out = _encoder_forward(params, cfg, batch_extras["frames"],
+                                   shard)
         _build_cross_caches(params, cfg, enc_out, cache)
     for li, spec in enumerate(cfg.layers):
         cc = cache["cross"][li] if cfg.is_encdec else None
         x = _decoder_block(params.layers[li], cfg, spec, x,
                            cache["layers"][li], start_pos, decode=False,
-                           cross_cache=cc, fresh=fresh, seq_lens=seq_lens)
+                           cross_cache=cc, fresh=fresh, seq_lens=seq_lens,
+                           shard=shard)
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
-    logits = _lm_head(params, cfg, x)
+    logits = shard(_lm_head(params, cfg, x), "logits")
     cache["len"][:tokens.shape[0]] += tokens.shape[1]
     return logits, cache
 
 
-@torch.inference_mode()
+@_offline
 def decode_step(params: Transformer, cfg: ModelConfig, cache: Dict, token,
-                active=None):
+                active=None, shard=_identity_shard):
     """One decode iteration. token: [B, 1] (last sampled token), at
     positions ``cache["len"][:B]``. ``active`` ([B] bool, optional):
     rows where it is False compute but neither write KV, nor advance
     their Mamba state or length (their writes go to the sink), the
     in-place form of the JAX reference engine's post-step select.
-    Returns (logits [B, 1, Vp], cache)."""
+    ``shard``: as in ``forward_train`` (nothing after the embedding, as
+    in JAX). Returns (logits [B, 1, Vp], cache)."""
     B = token.shape[0]
     start_pos = cache["len"][:B].clone()
     valid = None if active is None else active[:, None]
-    x = _embed(params, cfg, token)
+    x = _embed(params, cfg, token, shard=shard)
     for li, spec in enumerate(cfg.layers):
         cc = cache["cross"][li] if cfg.is_encdec else None
         x = _decoder_block(params.layers[li], cfg, spec, x,
                            cache["layers"][li], start_pos, decode=True,
-                           cross_cache=cc, valid=valid)
+                           cross_cache=cc, valid=valid, shard=shard)
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
-    logits = _lm_head(params, cfg, x)
+    logits = shard(_lm_head(params, cfg, x), "logits")
     cache["len"][:B] += 1 if active is None else active.to(torch.int32)
     return logits, cache
 

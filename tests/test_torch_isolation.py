@@ -300,3 +300,24 @@ def test_the_probe_walks_the_tp_slice():
             "repro_torch.distributed.worker"} <= names
     assert PORT / "distributed" / "worker.py" in _sources()
     assert worker.main.__module__ == "repro_torch.distributed.worker"
+
+
+def test_the_probe_walks_the_sharding_slice():
+    """The import probe walks the sharding rules, the steps' DTensor
+    seam and the launch tools (none of which may import JAX or the JAX
+    package), and the host mesh defaults to the card."""
+    import pkgutil
+
+    import repro_torch
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.distributed.sharding",
+            "repro_torch.distributed.torch_api",
+            "repro_torch.launch.mesh", "repro_torch.launch.specs",
+            "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+            "repro_torch.launch.hillclimb"} <= names
+    if not torch.cuda.is_available():
+        from repro_torch.launch.mesh import make_host_mesh
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_host_mesh()
+        assert not torch.distributed.is_initialized()
