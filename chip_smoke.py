@@ -35,8 +35,10 @@ Phases, each of which fails the run if it fails:
    scan at one
    chunk, at a ragged length read in place and at d_state 16 (nh 128);
    the scan's backward against ``ssd_scan_bwd_ref`` in f32 and bf16 at
-   mamba2-370m's widths (1 x 1024), jamba-v0.1's (nh 128, d_state 16) and
-   2 x 700 with a zero-dt tail (no library call computes it); the static
+   mamba2-370m's widths (1 and 2 x 1024), jamba-v0.1's (nh 128, d_state
+   16), small_100m's (8 x 128, chunk 64) and 2 x 700 with a zero-dt tail
+   (no library call computes it), beside the bound of its tensor-core
+   products and the first version's fp32 bound; the static
    mode of the prefill kernel timed beside SDPA;
    and the kernels' invariance bit for bit on the card: each decode row
    served alone against the same row in the 8-row batch and the 32-page
@@ -44,7 +46,7 @@ Phases, each of which fails the run if it fails:
    int8 pages), each prefill row and each scan row alone against the same
    row in the 4-row batch, norm rows alone against the same rows of
    [8, D] and [1024, D], the scan's backward rows (dx, ddt, dB, dC, dh0)
-   alone against the 2-row batch and its dA from run to run;
+   alone against the 2- and 8-row batches and its dA from run to run;
 3. serve: full-width llama3.2-3b (paged, then ``--kv-layout dense``: the
    decode kernel over 256-token pages and the prefill kernel over the
    slots' rows) and full-width mamba2-370m through
@@ -145,7 +147,10 @@ Phases, each of which fails the run if it fails:
    2 x 1024 (four chunks a row, so the state's gradient crosses chunks);
    (e2) 3 AdamW steps of full-width, full-depth mamba2-370m in f32 at
    2 x 1024, as (b), with the scan's launches against 2L forward and L
-   backward calls a step; (e3) the parity of (a) for full-width
+   backward calls a step, then one more step profiled: its wall ms, the
+   device's busy ms and idle share, and device ms by kernel (the scan's
+   forward and backward, the norm's two directions, GEMMs, the rest);
+   (e3) the parity of (a) for full-width
    jamba-v0.1-52b cut to its first 2 of 32 layers (a Mamba layer with a
    dense FFN and one with the 16-expert MoE, nh 128, d_state 16); (c)
    ``repro_torch.launch.train`` for llama3.2-3b, qwen3-moe-30b-a3b,
@@ -1094,7 +1099,7 @@ def _kernels_rmsnorm_bwd(head: dict) -> None:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rmsnorm import (bwd_blocks, plan,
+    from repro_torch.kernels.rmsnorm import (bwd_blocks, bwd_plan,
                                              rmsnorm_bwd_cuda)
 
     gen = torch.Generator(device="cuda")
@@ -1140,11 +1145,12 @@ def _kernels_rmsnorm_bwd(head: dict) -> None:
             bms, by = bound_ms(3 * N * D * x.element_size()
                                + D * x.element_size() + 4 * D,
                                10.0 * N * D, torch.float32)
-            p = plan(D, dtype)
+            p = bwd_plan(D, dtype)
             print(f"[kernels] rmsnorm_bwd {label} {tuple(p)} "
                   f"{bwd_blocks(N, p)} blocks: {ms:.4f} ms, plain "
                   f"{plain:.4f} ms, F.rms_norm backward (yardstick, several "
-                  f"calls) {lib:.4f} ms, bound {bms:.4f} ms ({by}), dx max "
+                  f"calls) {lib:.4f} ms ({lib / ms:.2f}x the kernel's time), "
+                  f"bound {bms:.4f} ms ({by}; {bms / ms:.1%} of it), dx max "
                   f"err {err:.3g} ({worst:.2f} of the limit), dw "
                   f"{float(dw_err.max()):.3g} ({dw_worst:.2f} of the limit)")
             if label == RMSNORM_BWD_MAIN:
@@ -1280,49 +1286,62 @@ def _kernels_ssd_scan(head: dict) -> None:
 
 def _ssd_bwd_work(x, B, chunk):
     """Bytes (the forward's inputs, dy and dh read once; dx, ddt, dA, dB,
-    dC and dh0 written once) and the backward's operations as fp32
-    multiply-adds over this run's rows: over each chunk's causal pairs,
-    G = dy.x^T, dx's W.dy, dB's and dC's Q products (per head) and C.B^T
-    (once a chunk); per row, the chunk state and the state gradient's
-    chunk term, dH_out.B, dH_out^T.x and H_in^T.dy ([hd x ds] each)."""
+    dC and dh0 written once) and the backward's operations over this
+    run's rows, as the algorithm's multiply-adds (over each chunk's causal
+    pairs, G = dy.x^T, dx's W.dy, dB's and dC's Q products per head and
+    C.B^T once a chunk; per row, the chunk state, the state gradient's
+    chunk term, dH_out.B, dH_out^T.x and H_in^T.dy, [hd x ds] each): as
+    fp32 multiply-adds (the first version's bound), and on the tensor
+    cores with each fp32 factor split into bf16 hi + lo, as ``_ssd_work``
+    counts the forward (three products a pair with f32 inputs; two with
+    bf16 inputs, one for C.B^T, whose factors are exact in bf16)."""
     Bt, S, nh, hd = x.shape
     ds = B.shape[-1]
     es = x.element_size()
     nbytes = 2 * (x.numel() + 2 * B.numel()) * es \
-        + 4 * (2 * Bt * S * nh + 2 * nh + 2 * Bt * S * nh * hd
+        + 4 * (2 * Bt * S * nh + 2 * nh + Bt * S * nh * hd
                + 3 * Bt * nh * hd * ds)
     pairs = 0.0
     for t0 in range(0, S, chunk):
         n = min(chunk, S - t0)
         pairs += n * (n + 1) / 2
-    flops = Bt * (2 * pairs * ds + nh * (
-        2 * pairs * (2 * hd + 2 * ds) + 2 * 5 * S * hd * ds))
-    return nbytes, flops
+    cb = Bt * 2 * pairs * ds
+    rest = Bt * nh * (2 * pairs * (2 * hd + 2 * ds) + 2 * 5 * S * hd * ds)
+    split = 3 if x.dtype == torch.float32 else 2
+    mma = (split if x.dtype == torch.float32 else 1) * cb + split * rest
+    return nbytes, cb + rest, mma
 
 
 def _kernels_ssd_scan_bwd(head: dict) -> None:
-    """The scan's backward kernel against ``ssd_scan_bwd_ref`` in f32 and
-    bf16 at mamba2-370m's widths (1 x 1024, chunk 256), jamba-v0.1's
-    (nh 128, d_state 16) and 2 rows of 700 tokens (a ragged last chunk)
-    whose last 200 have dt = 0; x, B and C strided slices of one
-    projection. Each gradient within ``SSD_REL`` of its largest magnitude
-    (bf16 dx, dB and dC: plus one bf16 ulp); the zero-dt rows' dx 0;
-    each row of the 2-row batch alone equal to its row (dx, ddt, dB, dC,
-    dh0), bit for bit; two runs the same dA. Timed cold-L2, median of
-    20, beside its plain version; no single library call computes it."""
+    """The scan's backward kernels against ``ssd_scan_bwd_ref`` in f32 and
+    bf16 at mamba2-370m's widths (1 and 2 rows of 1024, chunk 256),
+    jamba-v0.1's (nh 128, d_state 16), small_100m's Mamba2 (8 rows of
+    128, nh 24, chunk 64: the training script's shape) and 2 rows of 700
+    tokens (a ragged last chunk) whose last 200 have dt = 0; x, B and C
+    strided slices of one projection. Each gradient within ``SSD_REL`` of
+    its largest magnitude (bf16 dx, dB and dC: plus one bf16 ulp); the
+    zero-dt rows' dx 0; each row of a batch alone equal to its row (dx,
+    ddt, dB, dC, dh0), bit for bit; two runs the same dA. Timed cold-L2,
+    median of 20, beside its plain version; no single library call
+    computes it. The bound is that of the function's products on the
+    tensor cores with the fp32 factors split (``_ssd_bwd_work``), with the
+    first version's fp32 bound beside it."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
-    chunk = 256
     for dtype in (torch.float32, torch.bfloat16):
-        for rows, S, tail, nh, ds in ((1, 1024, 0, 32, 128),
-                                      (1, 1024, 0, 128, 16),
-                                      (2, 700, 200, 32, 128)):
+        for rows, S, tail, nh, ds, chunk in ((1, 1024, 0, 32, 128, 256),
+                                             (2, 1024, 0, 32, 128, 256),
+                                             (1, 1024, 0, 128, 16, 256),
+                                             (8, 128, 0, 24, 128, 64),
+                                             (2, 700, 200, 32, 128, 256)):
             label = f"{_label(dtype)} {rows} x {S}" \
                 + (f", dt = 0 on the last {tail}" if tail else "") \
-                + (f", nh {nh} d_state {ds}" if ds != 128 else "")
+                + (f", nh {nh} d_state {ds}" if ds != 128 else "") \
+                + (f", nh {nh} chunk {chunk} (small_100m)" if chunk != 256
+                   else "")
             args = _ssd_case(gen, dtype, rows, S, nh=nh, ds=ds,
                              zero_tail=tail)
             dy = torch.randn((rows, S, nh, 64), generator=gen, device="cuda")
@@ -1366,14 +1385,15 @@ def _kernels_ssd_scan_bwd(head: dict) -> None:
             plain = time_ms(lambda: ref.ssd_scan_bwd_ref(*args, dy, dh,
                                                          chunk),
                             reps=10, spin_ms=60.0)
-            nbytes, flops = _ssd_bwd_work(args[0], args[3], chunk)
-            bms, by = bound_ms(nbytes, flops, torch.float32)
-            mma, _ = bound_ms(nbytes, 3 * flops, torch.bfloat16)
+            nbytes, flops, mma = _ssd_bwd_work(args[0], args[3], chunk)
+            bms, by = bound_ms(nbytes, mma, torch.bfloat16)
+            old, old_by = bound_ms(nbytes, flops, torch.float32)
             print(f"[kernels] ssd_scan_bwd {label}: {ms:.4f} ms, plain "
                   f"{plain:.4f} ms, no library call, bound {bms:.4f} ms "
-                  f"({by}; {flops / 1e9:.3g} GFLOP of fp32 multiply-adds, "
-                  f"{nbytes / 1e6:.3g} MB; on the tensor cores with the "
-                  f"hi/lo split, three products each, {mma:.4f} ms); max "
+                  f"({by}; {mma / 1e9:.3g} GFLOP of the function's bf16 "
+                  f"products with the split, {nbytes / 1e6:.3g} MB; {bms / ms:.1%} of the "
+                  f"time), the first version's fp32 bound {old:.4f} ms "
+                  f"({old_by}; {flops / 1e9:.3g} GFLOP; {old / ms:.1%}); max "
                   f"err, and of the largest magnitude: " + ", ".join(
                       f"{n} {e:.3g} ({r:.2g})" for n, (e, r) in errs.items()))
             if label == "f32 1 x 1024":
@@ -3504,12 +3524,72 @@ def _train_parity(arch: str, layers: int, seq: int) -> None:
     _free_device_memory()
 
 
+# the kernels of a training step, as the profiler names them: (label,
+# name fragments)
+TRAIN_PROFILE = (("scan forward", ("ssd_chunk_state_kernel",
+                                   "ssd_state_pass_kernel",
+                                   "ssd_chunk_scan_kernel")),
+                 ("scan backward", ("ssd_bwd_",)),
+                 ("norm forward", ("rmsnorm_kernel",)),
+                 ("norm backward", ("rmsnorm_bwd_kernel",
+                                    "rmsnorm_dw_kernel")))
+
+
+def _profile_step(arch: str, step, params, opt, batch,
+                  step_ms: float) -> None:
+    """One more training step under ``torch.profiler``: its wall ms, the
+    device's busy ms and its idle share of the profiled wall and of
+    ``step_ms`` (an unprofiled step's median wall: the profiler slows the
+    host's dispatch), and device ms by kernel: the scan's forward and
+    backward, the norm's two directions, GEMMs and the rest (the step's
+    elementwise ops, AdamW, the loss), with the five largest kernels of
+    the rest by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    events = [e for e in prof.key_averages() if _device_us(e) > 0]
+    kernels = {e.key: _device_us(e) / 1e3 for e in events}
+    busy = sum(kernels.values())
+    if busy == 0:
+        print(f"[train] profiled {arch} step: {wall:.1f} ms wall; device "
+              f"time not measured (the profiler saw no kernel)")
+        return
+    parts, seen = {}, set()
+    for label, frags in TRAIN_PROFILE:
+        keys = [k for k in kernels if any(f in k for f in frags)]
+        parts[label] = sum(kernels[k] for k in keys)
+        seen.update(keys)
+    gemm = [k for k in kernels if k not in seen and any(
+        w in k.lower() for w in ("gemm", "cutlass", "sm90_xmma", "nvjet"))]
+    parts["GEMMs"] = sum(kernels[k] for k in gemm)
+    seen.update(gemm)
+    rest = {k: v for k, v in kernels.items() if k not in seen}
+    parts["other"] = sum(rest.values())
+    print(f"[train] profiled {arch} f32 step, batch {TRAIN_B} x "
+          f"{MAMBA_TRAIN_S}: {wall:.1f} ms wall (profiler on), "
+          f"{sum(e.count for e in events)} kernels, device busy "
+          f"{busy:.2f} ms (idle share {max(0.0, 1 - busy / wall):.1%}; of "
+          f"an unprofiled step's {step_ms:.1f} ms, "
+          f"{max(0.0, 1 - busy / step_ms):.1%}); "
+          f"device ms by kernel: " + ", ".join(
+              f"{k} {v:.2f}" for k, v in parts.items()))
+    for k, v in sorted(rest.items(), key=lambda kv: -kv[1])[:5]:
+        print(f"[train]   other: {v:.3f} ms  {k[:90]}")
+
+
 def _train_full(arch: str, seq: int, watch_names: tuple,
-                expect_gb: str) -> dict:
+                expect_gb: str, profile: bool = False) -> dict:
     """``TRAIN_STEPS`` AdamW steps of ``arch`` at full width and full
     depth in f32 (the dtype of the JAX training script) through
     ``make_train_step``, remat on, batch ``TRAIN_B`` x ``seq``; the counts
-    zeroed just before the steps and read just after."""
+    zeroed just before the steps and read just after. With ``profile``,
+    one more step under the profiler after the counts are read
+    (``_profile_step``)."""
     from repro_torch.engine.steps import init_train_state, make_train_step
     from repro_torch.kernels import ops
     from repro_torch.launch.train import synthetic_batch
@@ -3563,6 +3643,9 @@ def _train_full(arch: str, seq: int, watch_names: tuple,
           f"train {arch} full: parameters did not move: {moved}")
     check(all(counts[k]["launches"] == want[k] for k in path),
           f"train {arch} full: launches {counts}, predicted {want}")
+    if profile:
+        _profile_step(arch, step, params, opt, batches[0],
+                      float(np.median(secs[1:])) * 1e3)
     del params, opt, batches, watch
     _free_device_memory()
     return counts
@@ -3666,7 +3749,8 @@ def phase_train() -> dict:
     """The training path on the card: f32 gradient parity, kernels against
     plain, at full width (llama3.2-3b, mamba2-370m, jamba-v0.1-52b cut to
     a few layers); 3 AdamW steps of full-width, full-depth llama3.2-3b
-    and mamba2-370m; the training script for five families at
+    and mamba2-370m, and one more mamba2-370m step profiled by kernel;
+    the training script for five families at
     small_100m; the llama run's checkpoint. Returns the launches of the
     full runs and the training script's runs."""
     _train_parity("llama3.2-3b", TRAIN_PARITY_LAYERS, TRAIN_S)
@@ -3683,7 +3767,8 @@ def phase_train() -> dict:
         ("layers.0.norm1", "layers.0.mamba.A_log", "layers.47.mamba.w_xBC",
          "embed"),
         "plus the logits (0.4 GB each of logits and their gradient), remat "
-        "checkpoints and one layer's activations (~0.2 GB): ~7 GB"))
+        "checkpoints and one layer's activations (~0.2 GB): ~7 GB",
+        profile=True))
     _train_parity("jamba-v0.1-52b", JAMBA_PARITY_LAYERS, MAMBA_TRAIN_S)
     ck = ROOT / "build" / "train" / "llama3.2-3b-100m.npz"
     counts, state = _train_script(ck)

@@ -90,10 +90,13 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr,
 }
 
 // c += a . b for one 16 x 8 tile: a the 16 x 16 bf16 row-major fragment,
-// b the 16 x 8 column-major one, c fp32.
+// b the 16 x 8 column-major one, c fp32. Not `volatile`: a pure function
+// of its registers, so the compiler may interleave the products of
+// independent accumulators instead of issuing each behind the one it
+// waits on (a product's order on its own accumulator stays as written).
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
+  asm(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%0, %1, %2, %3};\n"

@@ -191,27 +191,38 @@ cudaError_t launch(const void* x, const void* w, void* out, int N, int D,
 // ---------------------------------------------------------------- backward
 //
 // The gradient of the norm. No Pallas kernel computes it: the JAX training
-// path differentiates repro/models/layers.py::rmsnorm with XLA's autodiff.
-// For each row n, with r = rsqrt(sum(x[n]^2) / D + eps) recomputed as the
-// forward computes it and u = dy[n] * (1 + w):
+// path differentiates repro/models/layers.py::rmsnorm (models/layers.py:26)
+// with XLA's autodiff. For each row n, with r = rsqrt(sum(x[n]^2) / D +
+// eps) recomputed as the forward computes it and u = dy[n] * (1 + w):
 //   dx[n] = r * u - x[n] * (r^3 * sum(u * x[n]) / D)    in x's dtype
 //   dw    = sum over rows of dy[n] * x[n] * r          in fp32
 //
 // Bound: bytes. x and dy are read once and dx written once (3 N D
-// elements), w read and dw written once, at about 10 flops an element.
+// elements), w read and dw written once, at about 10 flops an element: at
+// f32 [1024, 3072] 37.8 MB, 0.0113 ms at 3.35 TB/s; at [1024, 768] 9.4 MB,
+// 0.0028 ms.
 //
-// Design: the forward's row plan (wpr warps a row, U units a lane). A row
-// group of wpr warps walks rows group, group + n_groups, ... and keeps its
-// lanes' elements of 1 + w and their dw sums in registers across rows;
-// a row's x and dy stay in registers from their one read to the write of
-// dx. The row's two sums (x^2, and u * x) reduce as the forward's one:
-// a warp butterfly, then the row's warps in warp order through shared
-// memory (double-buffered, one barrier a row), in fp64 for f32 rows and
-// fp32 for bf16 rows. So r is the forward's, and a row's dx depends on D
-// and the dtype alone, never on N or on the group that takes the row.
-// Each group writes its dw sums into its own row of `part` [n_groups, D]
-// (fp32, no atomics), and a second kernel sums part's rows in group
-// order: dw is the same, bit for bit, from run to run at a given N.
+// Design: a plan of its own (kernels/rmsnorm.py::bwd_plan), a function of
+// D and the dtype alone: as many warps a row as hold it at 8 units a lane,
+// so one warp a row up to f32 D 1024 and bf16 D 2048, and as many row
+// groups as fill an 8-warp block. A group takes one row while the rows fit
+// 264 blocks (two a SM), every (blocks * groups)-th row past that, and a
+// row's x, dy and w stay in registers from their one read to the write of
+// dx, every load issued before the first is used. The row's two sums (x^2,
+// and u * x) reduce as the forward's one: a warp butterfly, then the row's
+// warps in warp order through shared memory (double-buffered, one barrier
+// a row), in fp64 for f32 rows and fp32 for bf16 rows. So r is the
+// forward's, and a row's dx depends on D and the dtype alone, never on N
+// or on the group that takes the row. dw in fixed-order steps, no
+// atomics: each group sums its rows' dy x r in its row of shared memory
+// (each lane its own elements: in registers they would cost a bf16 lane 64
+// and the card one of its two blocks an SM); a block sums its groups in
+// group order into its row of `part` [blocks, D] (fp32); then the dw
+// pass, one block per 8-column tile (96 blocks at D 768, 384 at D 3072),
+// 32 row slabs of part a column each summed by a thread, then the slabs
+// in order. dw is the same, bit for bit, from run to run at a given N.
+// The dw pass is launched as the row kernel's programmatic dependent, so
+// its launch overlaps the rows' tail.
 
 // Store n floats (a multiple of 4, 16-byte aligned), 16 bytes at a time.
 template <int n>
@@ -229,7 +240,6 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
                        float* __restrict__ part, int N, int D, int wpr,
                        float eps) {
   constexpr int VEC = kVec ? Vec16<T>::N : 1;
-  constexpr int E = U * VEC;              // elements a lane holds
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int groups = (blockDim.x >> 5) / wpr;   // row groups a block
   const int g = warp / wpr;
@@ -238,27 +248,33 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const int stride = 32 * wpr;
   const int u0 = (warp - first) * 32 + lane;
   const int n_groups = gridDim.x * groups;
+  // the dw pass may be set up now; it waits for this grid to finish
+  asm volatile("griddepcontrol.launch_dependents;");
 
-  // this lane's elements of 1 + w, and its dw sums
-  float gw[E], acc[E];
+  // this lane's units of w (1 + w formed where used); its dw sums in the
+  // group's row of shared memory, which only this lane touches until the
+  // block's sum (registers would cost 64 a lane in bf16, and the rows of
+  // two blocks an SM)
+  extern __shared__ __align__(16) float red[];   // [groups][D]
+  float* acc = red + (size_t)g * D;
+  uint4 wr[kVec ? U : 1];
+  float ws[kVec ? 1 : U];
 #pragma unroll
   for (int q = 0; q < U; ++q) {
     const int u = u0 + q * stride;
     if constexpr (kVec) {
+      wr[q] = u < units ? __ldg(reinterpret_cast<const uint4*>(w + u * VEC))
+                        : make_uint4(0u, 0u, 0u, 0u);
       if (u < units) {
-        load16<T>(w + u * VEC, gw + q * VEC);
-      } else {
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) gw[q * VEC + e] = 0.f;
+        for (int e = 0; e < VEC; e += 4)
+          *reinterpret_cast<float4*>(acc + u * VEC + e) =
+              make_float4(0.f, 0.f, 0.f, 0.f);
       }
     } else {
-      gw[q] = u < units ? to_float(w[u]) : 0.f;
+      ws[q] = u < units ? to_float(w[u]) : 0.f;
+      if (u < units) acc[u] = 0.f;
     }
-  }
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    gw[e] = 1.f + gw[e];
-    acc[e] = 0.f;
   }
 
   using Acc = typename std::conditional<sizeof(T) == 4, double, float>::type;
@@ -292,17 +308,18 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 #pragma unroll
     for (int q = 0; q < U; ++q) {
       if constexpr (kVec) {
-        float xv[VEC], dv[VEC];
+        float xv[VEC], dv[VEC], gv[VEC];
         unpack16<T>(xr[q], xv);
         unpack16<T>(dr[q], dv);
+        unpack16<T>(wr[q], gv);
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
           ss = fma((Acc)xv[e], (Acc)xv[e], ss);
-          sux = fma((Acc)(dv[e] * gw[q * VEC + e]), (Acc)xv[e], sux);
+          sux = fma((Acc)(dv[e] * (1.f + gv[e])), (Acc)xv[e], sux);
         }
       } else {
         ss = fma((Acc)xs[q], (Acc)xs[q], ss);
-        sux = fma((Acc)(ds[q] * gw[q]), (Acc)xs[q], sux);
+        sux = fma((Acc)(ds[q] * (1.f + ws[q])), (Acc)xs[q], sux);
       }
     }
 #pragma unroll
@@ -325,6 +342,17 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       parity ^= 1;
     }
     if (!live) continue;
+    // the raw units pass an empty asm, so the values unpacked for the sums
+    // are not kept for the outputs (3 x 64 floats a bf16 lane at 8 units,
+    // 235 registers and one block an SM): they are unpacked again
+    if constexpr (kVec) {
+#pragma unroll
+      for (int q = 0; q < U; ++q)
+        asm volatile("" : "+r"(xr[q].x), "+r"(xr[q].y), "+r"(xr[q].z),
+                     "+r"(xr[q].w), "+r"(dr[q].x), "+r"(dr[q].y),
+                     "+r"(dr[q].z), "+r"(dr[q].w), "+r"(wr[q].x),
+                     "+r"(wr[q].y), "+r"(wr[q].z), "+r"(wr[q].w));
+    }
     // r as the forward forms it, then r^3 times the mean of u * x
     const float inv = rsqrtf((float)ss * (1.f / (float)D) + eps);
     const float c = inv * inv * inv * ((float)sux * (1.f / (float)D));
@@ -334,62 +362,92 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       const int u = u0 + q * stride;
       if (u >= units) break;
       if constexpr (kVec) {
-        float xv[VEC], dv[VEC], o[VEC];
+        float xv[VEC], dv[VEC], gv[VEC], o[VEC], a[VEC];
         unpack16<T>(xr[q], xv);
         unpack16<T>(dr[q], dv);
+        unpack16<T>(wr[q], gv);
+        float* ap = acc + u * VEC;
+#pragma unroll
+        for (int e = 0; e < VEC; e += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(ap + e);
+          a[e] = v.x;
+          a[e + 1] = v.y;
+          a[e + 2] = v.z;
+          a[e + 3] = v.w;
+        }
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
-          o[e] = inv * (dv[e] * gw[q * VEC + e]) - xv[e] * c;
-          acc[q * VEC + e] = fmaf(dv[e] * xv[e], inv, acc[q * VEC + e]);
+          o[e] = inv * (dv[e] * (1.f + gv[e])) - xv[e] * c;
+          a[e] = fmaf(dv[e] * xv[e], inv, a[e]);
         }
         store16(o, dxr + u * VEC);
+        store_floats<VEC>(a, ap);
       } else {
-        store_float(inv * (ds[q] * gw[q]) - xs[q] * c, dxr + u);
-        acc[q] = fmaf(ds[q] * xs[q], inv, acc[q]);
+        store_float(inv * (ds[q] * (1.f + ws[q])) - xs[q] * c, dxr + u);
+        acc[u] = fmaf(ds[q] * xs[q], inv, acc[u]);
       }
     }
   }
 
-  // the group's dw sums into its row of part (zeros for a group that took
-  // no row)
-  float* pr = part + (size_t)(blockIdx.x * groups + g) * D;
-#pragma unroll
-  for (int q = 0; q < U; ++q) {
-    const int u = u0 + q * stride;
-    if (u >= units) break;
-    if constexpr (kVec) {
-      store_floats<VEC>(acc + q * VEC, pr + u * VEC);
-    } else {
-      pr[u] = acc[q];
-    }
+  // the groups' dw sums, in group order, into the block's row of part
+  // (zeros for a group that took no row)
+  __syncthreads();
+  for (int j = threadIdx.x; j < D; j += blockDim.x) {
+    float s = 0.f;
+    for (int q = 0; q < groups; ++q) s += red[(size_t)q * D + j];
+    part[(size_t)blockIdx.x * D + j] = s;
   }
 }
 
-// dw[j] = sum over g of part[g, j], in group order: one thread a column.
-__global__ void rmsnorm_dw_kernel(const float* __restrict__ part,
-                                  float* __restrict__ dw, int n_groups,
-                                  int D) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= D) return;
-  float s = 0.f;
+// dw[j] = sum over part's P rows: block b takes columns [8 b, 8 b + 8),
+// thread (c, s) sums rows s, s + 32, ... of column 8 b + c, then thread c
+// sums the 32 slabs in order. A warp reads 4 rows of 8 columns, 32 bytes
+// each. Launched as the row kernel's programmatic dependent: it waits for
+// that grid's completion before it reads part.
+constexpr int kDwCols = 8, kDwSlabs = 32;
+__global__ void __launch_bounds__(kDwCols * kDwSlabs)
+    rmsnorm_dw_kernel(const float* __restrict__ part, float* __restrict__ dw,
+                      int P, int D) {
+  asm volatile("griddepcontrol.wait;" ::: "memory");   // the rows' part
+  const int c = threadIdx.x % kDwCols, s = threadIdx.x / kDwCols;
+  const int j = blockIdx.x * kDwCols + c;
+  __shared__ float red[kDwSlabs][kDwCols];
+  float acc = 0.f;
+  if (j < D) {
 #pragma unroll 8
-  for (int g = 0; g < n_groups; ++g) s += part[(size_t)g * D + j];
-  dw[j] = s;
+    for (int r = s; r < P; r += kDwSlabs) acc += part[(size_t)r * D + j];
+  }
+  red[s][c] = acc;
+  __syncthreads();
+  if (s == 0 && j < D) {
+    float t = 0.f;
+#pragma unroll
+    for (int q = 0; q < kDwSlabs; ++q) t += red[q][c];
+    dw[j] = t;
+  }
 }
 
 template <typename T, bool kVec>
 cudaError_t launch_bwd_vec(const void* x, const void* w, const void* dy,
                            void* dx, float* part, float* dw, int N, int D,
-                           int wpr, int upl, int rows_per_block, int blocks,
+                           int wpr, int upl, int groups, int blocks,
                            float eps, cudaStream_t stream) {
-  const int threads = 32 * wpr * rows_per_block;
+  const int threads = 32 * wpr * groups;
+  const size_t smem = (size_t)groups * D * sizeof(float);
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   const T* dyt = static_cast<const T*>(dy);
   T* dxt = static_cast<T*>(dx);
+  cudaError_t err = cudaSuccess;
+  // the static row sums beside the dynamic buffer: opt in to whatever
+  // the buffer takes, not only past 48 KB
 #define RMS_BWD_CASE(UU)                                                  \
   case UU:                                                                \
-    rmsnorm_bwd_kernel<T, kVec, UU><<<blocks, threads, 0, stream>>>(      \
+    err = cudaFuncSetAttribute(rmsnorm_bwd_kernel<T, kVec, UU>,           \
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                                 (int)smem);                              \
+    if (err != cudaSuccess) return err;                                   \
+    rmsnorm_bwd_kernel<T, kVec, UU><<<blocks, threads, smem, stream>>>(   \
         xt, wt, dyt, dxt, part, N, D, wpr, eps);                          \
     break
   switch (upl) {
@@ -401,26 +459,38 @@ cudaError_t launch_bwd_vec(const void* x, const void* w, const void* dy,
       return cudaErrorInvalidValue;
   }
 #undef RMS_BWD_CASE
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  rmsnorm_dw_kernel<<<(D + 255) / 256, 256, 0, stream>>>(
-      part, dw, blocks * rows_per_block, D);
+  // the dw pass launched as the rows' dependent (Hopper's programmatic
+  // dependent launch): its blocks are set up while the row kernel runs
+  // and wait for its completion, and its memory, at griddepcontrol.wait
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((D + kDwCols - 1) / kDwCols);
+  cfg.blockDim = dim3(kDwCols * kDwSlabs);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, rmsnorm_dw_kernel,
+                           static_cast<const float*>(part), dw, blocks, D);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx,
                        float* part, float* dw, int N, int D, int vec, int wpr,
-                       int upl, int rows_per_block, int blocks, float eps,
+                       int upl, int groups, int blocks, float eps,
                        cudaStream_t stream) {
-  if (wpr < 1 || rows_per_block < 1 || wpr * rows_per_block > kMaxWarps ||
-      blocks < 1)
+  if (wpr < 1 || groups < 1 || wpr * groups > kMaxWarps || blocks < 1)
     return cudaErrorInvalidValue;
   if (vec)
     return launch_bwd_vec<T, true>(x, w, dy, dx, part, dw, N, D, wpr, upl,
-                                   rows_per_block, blocks, eps, stream);
+                                   groups, blocks, eps, stream);
   return launch_bwd_vec<T, false>(x, w, dy, dx, part, dw, N, D, wpr, upl,
-                                  rows_per_block, blocks, eps, stream);
+                                  groups, blocks, eps, stream);
 }
 
 }  // namespace
@@ -445,9 +515,9 @@ extern "C" int rmsnorm_launch(const void* x, const void* w, void* out,
 }
 
 // The backward: x, dy and dx [N, D] and w [D] share the dtype code; part
-// is fp32 [blocks * rows_per_block, D] scratch, dw fp32 [D]. vec, wpr, upl
-// (1, 2, 4 or 8 here) and rows_per_block are the forward's plan; blocks
-// (at least 1) comes from the wrapper. Two kernels: the rows, then dw.
+// is fp32 [blocks, D] scratch, dw fp32 [D]. vec, wpr, upl (1, 2, 4 or 8)
+// and rows_per_block (row groups a block) are the wrapper's bwd_plan;
+// blocks (at least 1) its bwd_blocks. Two kernels: the rows, then dw.
 extern "C" int rmsnorm_bwd_launch(const void* x, const void* w,
                                   const void* dy, void* dx, void* part,
                                   void* dw, int N, int D, int dtype,

@@ -80,66 +80,7 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 64;     // chunk rows, head-dim and state columns per tile
-constexpr int kPad = 8;       // bf16 padding per shared-memory row (16 bytes)
 constexpr int kPassThreads = 256;
-
-// f32 inputs carry a lo half beside each bf16 tile; bf16 inputs are exact
-template <typename T>
-constexpr int kHalves = sizeof(T) == 4 ? 2 : 1;
-
-// Rows [0, rows) of `cols` (a multiple of 8) elements, `stride` elements
-// apart in global memory from src, into the bf16 tile hi [rows][ld] and,
-// for f32, lo; rows at or past `valid` read as 0. bf16 by cp.async (the
-// caller commits and waits), f32 through registers, split into hi + lo,
-// in rounds of kBatch loads a thread that are all issued before the first
-// is used (a warp issues in order: a load used at once would serialize).
-constexpr int kBatch = 8;
-template <typename T>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* hi, int ld,
-                                          const T* __restrict__ src,
-                                          size_t stride, int rows, int cols,
-                                          int valid) {
-  const int per_row = cols / 8;
-  const int total = rows * per_row;
-  if constexpr (sizeof(T) == 2) {
-    for (int i = threadIdx.x; i < total; i += blockDim.x) {
-      const int r = i / per_row, c = (i % per_row) * 8;
-      const bool in = r < valid;
-      cp_async16(smem_u32(hi + r * ld + c),
-                 src + (in ? (size_t)r * stride : 0) + c, in ? 16 : 0);
-    }
-  } else {
-    for (int i0 = threadIdx.x; i0 < total; i0 += kBatch * blockDim.x) {
-      float v[kBatch][8];
-#pragma unroll
-      for (int q = 0; q < kBatch; ++q) {
-        const int i = i0 + q * blockDim.x;
-        const int r = i / per_row, c = (i % per_row) * 8;
-        if (i < total && r < valid) {
-          load16(src + (size_t)r * stride + c, v[q]);
-          load16(src + (size_t)r * stride + c + 4, v[q] + 4);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[q][e] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < kBatch; ++q) {
-        const int i = i0 + q * blockDim.x;
-        if (i >= total) break;
-        const int r = i / per_row, c = (i % per_row) * 8;
-        uint4 h, l;
-        uint32_t* hp = reinterpret_cast<uint32_t*>(&h);
-        uint32_t* lp = reinterpret_cast<uint32_t*>(&l);
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          split_bf16(v[q][2 * e], v[q][2 * e + 1], hp[e], lp[e]);
-        *reinterpret_cast<uint4*>(hi + r * ld + c) = h;
-        *reinterpret_cast<uint4*>(hi + rows * ld + r * ld + c) = l;
-      }
-    }
-  }
-}
 
 // The chunk's cumulative decay in log2 units, cum_t = sum_{u <= t} dtv_u
 // A_h log2(e), by one warp in a fixed order: lane l sums rows [l c/32,
@@ -166,11 +107,6 @@ __device__ __forceinline__ void chunk_cumsum(const float* dtv, int chunk,
   float excl = __shfl_up_sync(0xffffffffu, incl, 1);
   if (lane == 0) excl = 0.f;
   for (int q = 0; q < per; ++q) cum[base + q] += excl;
-}
-
-__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&v);
-  return make_float2(__low2float(b), __high2float(b));
 }
 
 // Step 1. grid (nc * n_dt * n_st, nh, Bt): block (k, h, b) takes head-dim

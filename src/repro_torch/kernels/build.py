@@ -27,6 +27,9 @@ KERNELS = ("paged_attention", "paged_attention_int8",
            "ssd_scan_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+# a source's own flags: the scan's backward (36 kernels) splits its
+# device compilation over the host's cores, which halves its build
+SOURCE_FLAGS = {"ssd_scan_bwd": ["--split-compile=0"]}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # engines on worker threads (the async fleet) reach the kernels at once:
@@ -52,8 +55,12 @@ def _nvcc() -> str:
                        "build on a machine with the CUDA toolkit")
 
 
+def _flags(name: str) -> List[str]:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, [])
+
+
 def _target(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
@@ -76,7 +83,7 @@ def _build(names: Iterable[str]) -> List[str]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+        cmd = [nvcc, *_flags(name), "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT,

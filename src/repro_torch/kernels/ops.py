@@ -304,7 +304,7 @@ def reset_counts() -> None:
 def counts() -> Dict[str, Dict[str, int]]:
     """``{kernel: {"launches": n, "plain": m}}`` since the last reset
     (``rmsnorm_bwd``: the norm's backward, two kernels a call;
-    ``ssd_scan_bwd``: the scan's backward, five kernels a call)."""
+    ``ssd_scan_bwd``: the scan's backward, six kernels a call)."""
     with build.count_lock:
         return {name: {"launches": getattr(mod, attr),
                        "plain": plain_calls[name]}

@@ -9,10 +9,12 @@ note for the design and its bound.
 
 Its gradient, ``rmsnorm_bwd_cuda``, is the second entry of the same
 source (the JAX package's training path differentiates
-``models/layers.py::rmsnorm`` with XLA's autodiff instead): the
-forward's row plan, each row's ``dx`` in registers, ``dw`` as per-group
-fp32 partial sums added in a second launch in fixed order, with its own
-launch count.
+``models/layers.py::rmsnorm`` with XLA's autodiff instead): its own row
+plan (``bwd_plan``: one warp a row where the row fits a warp at
+``BWD_UNITS`` units a lane), each row's ``dx`` in registers, ``dw`` as one
+fp32 partial row a block (its groups summed in group order), added by a
+second launch over column tiles and row slabs in a fixed order, with its
+own launch count.
 """
 from __future__ import annotations
 
@@ -28,9 +30,11 @@ LANE_UNITS = 4      # units a lane holds before a row takes another warp
 BLOCK_WARPS = 4     # warps per block while a row needs at most four
 MAX_WARPS = 8       # warps per row (and per block) at most
 
-BWD_UNITS = 8       # the backward's largest units per lane
-BWD_ROWS = 4        # rows a group takes before the backward's grid grows
-BWD_MAX_BLOCKS = 1024
+BWD_UNITS = 8       # units a lane holds in the backward
+BWD_UNITS_PER_LANE = (1, 2, 4, 8)   # the backward's instantiations
+BWD_BLOCK_WARPS = 8  # warps per block of the backward
+BWD_MAX_BLOCKS = 264  # two 8-warp blocks on each of the card's 132 SMs
+DW_SLABS = 32       # row slabs of part a dw column is summed in, in order
 
 launches = 0        # forward kernel launches by this process
 bwd_launches = 0    # backward calls (two kernels each) by this process
@@ -63,12 +67,35 @@ def plan(D: int, dtype: torch.dtype) -> Plan:
     return Plan(vec, wpr, upl, max(1, BLOCK_WARPS // wpr))
 
 
+def bwd_plan(D: int, dtype: torch.dtype) -> Plan:
+    """How the backward lays a row of ``D`` elements of ``dtype`` over its
+    threads: as many warps as hold the row at ``BWD_UNITS`` 16-byte units
+    (or elements, for rows that are not a multiple of 16 bytes) a lane,
+    so one warp a row up to 1024 f32 or 2048 bf16 elements; the smallest
+    instantiated units per lane that cover it; as many row groups a block
+    as ``BWD_BLOCK_WARPS`` warps hold. Like ``plan``, a function of the
+    width and the dtype alone: a row's lanes and its sums' order never
+    depend on the number of rows."""
+    es = torch.empty((), dtype=dtype).element_size()
+    vec = D * es % 16 == 0
+    units = D // (16 // es) if vec else D
+    wpr = max(1, -(-units // (32 * BWD_UNITS)))
+    if wpr > MAX_WARPS:
+        raise ValueError(f"rmsnorm backward: a row of {D} {dtype} elements "
+                         f"needs {wpr} warps at {BWD_UNITS} units a lane; "
+                         f"the backward takes at most {MAX_WARPS}")
+    need = -(-units // (32 * wpr))
+    upl = next(u for u in BWD_UNITS_PER_LANE if u >= need)
+    return Plan(vec, wpr, upl, max(1, BWD_BLOCK_WARPS // wpr))
+
+
 def bwd_blocks(N: int, p: Plan) -> int:
-    """The backward's grid for ``N`` rows: groups of ``BWD_ROWS`` rows or
-    more, at most ``BWD_MAX_BLOCKS`` blocks of ``p.rows_per_block``
-    groups; each group adds one fp32 row of ``dw`` partial sums."""
-    return max(1, min(-(-N // (p.rows_per_block * BWD_ROWS)),
-                      BWD_MAX_BLOCKS))
+    """The backward's grid for ``N`` rows under ``p = bwd_plan(...)``: a
+    row a group while the rows fit ``BWD_MAX_BLOCKS`` blocks of
+    ``p.rows_per_block`` groups, then that many blocks, each group taking
+    every ``blocks * rows_per_block``-th row. Each block writes one fp32
+    row of ``dw`` partial sums."""
+    return max(1, min(-(-N // p.rows_per_block), BWD_MAX_BLOCKS))
 
 
 def _check(x, w, *more):
@@ -81,11 +108,7 @@ def _check(x, w, *more):
                          f"w {tuple(w.shape)}"
                          + "".join(f", dy {tuple(t.shape)}" for t in more)
                          + " (x and dy are [N, D], w is [D])")
-    p = plan(x.shape[1], x.dtype)
-    if more and p.units_per_lane > BWD_UNITS:
-        raise ValueError(f"rmsnorm backward: a row of {x.shape[1]} "
-                         f"{x.dtype} elements needs {p.units_per_lane} units "
-                         f"a lane; the backward takes at most {BWD_UNITS}")
+    p = (bwd_plan if more else plan)(x.shape[1], x.dtype)
     build.check_device(NAME, (x, w, *more))
     return p
 
@@ -114,8 +137,9 @@ def rmsnorm_bwd_cuda(x, w, dy, eps: float = 1e-5):
     """The gradient of ``rmsnorm_cuda``. x, dy: [N, D] (f32 or bf16); w:
     [D] in x's dtype. Rows up to eight warps at ``BWD_UNITS`` units a
     lane (16384 bf16 or 8192 f32 elements 16 bytes at a time, 2048
-    element by element). Returns (dx [N, D] in x's dtype, dw [D] fp32).
-    Two kernels on the current stream, counted once."""
+    element by element), laid out by ``bwd_plan``. Returns (dx [N, D] in
+    x's dtype, dw [D] fp32). Two kernels on the current stream, counted
+    once."""
     global bwd_launches
     p = _check(x, w, dy)
     N, D = x.shape
@@ -123,8 +147,7 @@ def rmsnorm_bwd_cuda(x, w, dy, eps: float = 1e-5):
     if N == 0 or D == 0:
         return dx, torch.zeros(D, dtype=torch.float32, device=x.device)
     blocks = bwd_blocks(N, p)
-    part = torch.empty((blocks * p.rows_per_block, D), dtype=torch.float32,
-                       device=x.device)
+    part = torch.empty((blocks, D), dtype=torch.float32, device=x.device)
     dw = torch.empty(D, dtype=torch.float32, device=x.device)
     build.launch(NAME, x, w, dy, dx, part, dw, N, D, build.DTYPES[x.dtype],
                  float(eps), int(p.vec), p.warps_per_row, p.units_per_lane,

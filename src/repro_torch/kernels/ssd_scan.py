@@ -18,12 +18,14 @@ with ``.contiguous()``.
 
 Its gradient, ``ssd_scan_bwd_cuda``, wraps ``csrc/ssd_scan_bwd.cu``
 (the JAX package's training path differentiates
-``models/mamba2.py::ssd_chunked`` with XLA's autodiff instead): five
-kernels, counted once in ``bwd_launches``: each chunk's state and the
-state gradient's chunk term, the state carried forward and its gradient
-back through the chunks in fp32, the chunk-parallel dual form's
-gradients (per-head partials of dB and dC), then dB, dC and dA summed in
-a fixed order. It takes what the forward takes, with head_dim up to
+``models/mamba2.py::ssd_chunked`` with XLA's autodiff instead): six
+kernels, counted once in ``bwd_launches``, every product on the tensor
+cores: each chunk's state and the state gradient's chunk term, the state
+carried forward and its gradient back through the chunks in fp32, dx and
+dcum's shares (C.B^T once for a group of heads), dB and dC (Q summed over
+a group of heads before its products; one partial a group), then dcum's
+reverse cumsum into ddt and dA, and the groups' partials summed in a
+fixed order. It takes what the forward takes, with head_dim up to
 ``BWD_MAX_HD``.
 """
 from __future__ import annotations
@@ -42,8 +44,11 @@ MAX_CHUNK = 1024    # the chunk's dt and decays live in shared memory
 HD_MULTIPLE = 16    # head_dim: whole 16-column mma blocks
 STATE_DIMS = (16, 64, 128)
 PASS_THREADS = 256  # threads per block of the state pass, 4 entries each
-BWD_THREADS = 256   # threads per block of the backward's kernels
-BWD_MAX_HD = 128    # a backward thread holds a row's dx at hd / 4 columns
+PASS_THREADS_BWD = 256  # threads per block of the backward's state pass
+BWD_MAX_HD = 128    # a dx block holds its group's columns, 128 at most
+DX_COLS = 128       # a dx block's columns: heads x head_dim
+DBDC_COLS = 256     # a dB / dC block's columns
+MAX_GROUP = 4       # heads a group at most
 
 launches = 0        # calls that launched the forward's kernels
 bwd_launches = 0    # calls that launched the backward's kernels
@@ -71,27 +76,44 @@ def plan(Bt: int, S: int, chunk: int, nh: int, hd: int,
     }
 
 
+def heads_per_group(cols: int, hd: int) -> int:
+    """The heads of a backward block: as many as fill ``cols`` columns
+    of head_dim ``hd``, at most ``MAX_GROUP``."""
+    return min(MAX_GROUP, cols // hd)
+
+
 def plan_bwd(Bt: int, S: int, chunk: int, nh: int, hd: int,
              ds: int) -> Dict[str, Tuple[int, ...]]:
-    """The grids of the backward's five kernels and the shapes of its
+    """The grids of the backward's six kernels and the shapes of its
     scratch, as ``csrc/ssd_scan_bwd.cu``'s ``launch_bwd`` computes them:
     each chunk's state (then the state entering it) and the state
     gradient's chunk term (then the gradient of the state leaving it),
-    fp32; each chunk's decay; the per-head partials of dB and dC; each
-    (row, chunk, head)'s share of dA. As in ``plan``, ``Bt`` enters only
-    as the batch axis of the per-row grids and scratch."""
+    fp32; each chunk's decay; dcum's shares (fp64: per head, one slot a
+    64-row tile for its row part, then its column part and the state
+    update's share) and ddt's direct part; the dB and dC partials of each
+    group of ``groups[1]`` heads; each (row, chunk, head)'s share of dA.
+    ``groups`` is the heads of a dx block and of a dB / dC block. As in
+    ``plan``, ``Bt`` enters only as the batch axis of the per-row grids
+    and scratch."""
     nc = -(-S // chunk)
+    nt = chunk // TILE
+    g3, g4 = heads_per_group(DX_COLS, hd), heads_per_group(DBDC_COLS, hd)
+    ng4 = -(-nh // g4)
     return {
         "chunks": (nc,),
-        "state_grid": (nc * -(-hd // TILE), nh, Bt),
-        "pass_grid": (-(-(hd * ds) // BWD_THREADS), nh, Bt),
-        "chunk_grid": (nc, nh, Bt),
-        "reduce_grid": (-(-(2 * Bt * S * ds) // BWD_THREADS),),
-        "da_grid": (-(-nh // 128),),
+        "groups": (g3, g4),
+        "state_grid": (nc * -(-hd // TILE) * (ds // min(ds, TILE)), nh, Bt),
+        "pass_grid": (-(-(hd * ds) // PASS_THREADS_BWD), nh, Bt),
+        "chunk_grid": (nc, -(-nh // g3), nt * Bt),
+        "dbdc_grid": (2 * nc, ng4, nt * Bt),
+        "dcum_grid": (nc, nh, Bt),
+        "reduce_grid": (-(-(2 * Bt * S * ds + nh) // PASS_THREADS_BWD),),
         "states": (Bt, nc, nh, hd, ds),
         "dstates": (Bt, nc, nh, hd, ds),
         "decay": (Bt, nc, nh),
-        "head_partials": (Bt, nh, S, ds),
+        "dsum": (Bt, nc, nh, nt + 2, chunk),
+        "ddt_direct": (Bt, nc, nh, chunk),
+        "group_partials": (Bt, ng4, S, ds),
         "da_partials": (Bt, nc, nh),
     }
 
@@ -195,7 +217,7 @@ def ssd_scan_bwd_cuda(x, dt, A, B_, C_, init_state, dy, dh, chunk: int):
     ([Bt, S, nh, hd]) and ``dh`` ([Bt, nh, hd, ds]), both f32. Takes the
     forward's inputs as it does, head_dim up to ``BWD_MAX_HD``. Returns
     (dx [Bt, S, nh, hd] in x's dtype, ddt [Bt, S, nh] f32, dA [nh] f32, dB
-    and dC [Bt, S, ds] in their dtype, dh0 [Bt, nh, hd, ds] f32). Five
+    and dC [Bt, S, ds] in their dtype, dh0 [Bt, nh, hd, ds] f32). Six
     kernels on the current stream, counted once."""
     global bwd_launches
     dt, A, h0, dy, dh = (t.contiguous() for t in (dt, A, init_state, dy, dh))
@@ -218,14 +240,16 @@ def ssd_scan_bwd_cuda(x, dt, A, B_, C_, init_state, dy, dh, chunk: int):
     states = torch.empty(p["states"], **f32)
     dstates = torch.empty(p["dstates"], **f32)
     decay = torch.empty(p["decay"], **f32)
-    dBh = torch.empty(p["head_partials"], **f32)
-    dCh = torch.empty(p["head_partials"], **f32)
+    dsum = torch.empty(p["dsum"], dtype=torch.float64, device=dev)
+    ddv = torch.empty(p["ddt_direct"], **f32)
+    dBg = torch.empty(p["group_partials"], **f32)
+    dCg = torch.empty(p["group_partials"], **f32)
     da_part = torch.empty(p["da_partials"], **f32)
     dA = torch.empty_like(A)
     dh0 = torch.empty_like(h0)
     build.launch(BWD_NAME, x, dt, A, B_, C_, h0, dy, dh, dx, ddt, dA, dB,
-                 dC, dh0, states, dstates, decay, dBh, dCh, da_part, Bt, S,
-                 nh, hd, ds, chunk, build.Long(x.stride(0)),
+                 dC, dh0, states, dstates, decay, dsum, ddv, dBg, dCg,
+                 da_part, Bt, S, nh, hd, ds, chunk, build.Long(x.stride(0)),
                  build.Long(x.stride(1)), build.Long(B_.stride(0)),
                  build.Long(B_.stride(1)), build.DTYPES[x.dtype])
     with build.count_lock:

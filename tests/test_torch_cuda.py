@@ -13,8 +13,9 @@ the kernels' rows (attention: a row alone against the same row in a
 batch, a narrower block table or cache view against a wider one, a
 shorter chunk against a longer one; the scan and the norm: a row alone
 against the same row in a batch), the norm's backward kernel (against
-``rmsnorm_bwd_ref``, a row's dx alone against the batch, dw the same
-from run to run, the autograd Function launching both kernels), the
+``rmsnorm_bwd_ref`` at 1, 9 and 4097 rows too, a row's dx alone against
+the batch at every grid, dw the same from run to run, the autograd
+Function launching both kernels), the
 scan's backward kernel (against ``ssd_scan_bwd_ref`` at the forward's
 shapes, a row's dx, ddt, dB, dC and dh0 alone against the batch, dA the
 same from run to run, the autograd Function launching both kernels), the
@@ -394,7 +395,9 @@ def _dw_close(dw, x, w, dy, want):
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("N,D", [(1, 3072), (1024, 3072), (1024, 768),
                                  (7, 2048), (300, 2560), (5000, 128),
-                                 (5, 1001), (3, 77), (2, 1)])
+                                 (5, 1001), (3, 77), (2, 1), (4097, 768),
+                                 (9, 1024), (13, 2048), (1023, 1028),
+                                 (4097, 2056)])
 def test_rmsnorm_bwd_kernel_vs_plain(cuda, dt, N, D):
     """The backward at the trained widths, rows that are not a multiple
     of 16 bytes wide, one row, and groups that take several rows (5000
@@ -428,6 +431,27 @@ def test_rmsnorm_bwd_rows_alone_and_dw_deterministic(cuda, dt, D):
                                         dy[r:r + 1].clone())
         assert torch.equal(alone, dx[r:r + 1])
     assert torch.equal(rms.rmsnorm_bwd_cuda(x, w, dy)[1], dw)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("D", [768, 1024, 2048, 3072, 1001, 77])
+def test_rmsnorm_bwd_rows_alone_at_every_grid(cuda, dt, D):
+    """The backward's plan depends on the width alone: a row of 1, 9 (not
+    a multiple of a block's groups), 1024 and 4097 rows (past the grid's
+    cap: groups that take several rows) gives the same dx bit for bit; dw
+    at each N the same from run to run and within the plain version's
+    limit."""
+    from repro_torch.kernels import rmsnorm as rms
+    x, w, dy = _norm_bwd_inputs(np.random.default_rng(18), cuda,
+                                DTYPES[dt], 4097, D)
+    full, _ = rms.rmsnorm_bwd_cuda(x, w, dy)
+    for N in (1, 9, 1024, 4097):
+        dx, dw = rms.rmsnorm_bwd_cuda(x[:N].clone(), w, dy[:N].clone())
+        assert torch.equal(dx, full[:N])
+        assert torch.equal(rms.rmsnorm_bwd_cuda(x[:N].clone(), w,
+                                                dy[:N].clone())[1], dw)
+        _dw_close(dw, x[:N], w, dy[:N], ref.rmsnorm_bwd_ref(
+            x[:N], w, dy[:N], 1e-5)[1])
 
 
 def test_rmsnorm_function_runs_both_kernels_on_the_card(cuda):
@@ -545,6 +569,48 @@ def test_ssd_scan_bwd_kernel_vs_plain(cuda, dt, B, S, nh, hd, ds, chunk,
                  dt == "bf16")
     if zero_tail:           # the zero-dt rows get no dx
         assert not got[0][:, S - zero_tail:].float().any()
+
+
+# the backward's groups and tiles: small_100m's 24 heads at chunk 64,
+# head_dim 16 and 32 (four heads a group) with 3 and 5 heads (a short last
+# group), head_dim 128 (one head a dx block), chunk 512, d_state 16, 64
+# and 128, lengths off the tile grid and zero-dt tails
+SCAN_BWD_SHAPES = [
+    (8, 128, 24, 64, 128, 64, 0),
+    (2, 200, 3, 16, 64, 64, 30),
+    (3, 257, 5, 32, 16, 128, 0),
+    (1, 1000, 4, 64, 64, 512, 100),
+    (2, 129, 6, 128, 128, 64, 1),
+    (1, 63, 2, 64, 16, 64, 0),
+]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,nh,hd,ds,chunk,zero_tail", SCAN_BWD_SHAPES)
+def test_ssd_scan_bwd_groups_and_tiles(cuda, dt, B, S, nh, hd, ds, chunk,
+                                       zero_tail):
+    """Against the plain version as above; each row of the batch alone
+    gives its dx, ddt, dB, dC and dh0, bit for bit; two runs the same dA
+    and dB."""
+    rng = np.random.default_rng(13)
+    args = _scan_inputs(rng, cuda, DTYPES[dt], B, S, nh, hd, ds, zero_tail)
+    dy = _t(rng.standard_normal((B, S, nh, hd), np.float32), cuda)
+    dh = _t(rng.standard_normal((B, nh, hd, ds), np.float32), cuda)
+    got = ops.ssd_scan_bwd(*args, dy, dh, chunk=chunk)
+    _close_grads(got, ref.ssd_scan_bwd_ref(*args, dy, dh, chunk),
+                 dt == "bf16")
+    if zero_tail:
+        assert not got[0][:, S - zero_tail:].float().any()
+    for b in range(B):
+        # a row's slices copied: at nh 3 or 5 a row of dt is not 16-byte
+        # aligned in place, which the wrapper refuses
+        alone = ops.ssd_scan_bwd(*(a[b:b + 1].clone() if a.dim() > 1 else a
+                                   for a in args), dy[b:b + 1].clone(),
+                                 dh[b:b + 1].clone(), chunk=chunk)
+        for i in (0, 1, 3, 4, 5):
+            assert torch.equal(alone[i], got[i][b:b + 1])
+    again = ops.ssd_scan_bwd(*args, dy, dh, chunk=chunk)
+    assert torch.equal(again[2], got[2]) and torch.equal(again[3], got[3])
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])

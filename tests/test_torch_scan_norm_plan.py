@@ -300,3 +300,263 @@ def test_rmsnorm_wrapper_refuses_what_the_kernel_does_not_take():
         rms.rmsnorm_cuda(torch.zeros((1, wide)), torch.zeros(wide))
     with pytest.raises(ValueError, match="CUDA"):
         rms.rmsnorm_cuda(x, w)
+
+
+# ------------------------------------- the scan's backward, emulated
+
+def _bf16(a):
+    return a.to(torch.bfloat16).float()
+
+
+def _mm(a, b, exact_a=False, exact_b=False):
+    """a @ b as the backward kernels form it on the tensor cores: each fp32
+    operand split into bf16 hi + lo (an operand exact in bf16 is not), the
+    products of hi . hi, hi . lo and lo . hi (exact in fp32) accumulated
+    in fp32; lo . lo dropped."""
+    ah = a if exact_a else _bf16(a)
+    bh = b if exact_b else _bf16(b)
+    out = ah @ bh
+    if not exact_b:
+        out = out + ah @ _bf16(b - bh)
+    if not exact_a:
+        out = out + _bf16(a - ah) @ bh
+    return out
+
+
+def _split_bwd(x, dt, A, B, C, h0, dy, dh, chunk):
+    """The arithmetic of ``csrc/ssd_scan_bwd.cu``'s six kernels on the CPU:
+    every product through ``_mm`` (x, B and C exact where they are bf16),
+    the elementwise terms in fp32, L from the chunk's cumulative decay
+    differenced exactly (the kernels' compensated sum) and rounded to fp32,
+    dcum's shares, its reverse cumsum and dA in fp64, Q summed over the
+    heads before its products with B and C, as the dB / dC kernel sums it.
+    S a multiple of ``chunk``. Returns (dx, ddt, dA, dB, dC, dh0) fp32."""
+    exact = x.dtype == torch.bfloat16
+    x, B, C = x.float(), B.float(), C.float()
+    Bt, S, nh, hd = x.shape
+    nc = S // chunk
+    f64 = torch.float64
+    dx = torch.zeros(Bt, S, nh, hd)
+    ddt = torch.zeros(Bt, S, nh)
+    dA = torch.zeros(nh, dtype=f64)
+    dB = torch.zeros(Bt, S, B.shape[-1])
+    dC = torch.zeros_like(dB)
+    dh0 = torch.zeros_like(h0)
+    causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    for b in range(Bt):
+        cum, ec, sc, dec, st, dst = [], [], [], [], [], []
+        for k in range(nc):                       # step 1
+            sl = slice(k * chunk, (k + 1) * chunk)
+            c = torch.cumsum((dt[b, sl] * A).double(), 0)   # [c, nh]
+            cum.append(c)
+            ec.append(torch.exp(c).float())
+            sc.append((dt[b, sl] * torch.exp(c[-1] - c).float()))
+            dec.append(torch.exp(c[-1]).float())
+            st.append([_mm((x[b, sl, h] * sc[k][:, h:h + 1]).T, B[b, sl],
+                           exact_b=exact) for h in range(nh)])
+            dst.append([_mm((dy[b, sl, h] * ec[k][:, h:h + 1]).T, C[b, sl],
+                            exact_b=exact) for h in range(nh)])
+        hin, dho = [None] * nc, [None] * nc      # step 2, fp32
+        for h in range(nh):
+            H = h0[b, h]
+            for k in range(nc):
+                hin[k] = hin[k] or [None] * nh
+                hin[k][h] = H
+                H = dec[k][h] * H + st[k][h]
+            G = dh[b, h]
+            for k in reversed(range(nc)):
+                dho[k] = dho[k] or [None] * nh
+                dho[k][h] = G
+                G = dec[k][h] * G + dst[k][h]
+            dh0[b, h] = G
+        for k in range(nc):                       # steps 3 to 5
+            sl = slice(k * chunk, (k + 1) * chunk)
+            Bk, Ck = B[b, sl], C[b, sl]
+            cb = _mm(Ck, Bk.T, exact, exact)       # [i, j]
+            qs = torch.zeros(chunk, chunk)
+            dBk = torch.zeros_like(Bk)
+            dCk = torch.zeros_like(Ck)
+            for h in range(nh):
+                xk, dyk, dtk = x[b, sl, h], dy[b, sl, h], dt[b, sl, h]
+                c = cum[k][:, h]
+                L = torch.where(causal, torch.exp(torch.where(
+                    causal, c[:, None] - c[None], 0.0).float()), 0.0)
+                G = _mm(dyk, xk.T, exact_b=exact)
+                W = cb * L * dtk[None]
+                K = cb * (G * L)
+                qs = qs + G * L * dtk[None]
+                tl = torch.exp(c[-1] - c).float()
+                f = dtk * tl
+                u = _mm(Bk, dho[k][h].T, exact_a=exact)        # [j, d]
+                dxk = _mm(W.T, dyk) + f[:, None] * u
+                sx = (xk * u).sum(1)
+                z = _mm(Ck, hin[k][h].T, exact_a=exact)        # [i, d]
+                Kd = K.double()
+                pos = (Kd * dtk.double()[None]).sum(1) \
+                    + (ec[k][:, h] * (dyk * z).sum(1)).double()
+                colK = Kd.sum(0)
+                sj = f.double() * sx.double()
+                dcum = pos - dtk.double() * colK - sj
+                dcum[-1] += sj.sum() + dec[k][h].double() \
+                    * (dho[k][h] * hin[k][h]).sum().double()
+                R = torch.flip(torch.cumsum(torch.flip(dcum, [0]), 0), [0])
+                dd = colK.float() + tl * sx
+                ddt[b, sl, h] = (A[h].double() * R + dd.double()).float()
+                dA[h] += (dtk.double() * R).sum()
+                dx[b, sl, h] = dxk
+                dBk = dBk + _mm((xk * f[:, None]), dho[k][h], exact_a=False)
+                dCk = dCk + _mm((dyk * ec[k][:, h:h + 1]), hin[k][h])
+            dB[b, sl] = dBk + _mm(qs.T, Ck, exact_b=exact)
+            dC[b, sl] = dCk + _mm(qs, Bk, exact_b=exact)
+    return dx, ddt, dA.float(), dB, dC, dh0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ds", [128, 16])
+def test_split_products_keep_the_gradient_within_ssd_rel(dtype, ds):
+    """The backward kernels' bf16 hi + lo products (``_split_bwd``) against
+    the fp64 plain backward at mamba2-370m's chunk (256, head_dim 64) and
+    d_state 128, and jamba's d_state 16, with decays down to A = -16 over
+    2 chunks (|cum| ~2e3 within a chunk): every gradient, ddt and dA
+    first, within SSD_REL (5e-4) of its largest magnitude, the limit the
+    card holds the kernels to. Predicts the card's precision before any
+    run there; the worst share of the limit is printed."""
+    rng = np.random.default_rng(21 + ds)
+    Bt, S, nh, hd, chunk = 1, 512, 4, 64, 256
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    x, B, C = (a.to(dtype) for a in (t(Bt, S, nh, hd), t(Bt, S, ds),
+                                     t(Bt, S, ds)))
+    dt = torch.nn.functional.softplus(t(Bt, S, nh))
+    A = -torch.linspace(1.0, 16.0, nh)
+    h0, dy, dh = t(Bt, nh, hd, ds), t(Bt, S, nh, hd), t(Bt, nh, hd, ds)
+    cum = torch.cumsum(dt[0, :chunk] * A, 0)
+    assert float(cum.abs().max()) > 1.5e3           # the steep decay
+    got = _split_bwd(x, dt, A, B, C, h0, dy, dh, chunk)
+    want = ref.ssd_scan_bwd_ref(x, dt, A, B, C, h0, dy, dh, chunk)
+    shares = {}
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dh0"), got, want):
+        # bf16 dx, dB and dC: both rounded once to bf16, one ulp apart at
+        # most beside the limit, as the card holds them
+        rtol = 2 ** -7 if w.dtype == torch.bfloat16 else 0.0
+        g, w = g.to(w.dtype).double(), w.double()
+        over = (g - w).abs() - rtol * w.abs()
+        shares[name] = float(over.max() / w.abs().max())
+        assert shares[name] <= 5e-4, (name, shares[name])
+    print(f"split products, {dtype} d_state {ds}: error / largest "
+          + ", ".join(f"{n} {e:.2g}" for n, e in shares.items()))
+
+
+# ------------------------------------------- the norm's backward plan
+
+@pytest.mark.parametrize("D,dtype,want", [
+    (3072, torch.float32, (True, 3, 8, 2)),     # llama3.2-3b
+    (3072, torch.bfloat16, (True, 2, 8, 4)),
+    (768, torch.float32, (True, 1, 8, 8)),      # small_100m: one warp a row
+    (768, torch.bfloat16, (True, 1, 4, 8)),
+    (1024, torch.float32, (True, 1, 8, 8)),     # the widest f32 row a warp
+    (1028, torch.float32, (True, 2, 8, 4)),
+    (2048, torch.bfloat16, (True, 1, 8, 8)),    # the widest bf16 row a warp
+    (2048, torch.float32, (True, 2, 8, 4)),     # qwen3-moe-30b-a3b
+    (2560, torch.float32, (True, 3, 8, 2)),     # gemma3-4b
+    (2560, torch.bfloat16, (True, 2, 8, 4)),
+    (8192, torch.float32, (True, 8, 8, 1)),     # eight warps, the widest
+    (1001, torch.bfloat16, (False, 4, 8, 2)),   # not 16-byte rows
+    (77, torch.float32, (False, 1, 4, 8)),
+    (1, torch.float32, (False, 1, 1, 8)),
+])
+def test_rmsnorm_bwd_plan(D, dtype, want):
+    """The backward's own plan: the fewest warps that hold a row at
+    ``BWD_UNITS`` units a lane (one warp up to f32 1024 and bf16 2048),
+    the smallest instantiated units a lane that cover it, and as many row
+    groups as ``BWD_BLOCK_WARPS`` warps hold; refused past eight warps."""
+    p = rms.bwd_plan(D, dtype)
+    assert tuple(p) == want
+    es = torch.empty((), dtype=dtype).element_size()
+    units = D // (16 // es) if p.vec else D
+    assert p.vec == (D * es % 16 == 0)
+    assert 32 * p.warps_per_row * p.units_per_lane >= units
+    assert p.warps_per_row == 1 or \
+        32 * (p.warps_per_row - 1) * rms.BWD_UNITS < units
+    assert p.units_per_lane in rms.BWD_UNITS_PER_LANE
+    assert p.warps_per_row * p.rows_per_block <= rms.BWD_BLOCK_WARPS
+
+
+def test_rmsnorm_bwd_plan_refuses_rows_past_eight_warps():
+    with pytest.raises(ValueError, match="at most 8"):
+        rms.bwd_plan(8196, torch.float32)
+    assert rms.bwd_plan(16384, torch.bfloat16).warps_per_row == 8
+
+
+def _bwd_layout(N, D, dtype):
+    """The backward's map of rows and elements, as its two kernels walk
+    them: for each row, the (block, group) that takes it and each element's
+    (warp of the group, lane, unit) (which fix the row's reduction order);
+    for each column of dw, the part rows each dw thread (slab) sums."""
+    p = rms.bwd_plan(D, dtype)
+    blocks = rms.bwd_blocks(N, p)
+    groups = p.rows_per_block
+    n_groups = blocks * groups
+    owner = {}
+    for blk in range(blocks):
+        for g in range(groups):
+            for row in range(blk * groups + g, N, n_groups):
+                assert row not in owner
+                owner[row] = (blk, g)
+    es = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // es if p.vec else 1
+    lanes = {}
+    for w in range(p.warps_per_row):
+        for lane in range(32):
+            for q in range(p.units_per_lane):
+                u = w * 32 + lane + q * 32 * p.warps_per_row
+                for e in range(vec):
+                    if u * vec + e < D:
+                        assert u * vec + e not in lanes
+                        lanes[u * vec + e] = (w, lane, q)
+    slabs = [list(range(s, blocks, rms.DW_SLABS))
+             for s in range(rms.DW_SLABS)]
+    return p, blocks, owner, lanes, slabs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [3072, 768, 2048, 2560, 1001])
+def test_rmsnorm_bwd_layout_covers_every_row_and_element_once(D, dtype):
+    """For N = 1, 8, 1024 and 4097: every row goes to one group, every
+    element of a row to one (warp, lane, unit) that is the same for every
+    N (so a row's dx and its sums' order do not depend on N); every part
+    row is a block's, each read by one dw slab, so each (row, column)
+    enters dw once, in an order that (N, D) fixes; the scratch is the
+    wrapper's [blocks, D]."""
+    first = None
+    for N in (1, 8, 1024, 4097):
+        p, blocks, owner, lanes, slabs = _bwd_layout(N, D, dtype)
+        assert sorted(owner) == list(range(N))
+        assert sorted(lanes) == list(range(D))
+        if first is None:
+            first = (p, lanes)
+        assert (p, lanes) == first
+        assert sorted(r for s in slabs for r in s) == list(range(blocks))
+        assert blocks == min(-(-N // p.rows_per_block), rms.BWD_MAX_BLOCKS)
+        # each group takes a row while the rows fit the grid
+        rows_a_group = max(len([r for r, o in owner.items() if o == og])
+                           for og in set(owner.values()))
+        assert rows_a_group == -(-N // (blocks * p.rows_per_block))
+
+
+@pytest.mark.parametrize("py, src, name", [
+    (rms.DW_SLABS, "rmsnorm.cu", "kDwSlabs"),
+    (ssd.DX_COLS, "ssd_scan_bwd.cu", "kCols3"),
+    (ssd.DBDC_COLS, "ssd_scan_bwd.cu", "kCols4"),
+    (ssd.MAX_GROUP, "ssd_scan_bwd.cu", "kMaxHpg"),
+])
+def test_plan_constants_are_the_sources(py, src, name):
+    """The wrappers' plans mirror a few of the kernels' compile-time
+    constants: each Python value is the one its source compiles with."""
+    import re
+    from pathlib import Path
+    text = (Path(ssd.__file__).resolve().parents[1] / "csrc" / src) \
+        .read_text()
+    found = re.findall(rf"\b{name} = (\d+)\b", text)
+    assert found == [str(py)], (name, found)

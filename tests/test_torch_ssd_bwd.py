@@ -255,38 +255,70 @@ def test_kernel_steps_in_float64_equal_the_gradient(case):
 # ---------------------------------------------------------------- the plan
 
 @pytest.mark.parametrize("Bt,S,chunk,nh,hd,ds,want", [
-    # mamba2-370m, one 1024-token row: 4 chunks, 8192 state entries a head
+    # mamba2-370m, one 1024-token row: 4 chunks of 4 tiles, 2 heads a dx
+    # block, 4 a dB / dC block
     (1, 1024, 256, 32, 64, 128,
-     dict(state_grid=(4, 32, 1), pass_grid=(32, 32, 1),
-          chunk_grid=(4, 32, 1), reduce_grid=(1024,), da_grid=(1,))),
+     dict(groups=(2, 4), state_grid=(8, 32, 1), pass_grid=(32, 32, 1),
+          chunk_grid=(4, 16, 4), dbdc_grid=(8, 8, 4), dcum_grid=(4, 32, 1),
+          reduce_grid=(1025,), group_partials=(1, 8, 1024, 128))),
     # a ragged last chunk, two rows
     (2, 700, 256, 32, 64, 128,
-     dict(state_grid=(3, 32, 2), pass_grid=(32, 32, 2),
-          chunk_grid=(3, 32, 2), reduce_grid=(1400,), da_grid=(1,))),
+     dict(groups=(2, 4), state_grid=(6, 32, 2), pass_grid=(32, 32, 2),
+          chunk_grid=(3, 16, 8), dbdc_grid=(6, 8, 8), dcum_grid=(3, 32, 2),
+          reduce_grid=(1401,), group_partials=(2, 8, 700, 128))),
     # jamba-v0.1's d_state 16 at 128 heads
     (2, 1024, 256, 128, 64, 16,
-     dict(state_grid=(4, 128, 2), pass_grid=(4, 128, 2),
-          chunk_grid=(4, 128, 2), reduce_grid=(256,), da_grid=(1,))),
-    # head_dim 128: two head-dim tiles in the state kernel
+     dict(groups=(2, 4), state_grid=(4, 128, 2), pass_grid=(4, 128, 2),
+          chunk_grid=(4, 64, 8), dbdc_grid=(8, 32, 8), dcum_grid=(4, 128, 2),
+          reduce_grid=(257,), group_partials=(2, 32, 1024, 16))),
+    # head_dim 128: one head a dx block, two a dB / dC block
     (1, 300, 256, 4, 128, 128,
-     dict(state_grid=(4, 4, 1), pass_grid=(64, 4, 1),
-          chunk_grid=(2, 4, 1), reduce_grid=(300,), da_grid=(1,))),
+     dict(groups=(1, 2), state_grid=(8, 4, 1), pass_grid=(64, 4, 1),
+          chunk_grid=(2, 4, 4), dbdc_grid=(4, 2, 4), dcum_grid=(2, 4, 1),
+          reduce_grid=(301,), group_partials=(1, 2, 300, 128))),
+    # small_100m's Mamba2 (24 heads, chunk 64): 8 rows of 128
+    (8, 128, 64, 24, 64, 128,
+     dict(groups=(2, 4), state_grid=(4, 24, 8), pass_grid=(32, 24, 8),
+          chunk_grid=(2, 12, 8), dbdc_grid=(4, 6, 8), dcum_grid=(2, 24, 8),
+          reduce_grid=(1025,), group_partials=(8, 6, 128, 128))),
+    # head_dim 16, three heads: a group short of its four heads
+    (2, 130, 64, 3, 16, 64,
+     dict(groups=(4, 4), state_grid=(3, 3, 2), pass_grid=(4, 3, 2),
+          chunk_grid=(3, 1, 2), dbdc_grid=(6, 1, 2), dcum_grid=(3, 3, 2),
+          reduce_grid=(131,), group_partials=(2, 1, 130, 64))),
+    # a chunk of 1024 at head_dim 16: four heads a block
+    (1, 2048, 1024, 8, 16, 64,
+     dict(groups=(4, 4), state_grid=(2, 8, 1), pass_grid=(4, 8, 1),
+          chunk_grid=(2, 2, 16), dbdc_grid=(4, 2, 16), dcum_grid=(2, 8, 1),
+          reduce_grid=(1025,), group_partials=(1, 2, 2048, 64))),
 ])
 def test_ssd_scan_bwd_plan(Bt, S, chunk, nh, hd, ds, want):
+    """The grids and scratch of the six kernels: the dx blocks hold the
+    heads whose columns fill 128, the dB / dC blocks those that fill 256
+    (at most 4), so the dB / dC partials are one a group, not one a head;
+    dsum holds a slot a 64-row tile plus two, in fp64."""
     p = ssd.plan_bwd(Bt, S, chunk, nh, hd, ds)
-    nc = -(-S // chunk)
+    nc, nt = -(-S // chunk), chunk // ssd.TILE
     assert p["chunks"] == (nc,)
     for key, value in want.items():
         assert p[key] == value, key
+    g3, g4 = p["groups"]
+    assert g3 * hd <= ssd.DX_COLS and g4 * hd <= ssd.DBDC_COLS
+    assert p["chunk_grid"] == (nc, -(-nh // g3), nt * Bt)
     assert p["states"] == p["dstates"] == (Bt, nc, nh, hd, ds)
     assert p["decay"] == p["da_partials"] == (Bt, nc, nh)
-    assert p["head_partials"] == (Bt, nh, S, ds)
+    assert p["dsum"] == (Bt, nc, nh, nt + 2, chunk)
+    assert p["ddt_direct"] == (Bt, nc, nh, chunk)
+    # the scratch of dB and dC is the per-head one shrunk by the group
+    assert p["group_partials"] == (Bt, -(-nh // g4), S, ds)
     # the batch enters only along its axis
     one = ssd.plan_bwd(1, S, chunk, nh, hd, ds)
-    for key in ("state_grid", "pass_grid", "chunk_grid"):
+    for key in ("state_grid", "pass_grid", "dcum_grid"):
         assert p[key][:2] == one[key][:2] and p[key][2] == Bt
-    for key in ("states", "dstates", "decay", "head_partials",
-                "da_partials"):
+    for key in ("chunk_grid", "dbdc_grid"):
+        assert p[key][:2] == one[key][:2] and p[key][2] == Bt * one[key][2]
+    for key in ("states", "dstates", "decay", "dsum", "ddt_direct",
+                "group_partials", "da_partials"):
         assert p[key] == (Bt,) + one[key][1:]
 
 

@@ -496,15 +496,16 @@ def test_rmsnorm_function_uses_its_backward():
 
 
 def test_rmsnorm_bwd_grid_and_refusals():
-    """The backward's grid (groups of four rows or more, at most
-    ``BWD_MAX_BLOCKS`` blocks) and its wrapper's refusals, which come
-    before the device check, so the CPU sees them."""
+    """The backward's grid (a row a group up to ``BWD_MAX_BLOCKS`` blocks,
+    then that many) and its wrapper's refusals, which come before the
+    device check, so the CPU sees them."""
     from repro_torch.kernels import rmsnorm as rms
-    p = rms.plan(3072, torch.float32)
-    assert (p.warps_per_row, p.rows_per_block) == (6, 1)
-    assert rms.bwd_blocks(1024, p) == 256 and rms.bwd_blocks(1, p) == 1
+    p = rms.bwd_plan(3072, torch.float32)
+    assert (p.warps_per_row, p.units_per_lane, p.rows_per_block) == (3, 8, 2)
+    assert rms.bwd_blocks(1024, p) == rms.BWD_MAX_BLOCKS == 264
+    assert rms.bwd_blocks(1, p) == 1 and rms.bwd_blocks(400, p) == 200
     assert rms.bwd_blocks(10 ** 6, p) == rms.BWD_MAX_BLOCKS
-    assert rms.bwd_blocks(1024, rms.plan(768, torch.float32)) == 128
+    assert rms.bwd_blocks(1024, rms.bwd_plan(768, torch.float32)) == 128
     x, w = torch.zeros(4, 3072), torch.zeros(3072)
     with pytest.raises(ValueError, match="shapes"):
         rms.rmsnorm_bwd_cuda(x, w, torch.zeros(4, 3071))
@@ -749,3 +750,34 @@ def test_train_script_checkpoint_and_resume(tmp_path, monkeypatch, capsys):
     assert out[1] == "resumed from step 3"
     assert [line.split()[1] for line in out[2:4]] == ["3", "4"]
     assert int(opt2.step) == 5
+
+
+def test_step_time_times_the_steps_on_the_plain_route(capsys):
+    """``launch.step_time`` on the CPU at a reduced Mamba2: one line with
+    every step's time and their median, the losses those of
+    ``make_train_step`` on the same batches, and the scan's and the norm's
+    plain versions counted (the CPU never launches a kernel)."""
+    from repro_torch.launch import step_time
+    argv = ["--device", "cpu", "--reduced", "--arch", "mamba2-370m",
+            "--batch", "1", "--seq", "32", "--steps", "2"]
+    r = step_time.main(argv)
+    line = capsys.readouterr().out.strip()
+    assert re.fullmatch(r"\[step_time\] repro_torch from .+: "
+                        r"mamba2-370m \(\d+ layers, d_model \d+\), f32, "
+                        r"batch 1 x 32: median step [\d.]+ ms of steps 2-2 "
+                        r"\(steps \[[\d., ]+\] ms\), losses \[[\d., ]+\]; "
+                        r"kernels .+", line), line
+    assert len(r["ms"]) == 2 and r["median_ms"] == r["ms"][1]
+    cfg = get_config("mamba2-370m").reduced()
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params, opt = TS.init_train_state(cfg, gen, device="cpu")
+    rng = np.random.default_rng(0)
+    batches = [TTR.synthetic_batch(rng, cfg, 1, 32, "cpu") for _ in range(2)]
+    step = TS.make_train_step(cfg)
+    for b, loss in zip(batches, r["losses"]):
+        params, opt, m = step(params, opt, b)
+        assert float(m["loss"]) == loss
+    c = r["counts"]
+    assert all(c[k]["launches"] == 0 for k in c)
+    assert c["ssd_scan_bwd"]["plain"] > 0 and c["rmsnorm_bwd"]["plain"] > 0
