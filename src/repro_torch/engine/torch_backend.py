@@ -73,6 +73,7 @@ from repro_torch.models.transformer import (MOE_IMPLS, _check_decoder_only,
                                             fused_serve_forward, init_cache,
                                             init_paged_cache, init_params,
                                             load_params, prefill)
+from repro_torch.obs.spans import span
 
 
 def _slot_slice(cache: Dict, slot: int) -> Dict:
@@ -133,7 +134,9 @@ class _SlotEngineBase:
         """Programs compiled per shape bucket (``JaxEngine``'s count): 0,
         since both engines run eagerly and eager PyTorch compiles no
         program per shape. Once ``warm`` captures a CUDA graph per bucket,
-        this counts the captured graphs (ROADMAP queue 1 item 2)."""
+        this counts the captured graphs (ROADMAP queue 1 item 2). The
+        scrape does not export it (``obs/scrape.py``): a constant tells a
+        reader of ``/metrics`` nothing."""
         return 0
 
     def _gen_tokens(self, req: Request) -> np.ndarray:
@@ -735,137 +738,143 @@ class TorchEngine(_SlotEngineBase):
 
     def execute(self, plan: BatchPlan, now: float) -> float:
         t0 = time.perf_counter()
-        self.preflight(plan)
-        n = self.n_slots
-        # ---- pack the plan (host-side numpy; no device ops)
-        pre: List[tuple] = []       # (slot, req, toks)
-        for req, chunk in plan.prefill:
-            self._ensure_resident(req)
-            slot = self.slot_of[req.rid]
-            toks = self.tokens[req.rid][req.prefilled:req.prefilled + chunk]
-            if req.prefilled != self.slot_len[slot]:
-                raise RuntimeError(
-                    f"rid {req.rid} resumes prefill at {req.prefilled} but "
-                    f"slot {slot} holds {self.slot_len[slot]} tokens — a "
-                    f"state-preserving resume needs the paged engine with "
-                    f"a KV hierarchy (the dense layout is flat-KVPool "
-                    f"recompute semantics only)")
-            if req.prefilled + len(toks) > self.max_len:
-                raise RuntimeError(
-                    f"rid {req.rid} prefill would exceed max_len "
-                    f"{self.max_len}; size prompts+decodes to the cache")
-            if self.paged and not self.pool.grow(
-                    req.rid, req.prefilled + len(toks)):
-                raise EngineBackpressure(
-                    f"KV pool exhausted growing rid {req.rid} to "
-                    f"{req.prefilled + len(toks)} tokens — the scheduler "
-                    "admitted beyond pool capacity",
-                    kind="kv", num_blocks=self.pool.num_blocks,
-                    block_size=self.block_size, rid=req.rid)
-            pre.append((slot, req, toks))
-        if pre:
-            P = 1
-            while P < len(pre):
-                P *= 2
-            L = self._lbucket(max(len(t) for _, _, t in pre))
-        else:
-            P, L = 0, 1     # decode-only: the prefill branch is skipped
-        pre_tokens = np.zeros((P, L), np.int32)
-        pre_slots = np.full((P,), n, np.int32)      # n: the sink row
-        pre_start = np.zeros((P,), np.int32)
-        pre_len = np.zeros((P,), np.int32)
-        pre_reset = np.zeros((P,), bool)
-        pre_sample = np.zeros((P,), np.int32)
-        emit_pre: List[Optional[int]] = [None] * P
-        for i, (slot, req, toks) in enumerate(pre):
-            real = len(toks)
-            pre_tokens[i, :real] = toks
-            pre_slots[i] = slot
-            pre_start[i] = req.prefilled
-            pre_len[i] = real
-            pre_reset[i] = req.prefilled == 0
-            if req.prefilled + real >= req.prompt_len:
-                # the last chunk emits the request's first output token
-                pre_sample[i] = real - 1
-                emit_pre[i] = req.rid
-        # decode sub-batch: absent (size 0) when the plan has no decodes
-        nd = n if plan.decode else 0
-        dec_active = np.zeros((nd,), bool)
-        emit_dec: List[Optional[int]] = [None] * nd
-        for req in plan.decode:
-            self._ensure_resident(req)   # mid-decode swap-resume (paged)
-            slot = self.slot_of[req.rid]
-            if self.slot_len[slot] + 1 > self.max_len:
-                raise RuntimeError(
-                    f"rid {req.rid} decode would exceed max_len "
-                    f"{self.max_len}; size prompts+decodes to the cache")
-            if self.paged and not self.pool.grow(
-                    req.rid, int(self.slot_len[slot]) + 1):
-                raise EngineBackpressure(
-                    f"KV pool exhausted on decode growth of rid "
-                    f"{req.rid}: admission control bounds prefill, not "
-                    f"decode growth — size the pool for the worst-case "
-                    f"decode footprint (num_blocks >= max_seqs * "
-                    f"max_len/block_size)",
-                    kind="kv", num_blocks=self.pool.num_blocks,
-                    block_size=self.block_size, rid=req.rid)
-            dec_active[slot] = True
-            emit_dec[slot] = req.rid
+        with span("engine.pack"):
+            self.preflight(plan)
+            n = self.n_slots
+            # ---- pack the plan (host-side numpy; no device ops)
+            pre: List[tuple] = []       # (slot, req, toks)
+            for req, chunk in plan.prefill:
+                self._ensure_resident(req)
+                slot = self.slot_of[req.rid]
+                toks = self.tokens[req.rid][
+                    req.prefilled:req.prefilled + chunk]
+                if req.prefilled != self.slot_len[slot]:
+                    raise RuntimeError(
+                        f"rid {req.rid} resumes prefill at {req.prefilled} "
+                        f"but slot {slot} holds {self.slot_len[slot]} "
+                        f"tokens — a state-preserving resume needs the "
+                        f"paged engine with a KV hierarchy (the dense "
+                        f"layout is flat-KVPool recompute semantics only)")
+                if req.prefilled + len(toks) > self.max_len:
+                    raise RuntimeError(
+                        f"rid {req.rid} prefill would exceed max_len "
+                        f"{self.max_len}; size prompts+decodes to the cache")
+                if self.paged and not self.pool.grow(
+                        req.rid, req.prefilled + len(toks)):
+                    raise EngineBackpressure(
+                        f"KV pool exhausted growing rid {req.rid} to "
+                        f"{req.prefilled + len(toks)} tokens — the "
+                        "scheduler admitted beyond pool capacity",
+                        kind="kv", num_blocks=self.pool.num_blocks,
+                        block_size=self.block_size, rid=req.rid)
+                pre.append((slot, req, toks))
+            if pre:
+                P = 1
+                while P < len(pre):
+                    P *= 2
+                L = self._lbucket(max(len(t) for _, _, t in pre))
+            else:
+                P, L = 0, 1     # decode-only: the prefill branch is skipped
+            pre_tokens = np.zeros((P, L), np.int32)
+            pre_slots = np.full((P,), n, np.int32)      # n: the sink row
+            pre_start = np.zeros((P,), np.int32)
+            pre_len = np.zeros((P,), np.int32)
+            pre_reset = np.zeros((P,), bool)
+            pre_sample = np.zeros((P,), np.int32)
+            emit_pre: List[Optional[int]] = [None] * P
+            for i, (slot, req, toks) in enumerate(pre):
+                real = len(toks)
+                pre_tokens[i, :real] = toks
+                pre_slots[i] = slot
+                pre_start[i] = req.prefilled
+                pre_len[i] = real
+                pre_reset[i] = req.prefilled == 0
+                if req.prefilled + real >= req.prompt_len:
+                    # the last chunk emits the request's first output token
+                    pre_sample[i] = real - 1
+                    emit_pre[i] = req.rid
+            # decode sub-batch: absent (size 0) when the plan has no decodes
+            nd = n if plan.decode else 0
+            dec_active = np.zeros((nd,), bool)
+            emit_dec: List[Optional[int]] = [None] * nd
+            for req in plan.decode:
+                self._ensure_resident(req)   # mid-decode swap-resume (paged)
+                slot = self.slot_of[req.rid]
+                if self.slot_len[slot] + 1 > self.max_len:
+                    raise RuntimeError(
+                        f"rid {req.rid} decode would exceed max_len "
+                        f"{self.max_len}; size prompts+decodes to the cache")
+                if self.paged and not self.pool.grow(
+                        req.rid, int(self.slot_len[slot]) + 1):
+                    raise EngineBackpressure(
+                        f"KV pool exhausted on decode growth of rid "
+                        f"{req.rid}: admission control bounds prefill, not "
+                        f"decode growth — size the pool for the worst-case "
+                        f"decode footprint (num_blocks >= max_seqs * "
+                        f"max_len/block_size)",
+                        kind="kv", num_blocks=self.pool.num_blocks,
+                        block_size=self.block_size, rid=req.rid)
+                dec_active[slot] = True
+                emit_dec[slot] = req.rid
 
-        bts = bts_host = (None, None)
-        if self.paged:
-            bts = self._block_tables(pre, P, nd, emit_dec)
-            bts_host = self._bts_host
+            bts = bts_host = (None, None)
+            if self.paged:
+                bts = self._block_tables(pre, P, nd, emit_dec)
+                bts_host = self._bts_host
         # ---- ONE forward; the cache's pages and state written in place
-        sampled = self._step((pre_tokens, pre_slots, pre_start, pre_len,
-                              pre_reset, pre_sample,
-                              self.last_token[:nd].copy(),
-                              self.slot_len[:nd].copy(), dec_active),
-                             bts_host, bts)
-        out = sampled.cpu().numpy()   # the ONE device->host transfer
-        self._buckets.add((P, L, nd, bts[0].shape[1]) if self.paged
-                          else (P, L, nd))
-        self.prefill_rows += len(pre)
-        self.prefill_tokens += sum(len(t) for _, _, t in pre)
-        if self._tp_plan is not None:
-            # the gathers' traffic of this dispatch, by op, priced as
-            # JaxEngine prices it (real tokens, 4 bytes an element);
-            # exported as repro_tp_collective_bytes_total{op=}
-            n_tok = sum(len(t) for _, _, t in pre) + int(dec_active.sum())
-            for op, b in self._tp_plan.collective_bytes(
-                    n_tok, P + nd).items():
-                self.tp_collective_bytes[op] = \
-                    self.tp_collective_bytes.get(op, 0.0) + b
+        with span("engine.launch"):
+            sampled = self._step((pre_tokens, pre_slots, pre_start, pre_len,
+                                  pre_reset, pre_sample,
+                                  self.last_token[:nd].copy(),
+                                  self.slot_len[:nd].copy(), dec_active),
+                                 bts_host, bts)
+        with span("engine.sync"):
+            out = sampled.cpu().numpy()   # the ONE device->host transfer
+        with span("engine.post"):
+            self._buckets.add((P, L, nd, bts[0].shape[1]) if self.paged
+                              else (P, L, nd))
+            self.prefill_rows += len(pre)
+            self.prefill_tokens += sum(len(t) for _, _, t in pre)
+            if self._tp_plan is not None:
+                # the gathers' traffic of this dispatch, by op, priced as
+                # JaxEngine prices it (real tokens, 4 bytes an element);
+                # exported as repro_tp_collective_bytes_total{op=}
+                n_tok = sum(len(t) for _, _, t in pre) + int(dec_active.sum())
+                for op, b in self._tp_plan.collective_bytes(
+                        n_tok, P + nd).items():
+                    self.tp_collective_bytes[op] = \
+                        self.tp_collective_bytes.get(op, 0.0) + b
 
-        # ---- host bookkeeping
-        for slot, req, toks in pre:
-            self.slot_len[slot] = req.prefilled + len(toks)
-        for i, rid in enumerate(emit_pre):
-            if rid is None:
-                continue
-            tok = int(out[i])
-            self.generated[rid].append(tok)
-            self.last_token[pre[i][0]] = tok
-        for slot, rid in enumerate(emit_dec):
-            if rid is None:
-                continue
-            tok = int(out[P + slot])
-            self.generated[rid].append(tok)
-            self.last_token[slot] = tok
-            self.slot_len[slot] += 1
-        # ---- SWA page reclamation: the fully dead leading blocks of every
-        # live row (positions r <= len - W) go back to the pool
-        if self._swa_reclaim_window is not None:
-            W = self._swa_reclaim_window
-            live = [(req.rid, slot) for slot, req, _ in pre]
-            live += [(rid, slot) for slot, rid in enumerate(emit_dec)
-                     if rid is not None]
-            for rid, slot in live:
-                dead = (int(self.slot_len[slot]) - W + 1) // self.block_size
-                if dead > 0:
-                    self.kv_blocks_reclaimed += \
-                        self.pool.reclaim_prefix(rid, dead)
-        elapsed = time.perf_counter() - t0
+            # ---- host bookkeeping
+            for slot, req, toks in pre:
+                self.slot_len[slot] = req.prefilled + len(toks)
+            for i, rid in enumerate(emit_pre):
+                if rid is None:
+                    continue
+                tok = int(out[i])
+                self.generated[rid].append(tok)
+                self.last_token[pre[i][0]] = tok
+            for slot, rid in enumerate(emit_dec):
+                if rid is None:
+                    continue
+                tok = int(out[P + slot])
+                self.generated[rid].append(tok)
+                self.last_token[slot] = tok
+                self.slot_len[slot] += 1
+            # ---- SWA page reclamation: the fully dead leading blocks of
+            # every live row (positions r <= len - W) go back to the pool
+            if self._swa_reclaim_window is not None:
+                W = self._swa_reclaim_window
+                live = [(req.rid, slot) for slot, req, _ in pre]
+                live += [(rid, slot) for slot, rid in enumerate(emit_dec)
+                         if rid is not None]
+                for rid, slot in live:
+                    dead = ((int(self.slot_len[slot]) - W + 1)
+                            // self.block_size)
+                    if dead > 0:
+                        self.kv_blocks_reclaimed += \
+                            self.pool.reclaim_prefix(rid, dead)
+            elapsed = time.perf_counter() - t0
         self.iteration_log.append((plan.cost(), elapsed))
         return elapsed
 

@@ -13,8 +13,11 @@ alone (JAX also returns an empty metrics dict); ``moe_forward`` returns
 the output and its load-balance metrics, as JAX's does.
 
 The router, the expert products and the combine each run inside a
-``torch.profiler.record_function`` span (``moe.router``, ``moe.experts``,
-``moe.combine``), so that a profile reads their device time by name.
+program span (``repro_torch.obs.spans``: ``moe.router``, ``moe.experts``,
+``moe.combine``), so that a profile reads their device time by name. The
+grouped path's one blocking read of its largest segment runs inside
+``engine.host_read`` (not a ``moe.`` name: the read's own kernels are
+not the FFN's work).
 
 Top-k keeps ``jax.lax.top_k``'s order on ties (the lower expert index
 first): router logits computed in bf16 can tie exactly, and
@@ -34,10 +37,10 @@ from collections import Counter
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from repro_torch.distributed.torch_api import (Partial, Replicate, Shard,
                                                einsum, is_dtensor, local_map)
+from repro_torch.obs.spans import span
 
 from .config import ModelConfig
 
@@ -115,7 +118,7 @@ def moe_forward(p: MoE, x, cfg: ModelConfig, constrain=_no_constrain):
     C = max(K, int(m.capacity_factor * Tg * K / E))
 
     xg = constrain(x.reshape(G, Tg, D), "moe_group")
-    with record_function("moe.router"):
+    with span("moe.router"):
         logits = einsum("gtd,de->gte", xg, p.router).float()
         probs = torch.softmax(logits, dim=-1)
         gate_vals, expert_idx = _top_k(probs, K)                # [G, Tg, K]
@@ -138,14 +141,14 @@ def moe_forward(p: MoE, x, cfg: ModelConfig, constrain=_no_constrain):
         buf = buf.index_put((gi, ef, pos), xk, accumulate=True)[:, :, :C]
     buf = constrain(buf, "expert_buffer")
 
-    with record_function("moe.experts"):
+    with span("moe.experts"):
         h = F.silu(einsum("gecd,edf->gecf", buf, p.w_gate)) \
             * einsum("gecd,edf->gecf", buf, p.w_up)
         out_buf = einsum("gecf,efd->gecd", h, p.w_down)
         out_buf = F.pad(out_buf, (0, 0, 0, 1))                  # column C
         out_buf = constrain(out_buf, "expert_buffer")
 
-    with record_function("moe.combine"):
+    with span("moe.combine"):
         if is_dtensor(out_buf):
             gathered = constrain(_ExpertShards(xk, p.w_gate, E).gather(
                 out_buf, ef, pos), "moe_group")
@@ -264,7 +267,7 @@ def _route(p: MoE, x, cfg: ModelConfig):
     top-k gates ``[B, S, E]`` (fp32, exact zeros off the top k) and the
     chosen experts ``[B, S, K]``."""
     m = cfg.moe
-    with record_function("moe.router"):
+    with span("moe.router"):
         logits = torch.einsum("bsd,de->bse", x, p.router).float()
         probs = torch.softmax(logits, dim=-1)
         gate_vals, expert_idx = _top_k(probs, m.top_k)
@@ -278,7 +281,7 @@ def _route(p: MoE, x, cfg: ModelConfig):
 def _experts(p: MoE, buf):
     """Every expert's swiglu over its segment: ``[E, C, d] -> [E, C, d]``,
     three batched products."""
-    with record_function("moe.experts"):
+    with span("moe.experts"):
         h = F.silu(torch.bmm(buf, p.w_gate)) * torch.bmm(buf, p.w_up)
         return torch.bmm(h, p.w_down)
 
@@ -286,7 +289,7 @@ def _experts(p: MoE, buf):
 def _combine(gates, eo):
     """``bse,bsed->bsd``: each token's expert outputs weighted by its
     gates (exact zeros off the top k)."""
-    with record_function("moe.combine"):
+    with span("moe.combine"):
         return torch.einsum("bse,bsed->bsd", gates.to(eo.dtype), eo)
 
 
@@ -334,7 +337,8 @@ def moe_forward_grouped(p: MoE, x, cfg: ModelConfig,
     oh = F.one_hot(ef, E).t().contiguous()
     pos = torch.gather(torch.cumsum(oh, dim=1) - 1, 0,
                        ef[None, :])[0]                       # [TK]
-    mx = int(oh.sum(dim=1).max())
+    with span("engine.host_read"):
+        mx = int(oh.sum(dim=1).max())
     caps = _capacity_ladder(TK, E)
     C = caps[sum(c < mx for c in caps[:-1])]
     rungs[C] += 1
@@ -359,7 +363,7 @@ def moe_forward_grouped(p: MoE, x, cfg: ModelConfig,
 
 def _expert_sweep(p: MoE, x):
     """Every expert over every token: ``[B, S, d] -> [B, S, E, d]``."""
-    with record_function("moe.experts"):
+    with span("moe.experts"):
         h = F.silu(torch.einsum("bsd,edf->bsef", x, p.w_gate)) \
             * torch.einsum("bsd,edf->bsef", x, p.w_up)
         return torch.einsum("bsef,efd->bsed", h, p.w_down)

@@ -7,7 +7,7 @@ Prometheus naming conventions — ``repro_`` namespace, ``_total`` suffix
 on counters, base units (seconds, bytes) in the name.
 
 Sources in this repo are mostly *pre-existing* cumulative counters
-(``Replica.backpressure_defers``, ``TorchEngine.jit_compiles``,
+(``Replica.backpressure_defers``, ``TorchEngine.prefill_rows``,
 ``PrefixCache.hit_tokens``...). ``Counter.set_total`` exists for exactly
 that scrape pattern: the registry mirrors the source's monotonic value
 instead of double-counting increments (see ``obs/scrape.py``).

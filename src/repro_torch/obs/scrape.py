@@ -3,7 +3,7 @@
 
 The repo's counters predate the registry and live where they are cheap to
 maintain (``Replica.backpressure_defers``, ``KVPool.free``,
-``PrefixCache.hit_tokens``, ``TorchEngine.jit_compiles``,
+``PrefixCache.hit_tokens``, ``TorchEngine.buckets_seen``,
 ``EngineWorker.publishes``, ``FleetReport.*``). Rather than rewriting
 every hot path to call the registry — which would put metric plumbing in
 bit-identity-critical code — this pass reads them all at observation
@@ -80,9 +80,6 @@ def scrape_replica(reg, rep, worker=None) -> None:
 
     eng = _engine_of(rep)
     if eng is not None:
-        reg.gauge("repro_engine_jit_cache_size",
-                  "compiled fused-step programs (bounded by buckets)",
-                  ("replica",)).set(eng.jit_compiles, **lab)
         reg.gauge("repro_engine_shape_buckets",
                   "distinct (rows, chunk) shape buckets served",
                   ("replica",)).set(len(eng.buckets_seen), **lab)

@@ -16,6 +16,7 @@ from repro_torch.core.kvpool import KVPool, blocks_for
 from repro_torch.core.reqtable import DecodeTable, PrefillTable
 from repro_torch.core.request import Phase, Request
 from repro_torch.core.scheduler import BatchPlan, Scheduler, SchedulerView
+from repro_torch.obs.spans import span
 
 
 class ExecutionBackend(Protocol):
@@ -431,12 +432,14 @@ class Replica:
     def step(self) -> bool:
         """One scheduling iteration. Returns False when fully drained."""
         self.state_version += 1
-        self._admit_arrivals()
-        view = SchedulerView(self.prefill_queue, self.decode_queue,
-                             self.relegated_queue, self.kv,
-                             trace=self.tracer is not None)
-        plan = self.scheduler.schedule(self.now, view)
-        self._apply_relegation(plan)
+        with span("replica.admit"):
+            self._admit_arrivals()
+            view = SchedulerView(self.prefill_queue, self.decode_queue,
+                                 self.relegated_queue, self.kv,
+                                 trace=self.tracer is not None)
+        with span("replica.schedule"):
+            plan = self.scheduler.schedule(self.now, view)
+            self._apply_relegation(plan)
         if plan.empty:
             if self.prefill_queue:
                 # work exists but nothing admitted (KV watermark / zero
@@ -473,7 +476,8 @@ class Replica:
                 self.now = max(self.now, t_next)
                 return True
             return self.pending > 0
-        elapsed, plan = self._execute_deferring(plan)
+        with span("replica.execute"):
+            elapsed, plan = self._execute_deferring(plan)
         if plan is None:
             # full backpressure: nothing in the plan could run right now;
             # let time advance so finishing work can free capacity
@@ -483,13 +487,14 @@ class Replica:
         self.now += elapsed
         self.busy_time += elapsed
         self.iterations += 1
-        self._apply_results(plan, self.now)
-        if self.tracer is not None:
-            self.tracer.emit(
-                "iter", self.now, rep=self.rid, t0=t_start,
-                elapsed=elapsed, predicted=plan.predicted_time,
-                prefill=[[r.rid, c] for r, c in plan.prefill],
-                decode=[r.rid for r in plan.decode], sched=plan.trace)
+        with span("replica.apply"):
+            self._apply_results(plan, self.now)
+            if self.tracer is not None:
+                self.tracer.emit(
+                    "iter", self.now, rep=self.rid, t0=t_start,
+                    elapsed=elapsed, predicted=plan.predicted_time,
+                    prefill=[[r.rid, c] for r, c in plan.prefill],
+                    decode=[r.rid for r in plan.decode], sched=plan.trace)
         return True
 
     def _execute_deferring(self, plan: BatchPlan):

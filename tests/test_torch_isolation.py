@@ -121,7 +121,7 @@ def test_the_sources_cover_the_obs_slice():
                                                    "repro_torch.")}
     assert {"repro_torch.obs", "repro_torch.obs.trace",
             "repro_torch.obs.registry", "repro_torch.obs.attribution",
-            "repro_torch.obs.scrape"} <= names
+            "repro_torch.obs.scrape", "repro_torch.obs.spans"} <= names
     examples = {p.name for p in _sources() if p.parent == EXAMPLES}
     assert examples == {"quickstart.py", "capacity_planning.py",
                         "overload_degradation.py", "fleet_serving.py",
