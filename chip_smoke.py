@@ -4150,6 +4150,9 @@ def _tp_qwen(launches: dict) -> None:
                               layers=cfg.layers[:TP_F32_LAYERS])
     h1, h2 = [], []
     one = TorchEngine(cut, dtype=f32, **TP_KW)
+    # one fused forward a step, as the TP = 2 engine runs it (graphs
+    # engage at tp = 1 only), so that each step's hidden states are seen
+    one._split = False
     one.warm()
     with _hidden_states(h1):
         _replay(one, rec)

@@ -46,10 +46,15 @@ SSD scan through ``kernels.ops``, as everywhere). It is the port's
 equivalence oracle, and the one engine that serves encoder-decoder
 models.
 
-Not ported yet (ROADMAP.md queue 1): CUDA graphs.
+On the card, ``TorchEngine`` replays its decode sub-batch from CUDA
+graphs, one captured per page-window rung the first time that rung
+decodes, wherever no layer's decode pass reads the host
+(``graphs_engage``); the prefill sub-batch runs eagerly after it. Not
+ported yet (ROADMAP.md queue 1): the prefill lattice as CUDA graphs.
 """
 from __future__ import annotations
 
+import threading
 import time
 import weakref
 from typing import Dict, List, Mapping, Optional, Sequence
@@ -66,7 +71,7 @@ from repro_torch.distributed.tp_serve import TPServePlan, pick_backend
 from repro_torch.distributed.worker import TPWorkers
 from repro_torch.kernels import build, ops
 from repro_torch.models import moe
-from repro_torch.models.config import ATTN, MAMBA, SWA, ModelConfig
+from repro_torch.models.config import ATTN, MAMBA, MOE, SWA, ModelConfig
 from repro_torch.models.mamba2 import MambaState
 from repro_torch.models.transformer import (MOE_IMPLS, _check_decoder_only,
                                             _identity_shard, decode_step,
@@ -74,6 +79,23 @@ from repro_torch.models.transformer import (MOE_IMPLS, _check_decoder_only,
                                             init_paged_cache, init_params,
                                             load_params, prefill)
 from repro_torch.obs.spans import span
+
+# captures of every engine in the process, one at a time (the async fleet
+# steps its engines on threads)
+_CAPTURE_LOCK = threading.Lock()
+
+
+def graphs_engage(cfg: ModelConfig, device: torch.device, tp: int,
+                  moe_impl: str) -> bool:
+    """Whether ``TorchEngine`` replays its decode sub-batch from CUDA
+    graphs: on the card, on one rank, and where no layer's decode pass
+    reads the host. The grouped MoE is the one such layer: it reads its
+    largest expert segment to pick a capacity rung (``models/moe.py``).
+    Mamba, sliding-window, int8-page and dense-layout decode passes read
+    nothing back (the card's sync audit, ``PERF.md`` §6)."""
+    return (device.type == "cuda" and tp == 1
+            and not (moe_impl == "grouped"
+                     and any(l.ffn == MOE for l in cfg.layers)))
 
 
 def _slot_slice(cache: Dict, slot: int) -> Dict:
@@ -131,12 +153,10 @@ class _SlotEngineBase:
 
     @property
     def jit_compiles(self) -> int:
-        """Programs compiled per shape bucket (``JaxEngine``'s count): 0,
-        since both engines run eagerly and eager PyTorch compiles no
-        program per shape. Once ``warm`` captures a CUDA graph per bucket,
-        this counts the captured graphs (ROADMAP queue 1 item 2). The
-        scrape does not export it (``obs/scrape.py``): a constant tells a
-        reader of ``/metrics`` nothing."""
+        """Programs compiled per shape bucket (``JaxEngine``'s count): 0
+        here, since eager PyTorch compiles no program per shape;
+        ``TorchEngine`` counts the CUDA graphs it captured. The scrape
+        does not export it (``obs/scrape.py``)."""
         return 0
 
     def _gen_tokens(self, req: Request) -> np.ndarray:
@@ -248,7 +268,15 @@ class TorchEngine(_SlotEngineBase):
     the engine is collected). ``tp_collective_bytes`` accumulates
     ``TPServePlan.collective_bytes`` per dispatch at JAX's 4 bytes an
     element, as ``JaxEngine``'s counters do. A dim that does not divide
-    ``tp`` replicates, and the engine still serves."""
+    ``tp`` replicates, and the engine still serves.
+
+    Where ``graphs_engage`` holds, a step with decodes runs them as their
+    own pass (``P = 0``) at the page-window rung of the decode rows
+    alone, replayed from that rung's CUDA graph over static inputs, and
+    then its prefill rows, if any, as an eager pass (``nd = 0``); the
+    first decode step at a rung captures it (``_capture``). Counters:
+    ``graph_captures``, ``graph_replays`` (decode passes replayed) and
+    ``eager_decode_steps`` (steps whose decodes ran eagerly)."""
 
     def __init__(self, cfg: ModelConfig, n_slots: int = 8,
                  max_len: int = 512, quantum: int = 64, seed: int = 0,
@@ -364,6 +392,19 @@ class TorchEngine(_SlotEngineBase):
         self.prefill_tokens = 0
         # the (P, L, nd[, maxb]) shape buckets that execute has served
         self._buckets: set = set()
+        # the decode sub-batch as its own pass over static inputs
+        # (``_split``), replayed from CUDA graphs on the card (``_graphs``:
+        # rung -> (graph, its sampled ids, its kernel counts)); both
+        # private switches are the engagement rule's, flipped only by tests
+        # and by chip_smoke.py's TP comparison, which records the hidden
+        # states of one fused forward a step
+        self._split = graphs_engage(cfg, self.device, tp, moe_impl)
+        self._capture = self.device.type == "cuda"
+        self._graphs: Dict[int, tuple] = {}
+        self._graph_pool = self._graph_stream = None
+        self._stage = self._dec_in = None
+        self.graph_captures = self.graph_replays = 0
+        self.eager_decode_steps = 0
         if self._tp_workers is not None:
             try:
                 self._tp_group = self._tp_workers.join_group()
@@ -441,6 +482,13 @@ class TorchEngine(_SlotEngineBase):
         chunk length, decode rows), and the page-window width for the
         paged layout."""
         return tuple(sorted(self._buckets))
+
+    @property
+    def jit_compiles(self) -> int:
+        """The CUDA graphs captured: one per page-window rung the decode
+        sub-batch has reached, at its first decode step there (not in
+        ``warm``); 0 where graphs do not engage, on the CPU among them."""
+        return self.graph_captures
 
     @property
     def prefix_sharing_ok(self) -> bool:
@@ -718,10 +766,11 @@ class TorchEngine(_SlotEngineBase):
         the MoE ones through ``moe_impl``. Returns the calls made (1).
 
         ``max_chunk`` caps the chunk lengths of ``JaxEngine.warm``'s
-        (P, L, nd, maxb) lattice; the eager engine compiles nothing per
-        shape, so it is accepted and unused here. Capturing that lattice
-        as CUDA graphs is left to the CUDA-graphs work (ROADMAP queue 1
-        item 2)."""
+        (P, L, nd, maxb) lattice; it is accepted and unused here. Nothing
+        is captured here: the decode sub-batch's CUDA graph of a rung is
+        captured at the first decode step that reaches the rung, as JAX
+        compiles a program on first sight, and the prefill lattice is not
+        captured (ROADMAP queue 1 item 2)."""
         if self.device.type == "cuda":
             build.build()
         n = self.n_slots
@@ -821,13 +870,18 @@ class TorchEngine(_SlotEngineBase):
             if self.paged:
                 bts = self._block_tables(pre, P, nd, emit_dec)
                 bts_host = self._bts_host
-        # ---- ONE forward; the cache's pages and state written in place
+        # ---- ONE forward (or the decode pass, then the prefill pass);
+        # the cache's pages and state written in place
+        pre_rows = (pre_tokens, pre_slots, pre_start, pre_len, pre_reset,
+                    pre_sample)
         with span("engine.launch"):
-            sampled = self._step((pre_tokens, pre_slots, pre_start, pre_len,
-                                  pre_reset, pre_sample,
-                                  self.last_token[:nd].copy(),
-                                  self.slot_len[:nd].copy(), dec_active),
-                                 bts_host, bts)
+            if self._split and nd:
+                sampled = self._split_step(pre_rows, dec_active, bts[0])
+            else:
+                self.eager_decode_steps += int(nd > 0)
+                sampled = self._step((*pre_rows, self.last_token[:nd].copy(),
+                                      self.slot_len[:nd].copy(), dec_active),
+                                     bts_host, bts)
         with span("engine.sync"):
             out = sampled.cpu().numpy()   # the ONE device->host transfer
         with span("engine.post"):
@@ -882,16 +936,20 @@ class TorchEngine(_SlotEngineBase):
         """The paged layout's block tables of an iteration, on the
         device, sliced to the page-window bucket covering the longest
         live row; rebuilt only when a row's grant changed. The host
-        arrays they came from are left in ``_bts_host``."""
-        need = 1
+        arrays they came from are left in ``_bts_host``. Where the decode
+        sub-batch is its own pass (``_split``), its table covers the
+        decode rows alone and stays on the host, for ``_stage_decode``:
+        a table widened by empty columns reads the same result
+        (``plan_splits``), so the narrower rung is exact."""
+        need_pre = need_dec = 1
         for _, req, toks in pre:
-            need = max(need, blocks_for(req.prefilled + len(toks),
-                                        self.block_size))
+            need_pre = max(need_pre, blocks_for(req.prefilled + len(toks),
+                                                self.block_size))
         for slot, rid in enumerate(emit_dec):
             if rid is not None:
-                need = max(need, blocks_for(int(self.slot_len[slot]) + 1,
-                                            self.block_size))
-        maxb = self._maxb_bucket(need)
+                need_dec = max(need_dec, blocks_for(
+                    int(self.slot_len[slot]) + 1, self.block_size))
+        maxb = self._maxb_bucket(max(need_pre, need_dec))
         self.gather_bucket_hits[maxb] = \
             self.gather_bucket_hits.get(maxb, 0) + 1
         ver = self.pool.table_version
@@ -904,18 +962,139 @@ class TorchEngine(_SlotEngineBase):
             self._pre_bt_dev = self._dev(pre_bt)
             self._pre_bt_host = pre_bt
             self._pre_bt_key = pre_key
-        dec_key = (nd, maxb, tuple((rid, ver(rid)) if rid is not None
-                                   else None for rid in emit_dec))
+        dec_maxb = self._maxb_bucket(need_dec) if self._split else maxb
+        dec_key = (nd, dec_maxb, tuple((rid, ver(rid)) if rid is not None
+                                       else None for rid in emit_dec))
         if dec_key != self._dec_bt_key:
-            dec_bt = np.full((nd, maxb), -1, np.int32)
+            dec_bt = np.full((nd, dec_maxb), -1, np.int32)
             for slot, rid in enumerate(emit_dec):
                 if rid is not None:
                     self._block_row(dec_bt[slot], rid)
-            self._dec_bt_dev = self._dev(dec_bt)
+            self._dec_bt_dev = None if self._split else self._dev(dec_bt)
             self._dec_bt_host = dec_bt
             self._dec_bt_key = dec_key
         self._bts_host = (self._pre_bt_host, self._dec_bt_host)
         return self._pre_bt_dev, self._dec_bt_dev
+
+    # ------------------------------------------------ the decode pass
+    def _split_step(self, pre_rows: tuple, dec_active: np.ndarray,
+                    pre_bt) -> torch.Tensor:
+        """A step with decodes where the decode sub-batch is its own
+        pass: every copy to the device first (a pageable copy waits for
+        the stream, so after a replay it would hold the host behind the
+        card), then the decode pass at its rung, replayed from the rung's
+        CUDA graph (captured here on the rung's first step) or run
+        eagerly where nothing is captured, then the prefill rows, if any,
+        as an eager pass with no decode rows, whose launches overlap the
+        card's decode work. Returns the sampled ids, prefill rows then
+        decode slots."""
+        P = pre_rows[0].shape[0]
+        if P:
+            pre = [self._dev(a) for a in pre_rows]
+        maxb = self._dec_bt_host.shape[1] if self.paged else 1
+        captured = self._graphs.get(maxb)
+        if captured is None and self._capture:
+            with span("engine.capture"):
+                captured = self._capture_rung(maxb)
+        self._stage_decode(dec_active, maxb)
+        if captured is None:
+            dec = self._decode_forward(maxb)
+            self.eager_decode_steps += 1
+        else:
+            graph, dec, tally = captured
+            with span("engine.replay"):
+                graph.replay()
+            ops.add_tally(tally)
+            self.graph_replays += 1
+        if not P:
+            return dec
+        none = torch.zeros((0,), dtype=torch.int32, device=self.device)
+        ids = fused_serve_forward(self.params, self.cfg, self.cache, *pre,
+                                  none, none, none.bool(), pre_bt, None,
+                                  self.moe_impl, self._shard)
+        return torch.cat([ids, dec])
+
+    def _decode_inputs(self) -> tuple:
+        """The decode pass's static inputs, made on first use: one int32
+        buffer on the device that every rung's pass reads (tokens [n],
+        start [n], active [n], then the block table [n, maxb] row by row
+        at the rung's width, paged layout only) and its host staging
+        copy, pinned on the card."""
+        if self._dec_in is None:
+            n = self.n_slots
+            size = 3 * n + (n * self.max_blocks if self.paged else 0)
+            self._stage = torch.zeros(size, dtype=torch.int32,
+                                      pin_memory=self.device.type == "cuda")
+            self._dec_in = torch.zeros(size, dtype=torch.int32,
+                                       device=self.device)
+        return self._stage, self._dec_in
+
+    def _stage_decode(self, dec_active: np.ndarray, maxb: int) -> None:
+        """This step's decode inputs into the static buffer, through the
+        staging copy in one asynchronous copy. The step's own read of its
+        sampled ids orders the next step's reuse of the staging copy."""
+        stage, dev = self._decode_inputs()
+        n = self.n_slots
+        host = stage.numpy()
+        host[:n] = self.last_token
+        host[n:2 * n] = self.slot_len
+        host[2 * n:3 * n] = dec_active
+        k = 3 * n
+        if self.paged:
+            host[k:k + n * maxb] = self._dec_bt_host.reshape(-1)
+            k += n * maxb
+        dev[:k].copy_(stage[:k], non_blocking=True)
+
+    def _decode_forward(self, maxb: int) -> torch.Tensor:
+        """The decode sub-batch alone (``P = 0``) over the static inputs,
+        at rung ``maxb``: the sampled ids [n]."""
+        n = self.n_slots
+        _, buf = self._decode_inputs()
+        bt = buf[3 * n:3 * n + n * maxb].view(n, maxb) if self.paged \
+            else None
+        none = torch.zeros((0,), dtype=torch.int32, device=self.device)
+        return fused_serve_forward(
+            self.params, self.cfg, self.cache, none.view(0, 1), none, none,
+            none, none.bool(), none, buf[:n], buf[n:2 * n],
+            buf[2 * n:3 * n] != 0,
+            none.view(0, maxb) if self.paged else None, bt, self.moe_impl,
+            self._shard)
+
+    def _capture_rung(self, maxb: int) -> tuple:
+        """Capture the decode pass at rung ``maxb`` as a CUDA graph in the
+        engine's one graph pool, on its own stream, in the thread-local
+        mode (the async fleet steps engines on threads). The warm-up run
+        and the capture read an inert batch, no row active and every
+        table entry -1, as ``warm`` does: every write lands on the sink
+        page or row and no live page or state moves. The kernel counts
+        this thread adds in the two (``ops.recording``, so no other
+        engine's launches) are taken back; each replay adds those of one
+        pass. Returns (graph, its sampled ids, its counts)."""
+        n = self.n_slots
+        _, buf = self._decode_inputs()
+        with _CAPTURE_LOCK, torch.cuda.device(self.device):
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+                self._graph_stream = torch.cuda.Stream(self.device)
+            buf.zero_()
+            buf[3 * n:].fill_(-1)
+            side, main = self._graph_stream, torch.cuda.current_stream()
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                # lazy set-up (cuBLAS's workspace of this stream) outside
+                # the capture
+                with ops.recording() as warmed:
+                    self._decode_forward(maxb)
+                graph = torch.cuda.CUDAGraph()
+                with ops.recording() as counts, torch.cuda.graph(
+                        graph, pool=self._graph_pool, stream=side,
+                        capture_error_mode="thread_local"):
+                    out = self._decode_forward(maxb)
+            main.wait_stream(side)
+        ops.add_tally(warmed + counts, -1)
+        self._graphs[maxb] = (graph, out, counts)
+        self.graph_captures += 1
+        return self._graphs[maxb]
 
 
 class ReferenceTorchEngine(_SlotEngineBase):

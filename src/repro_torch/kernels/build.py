@@ -9,14 +9,16 @@ the CPU-only test machine has no ``nvcc``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Callable, Dict, Iterable, Iterator, List, Sequence
 
 import torch
 
@@ -36,9 +38,47 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # the first use builds and loads each library under this lock, so two
 # threads never run nvcc into one target or load a library twice
 _build_lock = threading.RLock()
-# guards the wrappers' launch and variant counts and ``ops``' plain-call
-# counts, which those threads update together
-count_lock = threading.Lock()
+
+
+class _CountLock:
+    """The lock over the wrappers' launch and variant counts and ``ops``'
+    plain-call counts, which engines on worker threads update together.
+    A thread inside ``recording`` also adds what each of its holds
+    changed to a ``Counter`` of its own, which another thread's launches
+    never enter (``ops.recording``)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def __enter__(self) -> None:
+        self._lock.acquire()
+        rec = getattr(self._local, "rec", None)
+        if rec is not None:
+            self._local.before = rec[1]()
+
+    def __exit__(self, *exc) -> None:
+        try:
+            rec = getattr(self._local, "rec", None)
+            if rec is not None:
+                rec[0].update(rec[1]() - self._local.before)
+        finally:
+            self._lock.release()
+
+    @contextlib.contextmanager
+    def recording(self, read: Callable[[], Counter]) -> Iterator[Counter]:
+        """While open, each hold by this thread adds the change of
+        ``read()`` (every count, read inside the lock) over the hold to
+        the yielded ``Counter``."""
+        prev = getattr(self._local, "rec", None)
+        self._local.rec = (Counter(), read)
+        try:
+            yield self._local.rec[0]
+        finally:
+            self._local.rec = prev
+
+
+count_lock = _CountLock()
 # nvcc's output of each build made by this process (-Xptxas -v: the
 # registers, shared memory and spills of every kernel)
 build_logs: Dict[str, str] = {}

@@ -29,6 +29,7 @@ and head, and DTensor's einsum over its chunked form fails on shards.
 from __future__ import annotations
 
 import contextlib
+from collections import Counter
 from typing import Dict, Iterator
 
 import torch
@@ -52,6 +53,10 @@ _COUNTERS = {"paged_attention": (_pa, "launches"),
              "rmsnorm_bwd": (_rms, "bwd_launches"),
              "ssd_scan": (_ssd, "launches"),
              "ssd_scan_bwd": (_ssd, "bwd_launches")}
+# the attention kernels' wrapper modules, which also count their launches
+# by variant and by head layout
+_ATTENTION = {"paged_attention": _pa, "paged_attention_int8": _pa8,
+              "chunked_prefill_attention": _cpa}
 # calls of each plain version made through this module (updated under
 # ``build.count_lock``, as the wrappers' launch counts are)
 plain_calls: Dict[str, int] = {name: 0 for name in _COUNTERS}
@@ -296,7 +301,7 @@ def reset_counts() -> None:
         for name, (mod, attr) in _COUNTERS.items():
             setattr(mod, attr, 0)
             plain_calls[name] = 0
-        for mod in (_pa, _pa8, _cpa):
+        for mod in _ATTENTION.values():
             mod.variants.clear()
             mod.heads.clear()
 
@@ -316,9 +321,7 @@ def variants() -> Dict[str, Dict]:
     variant: ``(head_dim, page)`` for decode, ``(head_dim, window)`` for
     prefill."""
     with build.count_lock:
-        return {name: dict(mod.variants) for name, mod in
-                (("paged_attention", _pa), ("paged_attention_int8", _pa8),
-                 ("chunked_prefill_attention", _cpa))}
+        return {name: dict(mod.variants) for name, mod in _ATTENTION.items()}
 
 
 def heads() -> Dict[str, Dict]:
@@ -326,6 +329,55 @@ def heads() -> Dict[str, Dict]:
     the ``(H, KV)`` of its query and its pages: a tensor-parallel rank
     launches at its local head counts."""
     with build.count_lock:
-        return {name: dict(mod.heads) for name, mod in
-                (("paged_attention", _pa), ("paged_attention_int8", _pa8),
-                 ("chunked_prefill_attention", _cpa))}
+        return {name: dict(mod.heads) for name, mod in _ATTENTION.items()}
+
+
+def _read() -> Counter:
+    """Every count of this module in one ``Counter`` (``tally``), read
+    by a caller that holds ``build.count_lock``."""
+    t = Counter()
+    for name, (mod, attr) in _COUNTERS.items():
+        t["launches", name] = getattr(mod, attr)
+        t["plain", name] = plain_calls[name]
+    for name, mod in _ATTENTION.items():
+        for kind in ("variants", "heads"):
+            for key, n in getattr(mod, kind).items():
+                t[kind, name, key] = n
+    return t
+
+
+def tally() -> Counter:
+    """Every count of this module in one ``Counter``, whose differences
+    are a stretch's counts: ``("launches", kernel)``, ``("plain",
+    kernel)``, and ``("variants", kernel, key)`` and ``("heads", kernel,
+    key)`` of the attention kernels."""
+    with build.count_lock:
+        return _read()
+
+
+def recording() -> contextlib.AbstractContextManager:
+    """A block whose yielded ``Counter`` gathers the counts that this
+    thread's kernel and plain-version calls add inside it, in ``tally``'s
+    keys; another thread's calls meanwhile are not in it. The counts
+    themselves move as ever."""
+    return build.count_lock.recording(_read)
+
+
+def add_tally(t: Counter, times: int = 1) -> None:
+    """Add ``times`` x ``t`` (a ``recording``, or a difference of two
+    ``tally()`` readings) to the counts: a replayed CUDA graph launches
+    the kernels that its capture counted, without calling their
+    wrappers."""
+    with build.count_lock:
+        for key, n in t.items():
+            kind, name = key[:2]
+            if kind == "launches":
+                mod, attr = _COUNTERS[name]
+                setattr(mod, attr, getattr(mod, attr) + times * n)
+            elif kind == "plain":
+                plain_calls[name] += times * n
+            else:
+                c = getattr(_ATTENTION[name], kind)
+                c[key[2]] += times * n
+                if not c[key[2]]:
+                    del c[key[2]]

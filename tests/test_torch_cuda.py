@@ -780,3 +780,274 @@ def test_dense_and_paged_engines_stream_alike_on_the_card(cuda):
         assert counts["chunked_prefill_attention"]["launches"] > 0
         streams[layout] = {rid: list(t) for rid, t in eng.generated.items()}
     assert streams["dense"] == streams["paged"]
+
+
+# ---------------------------------------------------------------- decode graphs
+# TorchEngine's decode sub-batch replayed from CUDA graphs against the same
+# passes run eagerly (``_capture`` off), through the plain scheduler of
+# tests/test_torch_decode_graphs.py::drive: 4 slots, 16-token pages,
+# admissions, releases and the rungs 1-4, 8 and 16.
+
+GRAPH_PATHS = {"bf16": ("llama3.2-3b", "paged", False),
+               "int8": ("llama3.2-3b", "paged", True),
+               "dense": ("llama3.2-3b", "dense", False),
+               "swa": ("gemma3-4b", "paged", False),
+               "mamba": ("mamba2-370m", "paged", False)}
+
+
+def _graph_engine(device, path, **kw):
+    """A warmed bf16 engine of ``GRAPH_PATHS[path]`` at d_model 256 (head
+    dim 64); a Mamba config takes the scan kernel's d_state 64 and chunk
+    64."""
+    import dataclasses
+
+    from test_torch_decode_graphs import make, tiny
+
+    arch, layout, quant = GRAPH_PATHS[path]
+    cfg = tiny(arch, d_model=256)
+    if cfg.ssm is not None:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, d_state=64, chunk=64))
+    eng = make(cfg, layout, device=device, dtype=torch.bfloat16,
+               kv_quant=quant, **kw)
+    eng.warm()
+    return eng
+
+
+@pytest.mark.parametrize("path", list(GRAPH_PATHS))
+def test_decode_graphs_stream_what_eager_passes_stream(cuda, path):
+    """Over 40 steps or more, the graphs' token streams and every page,
+    slot row and state row (the sink's aside) equal the eager passes' bit
+    for bit; every decode pass was a replay, one capture a rung."""
+    from test_torch_decode_graphs import assert_same_cache, drive
+
+    eager, graphed = _graph_engine(cuda, path), _graph_engine(cuda, path)
+    eager._capture = False
+    assert graphed._split and graphed._capture
+    steps = drive(eager)
+    assert drive(graphed) == steps >= 40
+    assert graphed.generated == eager.generated
+    assert_same_cache(graphed.cache, eager.cache)
+    assert graphed.eager_decode_steps == 0
+    assert graphed.graph_replays == eager.eager_decode_steps > 0
+    assert graphed.jit_compiles == graphed.graph_captures \
+        == len(graphed._graphs) >= (3 if graphed.paged else 1)
+    assert eager.graph_captures == eager.graph_replays == 0
+
+
+@pytest.mark.parametrize("path", ["bf16", "int8", "dense", "mamba"])
+def test_decode_capture_moves_no_live_state(cuda, path):
+    """Capturing every rung anew mid-run leaves every page, slot row and
+    state row as it was (the sink's aside), and the run then streams what
+    an eager run streams."""
+    from test_torch_decode_graphs import (QOS, _clone, assert_same_cache,
+                                          drive)
+    from repro_torch.core.request import Request
+    from repro_torch.core.scheduler import BatchPlan
+
+    eng = _graph_engine(cuda, path)
+    r = Request(rid=100, arrival=0.0, prompt_len=40, decode_len=20,
+                qos=QOS)
+    eng.on_admit(r)
+    eng.execute(BatchPlan(prefill=[(r, 40)]), 0.0)
+    r.prefilled = 40
+    for _ in range(3):
+        eng.execute(BatchPlan(decode=[r]), 0.0)
+    torch.cuda.synchronize()
+    before = _clone(eng.cache)
+    eng._graphs.clear()
+    for m in (eng._maxb_ladder() if eng.paged else [1]):
+        eng._capture_rung(m)
+    torch.cuda.synchronize()
+    assert_same_cache(before, eng.cache)
+    eng.on_release(r)
+    eager = _graph_engine(cuda, path)
+    eager._capture = False
+    drive(eng)
+    drive(eager)
+    del eng.generated[100]
+    assert eng.generated == eager.generated
+
+
+@pytest.mark.parametrize("path", ["bf16", "int8"])
+def test_decode_graph_replays_count_as_eager_launches(cuda, path):
+    """``ops.counts()``, ``variants()`` and ``heads()`` after a run of
+    replays equal those after the same run of eager passes: a capture's
+    warm-up and capture are taken back, each replay adds one pass."""
+    from test_torch_decode_graphs import drive
+
+    eager, graphed = _graph_engine(cuda, path), _graph_engine(cuda, path)
+    eager._capture = False
+    got = []
+    for eng in (eager, graphed):
+        ops.reset_counts()
+        drive(eng)
+        got.append((ops.counts(), ops.variants(), ops.heads()))
+    assert graphed.graph_replays > 0
+    assert got[1] == got[0]
+
+
+def test_decode_graphs_capture_on_two_threads(cuda):
+    """Two engines stepped on two threads at once (as the async fleet
+    steps its engines) capture and replay without error, and stream what
+    one eager engine streams."""
+    import threading
+
+    from test_torch_decode_graphs import drive
+
+    engines = [_graph_engine(cuda, "bf16") for _ in range(2)]
+    errors = []
+
+    def run(eng):
+        try:
+            drive(eng)
+        except BaseException as e:     # noqa: BLE001 - reported below
+            errors.append(e)
+    threads = [threading.Thread(target=run, args=(e,)) for e in engines]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    eager = _graph_engine(cuda, "bf16")
+    eager._capture = False
+    drive(eager)
+    for eng in engines:
+        assert eng.graph_captures >= 3 and eng.eager_decode_steps == 0
+        assert eng.generated == eager.generated
+
+
+
+def test_capture_counts_its_own_thread_alone(cuda):
+    """One engine captures and replays its decode passes while a second
+    engine on another thread runs eager prefill steps all the while:
+    ``ops.tally()`` (launches, plain calls, variants, heads) then equals
+    that of the same runs done eagerly one after the other, so none of
+    the second engine's launches enters the first's captured counts or
+    is taken back with its capture."""
+    import threading
+
+    from test_torch_decode_graphs import QOS, drive
+    from repro_torch.core.request import Request
+    from repro_torch.core.scheduler import BatchPlan
+
+    def engines(capture):
+        a, b = _graph_engine(cuda, "bf16"), _graph_engine(cuda, "bf16")
+        a._capture = capture
+        r = Request(rid=0, arrival=0.0, prompt_len=64, decode_len=1,
+                    qos=QOS)
+        b.on_admit(r)
+        ops.reset_counts()
+        return a, b, r
+
+    def prefill(b, r):
+        # the same 64 prompt tokens again: a prefill-only step
+        r.prefilled = 0
+        b.slot_len[b.slot_of[r.rid]] = 0
+        b.execute(BatchPlan(prefill=[(r, 64)]), 0.0)
+
+    a, b, r = engines(True)
+    done, errors, n = threading.Event(), [], [0]
+
+    def run():
+        try:
+            while not done.is_set():
+                prefill(b, r)
+                n[0] += 1
+        except BaseException as e:     # noqa: BLE001 - reported below
+            errors.append(e)
+    t = threading.Thread(target=run)
+    t.start()
+    try:
+        drive(a)
+    finally:
+        done.set()
+        t.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    got = ops.tally()
+    assert a.graph_captures >= 3 and a.eager_decode_steps == 0 and n[0]
+
+    a, b, r = engines(False)
+    drive(a)
+    for _ in range(n[0]):
+        prefill(b, r)
+    torch.cuda.synchronize()
+    assert a.graph_replays == 0
+    assert got == ops.tally()
+
+# the sync audit of the decode pass: (arch, layout, int8 pages, moe_impl)
+AUDIT = {"llama": ("llama3.2-3b", "paged", False, "grouped"),
+         "int8": ("llama3.2-3b", "paged", True, "grouped"),
+         "dense": ("llama3.2-3b", "dense", False, "grouped"),
+         "swa": ("gemma3-4b", "paged", False, "grouped"),
+         "mamba": ("mamba2-370m", "paged", False, "grouped"),
+         "moe-grouped": ("qwen3-moe-30b-a3b", "paged", False, "grouped"),
+         "moe-dropless": ("qwen3-moe-30b-a3b", "paged", False, "dropless")}
+
+
+@pytest.mark.parametrize("name", list(AUDIT))
+def test_decode_pass_reads_the_host_only_where_graphs_stay_off(cuda, name):
+    """The decode pass alone under ``torch.cuda.set_sync_debug_mode(
+    "error")``: it synchronises with the host exactly where
+    ``graphs_engage`` keeps the engine eager (the grouped MoE's segment
+    read)."""
+    import dataclasses
+
+    from test_torch_decode_graphs import QOS, make, tiny
+    from repro_torch.core.request import Request
+    from repro_torch.core.scheduler import BatchPlan
+    from repro_torch.engine.torch_backend import graphs_engage
+
+    arch, layout, quant, impl = AUDIT[name]
+    cfg = tiny(arch, d_model=256)
+    if cfg.ssm is not None:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, d_state=64, chunk=64))
+    eng = make(cfg, layout, device=cuda, dtype=torch.bfloat16,
+               kv_quant=quant, moe_impl=impl)
+    eng.warm()
+    r = Request(rid=0, arrival=0.0, prompt_len=40, decode_len=8, qos=QOS)
+    eng.on_admit(r)
+    eng.execute(BatchPlan(prefill=[(r, 40)]), 0.0)
+    r.prefilled = 40
+    eng.execute(BatchPlan(decode=[r]), 0.0)
+    maxb = eng._dec_bt_host.shape[1] if eng.paged else 1
+    active = np.zeros((eng.n_slots,), bool)
+    active[eng.slot_of[0]] = True
+    eng._stage_decode(active, maxb)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._decode_forward(maxb)
+        synced = False
+    except RuntimeError as e:
+        assert "synchroniz" in str(e), e
+        synced = True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert synced == (not graphs_engage(cfg, eng.device, 1, impl))
+    assert eng._split == (not synced)
+
+
+def test_profiler_sees_every_replayed_decode_kernel(cuda):
+    """Under ``torch.profiler`` (captures included), the trace holds both
+    decode kernels of every layer of every replayed pass and of every
+    capture's warm-up run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from test_torch_decode_graphs import drive
+
+    eng = _graph_engine(cuda, "bf16")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        drive(eng)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    partial = sum("paged_decode_partial" in k for k in kernels)
+    combine = sum("paged_decode_combine" in k for k in kernels)
+    want = eng.cfg.num_layers * (eng.graph_replays + eng.graph_captures)
+    assert eng.graph_replays > 0
+    assert partial == combine == want, (partial, combine, want)
