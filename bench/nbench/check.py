@@ -7,11 +7,12 @@ by then (in an overloaded cell few requests finish in a window): the
 one with the most served tokens first, then others in a seeded order
 until ``TARGET_TOKENS`` served tokens and ``TARGET_REQUESTS`` requests
 are in it (one long answer alone would leave most prompts unchecked). The
-reference (``bench/reference``, float32) runs once over each prompt
-followed by its served tokens, and at each position where the program
-chose a token it reads the gap by which that token's logit lies below
-the reference's best there: the widest gap and the mean gap over the
-checked tokens, and the largest of the checked requests' own mean gaps
+reference (the configuration's family module in ``bench/reference``,
+float32) runs once over each prompt followed by its served tokens, and
+at each position where the program chose a token it reads the gap by
+which that token's logit lies below the reference's best there: the
+widest gap and the mean gap over the checked tokens, and the largest of
+the checked requests' own mean gaps
 (``request_mean_gap``, so that a fault confined to one request or slot
 is not averaged away over the others) over the requests of at least
 ``REQUEST_TOKENS`` checked tokens (the longest request always among
@@ -38,7 +39,6 @@ import torch
 from nbench.records import ReqRec
 from nbench.traffic import seed_words
 from nbench.weights import SeededWeights
-from reference import decoder
 
 TARGET_TOKENS = 256
 TARGET_REQUESTS = 8
@@ -77,10 +77,10 @@ def _inputs(rids, prompts, served, device):
     return seqs, keep, toks
 
 
-def _logits(m, w: SeededWeights, seqs, keep, precision):
-    hid = decoder.final_hidden(m, w.group, seqs, keep, precision)
+def _logits(fam, m, w: SeededWeights, seqs, keep, precision):
+    hid = fam.final_hidden(m, w.group, seqs, keep, precision)
     head = w.group(m["num_layers"] + 2)["lm_head"]
-    out = [decoder.logits(m, head, h, precision) for h in hid]
+    out = [fam.logits(m, head, h, precision) for h in hid]
     del head, hid
     return out
 
@@ -124,22 +124,22 @@ def failed(per_request: Dict[int, dict], limits: Dict[str, float]) -> int:
 
 
 @torch.no_grad()
-def served_gaps(m: dict, w: SeededWeights, rids: Sequence[int],
+def served_gaps(fam, m: dict, w: SeededWeights, rids: Sequence[int],
                 prompts: Dict[int, np.ndarray], served: Dict[int, list],
                 device, control: bool = False) -> Dict[str, object]:
     """The gaps of the served tokens of ``rids`` in the float32
-    reference's logits (``_summary``), in all and by request (with the
-    request's checked tokens); with ``control``, also the fp8 control's
-    at the same positions."""
+    reference's logits (the family module ``fam``'s; ``_summary``), in
+    all and by request (with the request's checked tokens); with
+    ``control``, also the fp8 control's at the same positions."""
     seqs, keep, toks = _inputs(rids, prompts, served, device)
-    ref = _logits(m, w, seqs, keep, "fp32")
+    ref = _logits(fam, m, w, seqs, keep, "fp32")
     each = [_gap(lg, t) for lg, t in zip(ref, toks)]
     out = {"per_request": {r: dict(_summary([g]), tokens=len(g))
                            for r, g in zip(rids, each)},
            "tokens": int(sum(len(t) for t in toks))}
     out.update(_summary(each))
     if control:
-        ctl = _logits(m, w, seqs, keep, "fp8")
+        ctl = _logits(fam, m, w, seqs, keep, "fp8")
         cgaps = [_gap(lg, c.argmax(dim=-1)) for lg, c in zip(ref, ctl)]
         out.update({f"control_{k}": v for k, v in _summary(cgaps).items()})
         out["control_per_request"] = {

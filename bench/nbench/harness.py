@@ -1,7 +1,8 @@
 """One run of one cell: set-up, ramp, window, the readers, the check.
 
-Set-up draws the weights from the seed on the device and hands them to
-the program's replica, warms the engine (which builds and loads its
+Set-up draws the weights from the seed on the device (the leaves that
+the configuration's family module names) and hands them to the
+program's replica, warms the engine (which builds and loads its
 kernels), then offers the cell's traffic for the mix's ramp so that the
 running batch and the KV pool are at steady state when the window
 opens. The window measures for ``seconds``; then the peak memory is
@@ -41,6 +42,18 @@ def _top(d: Dict[str, float]) -> list:
             [:TOP_OPS]]
 
 
+def set_up(cell: spec.Cell, seed: int, device):
+    """The run's weights, drawn through the cell's family, and the
+    program's replica and engine built on them."""
+    m, serve_cfg = cell.config["model"], cell.config["serve"]
+    weights = SeededWeights(cell.family, m, seed, device,
+                            getattr(torch, serve_cfg["dtype"]))
+    rep, eng = program.build_replica(program.port_config(cell.config),
+                                     serve_cfg, weights, device)
+    weights.release()
+    return weights, rep, eng
+
+
 def run_cell(root: Path, cell_name: str, seed: int, seconds: float,
              trace: bool, device="cuda", t_start: Optional[float] = None,
              rate: Optional[float] = None, control: bool = False,
@@ -56,7 +69,6 @@ def run_cell(root: Path, cell_name: str, seed: int, seconds: float,
     cell = spec.load(root, cell_name)
     cfg_file, mix = cell.config, cell.mix
     m, serve_cfg = cfg_file["model"], cfg_file["serve"]
-    dtype = getattr(torch, serve_cfg["dtype"])
 
     marks = [("start", t_start)]
 
@@ -65,10 +77,7 @@ def run_cell(root: Path, cell_name: str, seed: int, seconds: float,
             torch.cuda.synchronize(device)
         marks.append((name, time.perf_counter()))
 
-    weights = SeededWeights(m, seed, device, dtype)
-    rep, eng = program.build_replica(program.port_config(cfg_file),
-                                     serve_cfg, weights, device)
-    weights.release()
+    weights, rep, eng = set_up(cell, seed, device)
     mark("weights")
     eng.warm()
     mark("warm")
@@ -87,7 +96,7 @@ def run_cell(root: Path, cell_name: str, seed: int, seconds: float,
     run = Run(model=m, seconds=float(seconds), t_open=t_open,
               t_close=t_close, setup_s=t_open - t_start,
               reqs=list(reqs.values()), steps=steps, serve=serve_cfg,
-              t_prof=t_prof)
+              t_prof=t_prof, family=cell.family)
     if tracer is not None:
         run.trace = tracer.reduce(sum(s.profiled for s in steps))
         tracer.prof = None
@@ -106,8 +115,8 @@ def run_cell(root: Path, cell_name: str, seed: int, seconds: float,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     rids = check.sample(reqs, served, seed)
-    got = check.served_gaps(m, weights, rids, prompts, served, device,
-                            control)
+    got = check.served_gaps(cell.family, m, weights, rids, prompts, served,
+                            device, control)
     mark("check")
     limits = cfg_file["check"]
     over = check.failed(got["per_request"], limits)
@@ -137,7 +146,7 @@ def run_cell(root: Path, cell_name: str, seed: int, seconds: float,
                       "backlog_slope_per_s": _slope(reqs, t_open, t_close,
                                                     _backlog),
                       "ttft_s_by_pct": _ttft_pcts(run)}
-    result["memory"] = _held(steps, cfg_file, peak)
+    result["memory"] = _held(steps, cfg_file, peak, cell.family)
     result["gaps"] = {k: got[k] for k in ("max_logit_gap", "mean_logit_gap",
                                           "request_mean_gap")}
     if control:
@@ -188,12 +197,13 @@ def _slope(reqs, t0: float, t1: float, count, n: int = 101) -> float:
         if var else 0.0
 
 
-def _held(steps, cfg_file: dict, peak: int) -> dict:
+def _held(steps, cfg_file: dict, peak: int, fam) -> dict:
     """The KV pool's most-held share over the run's steps, and the peak
     less the pool's blocks that no step held: the memory the run used,
-    beside the peak that counts the whole pool reserved."""
+    beside the peak that counts the whole pool reserved. A block holds
+    K and V in each of the family's ``kv_layers``."""
     m, serve = cfg_file["model"], cfg_file["serve"]
-    block = (2 * m["num_layers"] * m["num_kv_heads"] * m["head_dim"]
+    block = (2 * fam.kv_layers(m) * m["num_kv_heads"] * m["head_dim"]
              * getattr(torch, serve["dtype"]).itemsize * serve["block_size"])
     used = max((s.kv_used for s in steps), default=0)
     total = steps[-1].kv_total if steps else serve["kv_blocks"]

@@ -13,17 +13,28 @@ import numpy as np
 
 from nbench.traffic import Item, Tier
 
+
 def port_config(cfg_file: dict):
     """The program's ``ModelConfig`` named by the file's ``port.config``
-    (``module:attribute``), with ``port.replace`` applied (``moe`` as a
-    dict of its fields; ``num_layers`` repeats the first layer's kind);
-    raises unless its sizes are the file's ``model``."""
+    (``module:attribute``), with ``port.replace`` applied (``moe`` and
+    ``ssm`` as dicts of their fields; ``layers`` as a list of ``[mixer,
+    ffn]`` or ``[mixer, ffn, window]``; ``num_layers`` without
+    ``layers`` repeats the first layer's kind); raises unless its sizes
+    are the file's ``model``. Where ``model`` gives ``layers``, ``ssm``
+    or, beside ``moe``, ``d_ff``, they are compared too (``moe`` and
+    ``ssm`` by the fields the file names)."""
+    from repro_torch.models.config import LayerSpec
+
     mod, attr = cfg_file["port"]["config"].split(":")
     base = getattr(importlib.import_module(mod), attr)
     rep = dict(cfg_file["port"].get("replace", {}))
-    if "moe" in rep:
-        rep["moe"] = dataclasses.replace(base.moe, **rep["moe"])
-    if "num_layers" in rep:
+    for group in ("moe", "ssm"):
+        if group in rep:
+            rep[group] = dataclasses.replace(getattr(base, group),
+                                             **rep[group])
+    if "layers" in rep:
+        rep["layers"] = tuple(LayerSpec(*s) for s in rep["layers"])
+    elif "num_layers" in rep:
         # a uniform stack: the base's first layer kind, repeated
         rep["layers"] = base.layers[:1] * rep["num_layers"]
     cfg = dataclasses.replace(base, **rep)
@@ -33,12 +44,18 @@ def port_config(cfg_file: dict):
                head_dim=cfg.head_dim, vocab_size=cfg.vocab_size,
                rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps)
     if cfg.moe is not None:
-        got["moe"] = dict(num_experts=cfg.moe.num_experts,
-                          top_k=cfg.moe.top_k,
-                          d_ff_expert=cfg.moe.d_ff_expert)
-    else:
+        got["moe"] = {k: getattr(cfg.moe, k, None)
+                      for k in m.get("moe", {})}
+    if cfg.moe is None or "d_ff" in m:
         got["d_ff"] = cfg.d_ff
-    want = {k: m[k] for k in got}
+    if "ssm" in m:
+        got["ssm"] = {k: getattr(cfg.ssm, k, None) for k in m["ssm"]} \
+            if cfg.ssm is not None else None
+    if "layers" in m:
+        got["layers"] = [[s.mixer, s.ffn]
+                         + ([s.window] if s.window is not None else [])
+                         for s in cfg.layers]
+    want = {k: m.get(k) for k in got}
     if got != want:
         raise ValueError(f"{cfg.name}: the program's config {got} is not "
                          f"the file's {want}")

@@ -4,17 +4,19 @@ from __future__ import annotations
 from typing import Optional
 
 from nbench.records import Run
-from nbench.yardstick import PEAK_FLOPS, step_flops
+from nbench.yardstick import PEAK_FLOPS
 
 
 def mfu_pct(run: Run) -> Optional[float]:
-    """Model FLOPs of the work the window's steps did (every real token's
-    projections and FFN, a routed FFN's chosen experts only, attention
-    over the visible keys, the head over the rows that emitted a token:
-    ``yardstick.step_flops``) over the window's seconds at the card's
-    dense peak in the served dtype, in %. A traced run reads the part of
-    the window before the profiler started (``Run.host_steps``)."""
-    flops = sum(step_flops(run.model, s.chunks, s.ctxs, s.sampled)
+    """Model FLOPs of the work the window's steps did (the family's
+    ``step_flops``: for a decoder every real token's projections and
+    FFN, a routed FFN's chosen experts only, attention over the visible
+    keys, the head over the rows that emitted a token) over the window's
+    seconds at the card's dense peak in the served dtype, in %. A traced
+    run reads the part of the window before the profiler started
+    (``Run.host_steps``)."""
+    flops = sum(run.family.step_flops(run.model, s.chunks, s.ctxs,
+                                      s.sampled)
                 for s in run.host_steps())
     seconds = run.host_end - run.t_open
     return 100.0 * flops / (seconds * PEAK_FLOPS[run.dtype]) \

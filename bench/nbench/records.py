@@ -1,11 +1,12 @@
 """What a run leaves for the metric readers: the requests and the steps
-on the wall clock, the window, the model's sizes and, in a traced run,
-the reduced trace. ``pct`` is a frozen copy of
+on the wall clock, the window, the model's sizes and family module and,
+in a traced run, the reduced trace. ``pct`` is a frozen copy of
 ``repro_torch/serving/metrics.py::_pct`` (numpy's linear percentile).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from types import ModuleType
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -76,6 +77,7 @@ class Run:
     serve: dict = field(default_factory=dict)
     trace: Optional[Trace] = None
     t_prof: Optional[float] = None   # the profiler's start, traced runs
+    family: Optional[ModuleType] = None   # the model's family module
 
     @property
     def host_end(self) -> float:
@@ -87,6 +89,21 @@ class Run:
     def dtype(self):
         import torch
         return getattr(torch, self.serve["dtype"])
+
+    def tbt_gaps(self, end: float) -> List[float]:
+        """Seconds between consecutive output tokens of the interactive
+        tier, for every gap that ends in [``t_open``, ``end``); a request
+        of the tier still decoding at ``end`` adds its open gap, counted
+        to ``end``."""
+        gaps = []
+        for r in self.reqs:
+            if not r.interactive or not r.tokens:
+                continue
+            ts = [t for t in r.tokens if t < end]
+            gaps += [b - a for a, b in zip(ts, ts[1:]) if b >= self.t_open]
+            if ts and len(ts) < r.decode_len:
+                gaps.append(end - ts[-1])
+        return gaps
 
     def window_reqs(self) -> List[ReqRec]:
         return [r for r in self.reqs if r.in_window]

@@ -2,7 +2,8 @@
 root of the checkout, each configuration's file, each traffic mix's file
 (``bench/traffic/<traffic>.json``) and each metric's reader
 (``bench/metrics/<name>.py``, whose ``read(run)`` returns a number or
-None). A configuration, mix, cell or metric is added by adding its file
+None) and each configuration's family module (``nbench/family.py``). A
+configuration, family, mix, cell or metric is added by adding its file
 and its entry; nothing here names one.
 """
 from __future__ import annotations
@@ -11,8 +12,10 @@ import importlib.util
 import json
 from dataclasses import dataclass
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List
 
+from nbench import family
 from nbench.traffic import Mix
 
 
@@ -28,6 +31,7 @@ class Cell:
     name: str
     chips: int
     config: dict
+    family: ModuleType             # the configuration's family module
     mix: Mix
     metrics: List[Metric]          # the trace-0 run's
     traced_metrics: List[Metric]   # the trace-1 run's
@@ -58,6 +62,7 @@ def load(root: Path, cell_name: str) -> Cell:
     w = cells[cell_name]
     conf = {c["name"]: c for c in bench["configs"]}[w["config"]]
     config = json.loads((root / conf["file"]).read_text())
+    fam = family.load(root, config["model"])
     mix = Mix.load(root / "bench" / "traffic" / f"{w['traffic']}.json")
     e2e = [m for m in bench["end_to_end"] if _applies(m, cell_name, set())]
     reported = {m["name"] for m in e2e}
@@ -67,5 +72,5 @@ def load(root: Path, cell_name: str) -> Cell:
     def metrics(entries):
         return [Metric(m["name"], m["unit"], _reader(root, m["name"]))
                 for m in entries]
-    return Cell(cell_name, int(w["chips"]), config, mix, metrics(e2e),
+    return Cell(cell_name, int(w["chips"]), config, fam, mix, metrics(e2e),
                 metrics(layer))

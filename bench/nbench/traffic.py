@@ -12,7 +12,10 @@ the arrival process and its rate, the ramp's seconds and the seed of the
 set. ``schedule`` draws one fixed set of sizes, tiers and arrival times
 from the mix's own ``set_seed``, so every run of a cell offers the same
 work; the run's ``--seed`` only permutes which size arrives at which
-time and makes the prompts' token ids.
+time and makes the prompts' token ids. A mix may give ``reorder_block``:
+the seed then permutes each run of that many consecutive arrivals alone,
+so every request keeps its place within a second or so, and with it how
+its decode overlaps the others' prefills.
 """
 from __future__ import annotations
 
@@ -91,6 +94,7 @@ class Mix:
     rate: float
     ramp_s: float
     set_seed: int
+    reorder_block: int = 0
 
     @classmethod
     def load(cls, path: Path) -> "Mix":
@@ -106,7 +110,8 @@ class Mix:
             tier_probs=[float(p) for p in d["tier_shares"]],
             rate=float(d["arrivals"]["rate_per_s"]),
             ramp_s=float(d["ramp_s"]),
-            set_seed=int(d["set_seed"]))
+            set_seed=int(d["set_seed"]),
+            reorder_block=int(d.get("reorder_block", 0)))
 
 
 def _times(rng: np.random.Generator, rate: float, t0: float,
@@ -116,6 +121,16 @@ def _times(rng: np.random.Generator, rate: float, t0: float,
     sorted. Fixing the count keeps every run's load alike."""
     n = int(round(rate * length))
     return np.sort(t0 + rng.uniform(0.0, length, size=n))
+
+
+def _order(rng: np.random.Generator, n: int, block: int) -> np.ndarray:
+    """The seed's order of a part's ``n`` requests: one permutation of
+    all of them, or, with ``block``, of each run of ``block`` consecutive
+    ones alone."""
+    if not block:
+        return rng.permutation(n)
+    return np.concatenate([i + rng.permutation(min(block, n - i))
+                           for i in range(0, n, block)]).astype(np.int64)
 
 
 def seed_words(seed: int) -> List[int]:
@@ -130,7 +145,7 @@ def schedule(mix: Mix, seconds: float, seed: int,
     """The requests of one run: the ramp's, then the window's. Sizes,
     tiers and times come from ``mix.set_seed``; ``seed`` permutes the
     sizes and tiers over the times, within the ramp and within the
-    window separately. A request's prompt plus output never passes
+    window separately (within blocks of ``mix.reorder_block``). A request's prompt plus output never passes
     ``mix.max_len``: a prompt that would is cut to fit."""
     rate = mix.rate if rate is None else rate
     base = np.random.default_rng(mix.set_seed)
@@ -145,7 +160,7 @@ def schedule(mix: Mix, seconds: float, seed: int,
     perm_rng = np.random.default_rng(seed_words(seed) + [17])
     items: List[Item] = []
     for times, prompts, decodes, tiers, in_window in parts:
-        order = perm_rng.permutation(len(times))
+        order = _order(perm_rng, len(times), mix.reorder_block)
         for j, t in enumerate(times):
             k = order[j]
             items.append(Item(len(items), float(t), int(prompts[k]),

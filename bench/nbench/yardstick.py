@@ -1,5 +1,7 @@
-"""The yardstick's arithmetic: the table of peaks, a kernel's bound, the
-work that a plan's attention needs and the model FLOPs of a plan.
+"""The yardstick's arithmetic: the table of peaks, a kernel's bound and
+the work that a plan's attention needs. The model FLOPs of a plan depend
+on the architecture, so each family module counts its own
+(``step_flops``, ``nbench/family.py``).
 
 ``bound_ms``, ``_paged_work``, ``_live_tokens``, ``_prefill_mask`` and
 ``_prefill_work`` are frozen copies of ``chip_smoke.py``'s (the
@@ -106,26 +108,3 @@ def prefill_work(chunks: Iterable[Tuple[int, int]], H: int, KV: int,
             + 8
     return float(nbytes), 4.0 * pairs * H * D
 
-
-def step_flops(m: dict, chunks: Iterable[Tuple[int, int]],
-               ctxs: Iterable[int], sampled: int) -> float:
-    """Model FLOPs of one step: every layer's projections and FFN for
-    each real token (a routed FFN counts its ``top_k`` experts and the
-    router), the attention's two products over each query's visible
-    keys, and the output head for the ``sampled`` rows that emit a
-    token. ``chunks``: the prefill chunks ``(start, real)``; ``ctxs``:
-    the decode rows' lengths after this step's write."""
-    d, H, KV, hd, L = (m["d_model"], m["num_heads"], m["num_kv_heads"],
-                       m["head_dim"], m["num_layers"])
-    proj = 2.0 * (2 * d * H * hd + 2 * d * KV * hd)
-    moe = m.get("moe")
-    if moe:
-        ffn = 2.0 * d * moe["num_experts"] \
-            + moe["top_k"] * 6.0 * d * moe["d_ff_expert"]
-    else:
-        ffn = 6.0 * d * m["d_ff"]
-    chunks, ctxs = list(chunks), list(ctxs)
-    tokens = sum(r for _, r in chunks) + len(ctxs)
-    pairs = sum(r * s + r * (r + 1) // 2 for s, r in chunks) + sum(ctxs)
-    return L * (tokens * (proj + ffn) + 4.0 * H * hd * pairs) \
-        + sampled * 2.0 * d * m["vocab_size"]

@@ -7,7 +7,10 @@ layer at a time over all sequences, so that a layer's weights are held
 once and only while it runs. TF32 has to be off (``run.py`` sets it).
 It imports nothing of the program and takes nothing that the program
 made: its weights come from ``get(stream)``, the benchmark's own seeded
-draw (``nbench/weights.py``), whose names it reads.
+draw (``nbench/weights.py``) of the leaves that ``layer_leaves`` names.
+It is the ``decoder`` family (``nbench/family.py`` gives the contract):
+``layer_leaves``, ``final_hidden``, ``logits``, ``step_flops`` and
+``kv_layers``.
 
 The block, as published: RMSNorm with gain ``g`` (stored as ``g - 1``),
 rotary embedding over the two halves of each head (base ``rope_theta``),
@@ -30,13 +33,72 @@ above.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, Iterable, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 FP8_MAX = 448.0
 ROW_BLOCK = 16384
+
+
+def layer_leaves(m: dict, li: int) -> List[Tuple[str, tuple, float]]:
+    """(name, shape, std) of layer ``li``'s leaves, as the program's
+    ``state_dict`` names them; std 0 marks a norm. The scales are fan-in
+    scales: ``d ** -0.5`` for the projections out of the model width and
+    the router, ``(H * hd) ** -0.5`` for ``wo``, ``f ** -0.5`` for
+    ``w_down``."""
+    d, H, KV, hd = m["d_model"], m["num_heads"], m["num_kv_heads"], \
+        m["head_dim"]
+    p = f"layers.{li}."
+    out = [(p + "norm1", (d,), 0.0),
+           (p + "attn.wq", (d, H, hd), d ** -0.5),
+           (p + "attn.wk", (d, KV, hd), d ** -0.5),
+           (p + "attn.wv", (d, KV, hd), d ** -0.5),
+           (p + "attn.wo", (H, hd, d), (H * hd) ** -0.5),
+           (p + "norm2", (d,), 0.0)]
+    moe = m.get("moe")
+    if moe:
+        E, f = moe["num_experts"], moe["d_ff_expert"]
+        out += [(p + "moe.router", (d, E), d ** -0.5),
+                (p + "moe.w_gate", (E, d, f), d ** -0.5),
+                (p + "moe.w_up", (E, d, f), d ** -0.5),
+                (p + "moe.w_down", (E, f, d), f ** -0.5)]
+    else:
+        f = m["d_ff"]
+        out += [(p + "ffn.w_gate", (d, f), d ** -0.5),
+                (p + "ffn.w_up", (d, f), d ** -0.5),
+                (p + "ffn.w_down", (f, d), f ** -0.5)]
+    return out
+
+
+def kv_layers(m: dict) -> int:
+    """Every layer holds paged KV."""
+    return m["num_layers"]
+
+
+def step_flops(m: dict, chunks: Iterable[Tuple[int, int]],
+               ctxs: Iterable[int], sampled: int) -> float:
+    """Model FLOPs of one step: every layer's projections and FFN for
+    each real token (a routed FFN counts its ``top_k`` experts and the
+    router), the attention's two products over each query's visible
+    keys, and the output head for the ``sampled`` rows that emit a
+    token. ``chunks``: the prefill chunks ``(start, real)``; ``ctxs``:
+    the decode rows' lengths after this step's write."""
+    d, H, KV, hd, L = (m["d_model"], m["num_heads"], m["num_kv_heads"],
+                       m["head_dim"], m["num_layers"])
+    proj = 2.0 * (2 * d * H * hd + 2 * d * KV * hd)
+    moe = m.get("moe")
+    if moe:
+        ffn = 2.0 * d * moe["num_experts"] \
+            + moe["top_k"] * 6.0 * d * moe["d_ff_expert"]
+    else:
+        ffn = 6.0 * d * m["d_ff"]
+    chunks, ctxs = list(chunks), list(ctxs)
+    tokens = sum(r for _, r in chunks) + len(ctxs)
+    pairs = sum(r * s + r * (r + 1) // 2 for s, r in chunks) + sum(ctxs)
+    return L * (tokens * (proj + ffn) + 4.0 * H * hd * pairs) \
+        + sampled * 2.0 * d * m["vocab_size"]
 
 
 def _fp8(t: torch.Tensor, dim: int) -> torch.Tensor:

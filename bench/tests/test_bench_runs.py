@@ -2,7 +2,8 @@
 ``tiny_root`` fixture), on the CPU at tiny sizes: the metrics come out
 by name, the served tokens pass the check, and the check fails when a
 served token is altered where the engine produces it, or when the fp8
-control stands in for the program."""
+control stands in for the program. ``tiny.hybrid``'s family module, too,
+exists only in that checkout."""
 import json
 import subprocess
 import sys
@@ -14,15 +15,16 @@ from conftest import BENCH, ROOT
 from nbench import check, harness, spec
 
 SEED = 2 ** 31 + 11
+CELLS = ["tiny.dense", "tiny.moe", "tiny.hybrid"]
 
 
-@pytest.mark.parametrize("cell", ["tiny.dense", "tiny.moe"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_a_cell_defined_by_data_alone_runs_and_is_correct(tiny_root, cell):
     c = spec.load(tiny_root, cell)
     assert c.config["name"].startswith("tiny")
     res = harness.run_cell(tiny_root, cell, SEED, 2.0, False, "cpu")
     assert res["correct"], res["checks"]
-    assert set(res["metrics"]) == {"tbt_p95_ms", "tokens_s", "setup_s"}
+    assert set(res["metrics"]) == {"tokens_s", "setup_s"}
     assert res["attempted"] > 0 and res["failed"] == 0
     assert list(res)[-1] == "checks"
     assert res["checks"]["tokens_checked"]["value"] >= check.MIN_TOKENS
@@ -33,14 +35,15 @@ def test_the_traced_run_reports_the_per_layer_metrics(tiny_root):
     assert res["correct"]
     got = set(res["metrics"])
     assert {"sched_ms", "predictor_error_ms", "kv_used_pct",
-            "engine_ms.tbt", "mfu.tokens", "device_idle_pct"} <= got
+            "engine_ms.tbt", "tbt_p95_ms.host", "mfu.tokens",
+            "device_idle_pct"} <= got
     # no kernel runs on the CPU: the kernels' shares find nothing to read
     assert "decode_attn_roofline" not in got
     assert res["device"]["window_s"] > 0
     assert set(res["breakdown"]) == {"device_ops", "idle_gaps"}
 
 
-@pytest.mark.parametrize("cell", ["tiny.dense", "tiny.moe"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_an_altered_token_fails_the_check(tiny_root, cell, monkeypatch):
     """A fault where tokens are produced: every sampled id of one step in
     five is moved to its neighbour."""
@@ -64,7 +67,7 @@ def test_an_altered_token_fails_the_check(tiny_root, cell, monkeypatch):
     assert res["failed"] > 0
 
 
-@pytest.mark.parametrize("cell", ["tiny.dense", "tiny.moe"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_the_fp8_control_fails_the_limit(tiny_root, cell):
     """The control: the reference with fp8 operands at the same positions
     reads a gap far above the program's and above the limit."""

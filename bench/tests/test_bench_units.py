@@ -3,6 +3,7 @@ reduction, the readers' arithmetic on a hand-made run."""
 import types
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from conftest import BENCH
@@ -29,6 +30,29 @@ def test_every_seed_offers_the_same_work_in_another_order(name):
     win = [i for i in a if i.in_window]
     assert len(win) == round(mix.rate * 30)
     assert all(mix.ramp_s <= i.offset < mix.ramp_s + 30 for i in win)
+
+
+def test_a_reorder_block_permutes_each_block_alone():
+    """With ``reorder_block`` every run of that many consecutive arrivals
+    holds the same requests on every seed, in another order; without it
+    the order is one permutation of the whole part, as before."""
+    mix = _mix("conv.qwen-7b")
+    assert mix.reorder_block == 4
+    a = traffic.schedule(mix, 51, 2 ** 31 + 7)
+    b = traffic.schedule(mix, 51, 3 * 2 ** 31 + 1)
+    for part in (False, True):
+        pa = [i for i in a if i.in_window is part]
+        pb = [i for i in b if i.in_window is part]
+        key = lambda s: sorted((i.prompt_len, i.decode_len, i.tier)
+                               for i in s)
+        for j in range(0, len(pa), 4):
+            assert key(pa[j:j + 4]) == key(pb[j:j + 4])
+        assert [i.prompt_len for i in pa] != [i.prompt_len for i in pb]
+    rng, ref = (np.random.default_rng(5) for _ in range(2))
+    assert (traffic._order(rng, 37, 0) == ref.permutation(37)).all()
+    blocked = traffic._order(np.random.default_rng(5), 37, 4)
+    assert sorted(blocked) == list(range(37))
+    assert all(j // 4 == k // 4 for j, k in enumerate(blocked))
 
 
 def test_prompt_tokens_follow_the_seed():
@@ -98,7 +122,7 @@ def test_readers_on_a_hand_made_run():
     run = _run()
     # Q1 gaps ending in the window: 0.1 (1.3), 1.2 (2.5), 0.3 (2.9); the
     # open gap of request 2: 3.0 - 2.9
-    assert _reader("tbt_p95_ms")(run) == pytest.approx(
+    assert _reader("tbt_p95_ms.host")(run) == pytest.approx(
         records._pct([100.0, 1200.0, 300.0, 100.0], 95))
     # prompt 100 + 50 + 80, output tokens in [1, 3): 7
     assert _reader("tokens_s")(run) == pytest.approx((230 + 7) / 2.0)
@@ -123,6 +147,10 @@ def test_a_traced_run_reads_the_host_side_before_the_profiler():
     assert _reader("engine_ms.tbt")(run) == pytest.approx(170.0)
     assert _reader("predictor_error_ms")(run) == pytest.approx(
         1e3 * (0.24 + 0.07) / 2)
+    # Q1 gaps ending in [1, 2.5): 0.1 (1.3); open at 2.5: request 0 since
+    # 1.3; request 2 has no token before 2.5
+    assert _reader("tbt_p95_ms.host")(run) == pytest.approx(
+        records._pct([100.0, 1200.0], 95))
     # the end-to-end readers keep the whole window
     assert _reader("tokens_s")(run) == pytest.approx((230 + 7) / 2.0)
 

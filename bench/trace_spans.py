@@ -91,13 +91,12 @@ def serve(root: Path, cell_name: str, seed: int, seconds: float,
           trace: bool, on: bool, device="cuda", audit: int = 0) -> dict:
     import torch
 
-    from nbench import program, readers, spec
+    from nbench import harness, program, readers, spec
     from nbench.profile import Profiled, reduce_events
     from nbench.records import Run
     from nbench.serve import drive
     from nbench.spans import host_readings, reduce_program
     from nbench.traffic import prompt_tokens, schedule
-    from nbench.weights import SeededWeights
     from repro_torch.obs import spans as table
 
     t_start = time.perf_counter()
@@ -107,11 +106,7 @@ def serve(root: Path, cell_name: str, seed: int, seconds: float,
     cell = spec.load(root, cell_name)
     cfg_file, mix = cell.config, cell.mix
     m, serve_cfg = cfg_file["model"], cfg_file["serve"]
-    weights = SeededWeights(m, seed, device,
-                            getattr(torch, serve_cfg["dtype"]))
-    rep, eng = program.build_replica(program.port_config(cfg_file),
-                                     serve_cfg, weights, device)
-    weights.release()
+    _, rep, eng = harness.set_up(cell, seed, device)
     eng.warm()
     items = schedule(mix, seconds, seed)
     prompts = {it.rid: prompt_tokens(seed, it.rid, it.prompt_len,
@@ -130,7 +125,7 @@ def serve(root: Path, cell_name: str, seed: int, seconds: float,
     run = Run(model=m, seconds=float(seconds), t_open=t_open,
               t_close=t_close, setup_s=t_open - t_start,
               reqs=list(reqs.values()), steps=steps, serve=serve_cfg,
-              t_prof=t_prof)
+              t_prof=t_prof, family=cell.family)
     out = {"workload": cell_name, "seed": seed, "trace": int(trace),
            "spans": int(on), "steps": len(steps)}
     if tracer is not None:
